@@ -4,19 +4,29 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-1. environment: versions, the card's name and power limit; TF32 off;
-2. build: every CUDA kernel of the serving path, from
+1. environment: versions, the card's name and power limit; TF32 off (for
+   every phase, the train phase's step times included);
+2. build: the five CUDA kernels of the serving and training paths (four
+   sources, one ``nvcc`` each, started together), from
    ``golf_tpu_torch/kernels/csrc``;
 3. kernels vs their plain PyTorch versions, on the card, at the shapes the
-   serving path gives them, with each one's time, its plain version's time
-   and its roofline bound;
+   serving path (B1, B2, B4) and the training path (all five) give them,
+   with each one's time, its plain version's time and its roofline bound;
+   then each autograd Function's backward through the kernels against the
+   same Function on the plain versions, on the same cotangent;
 4. serve: the full-width Interspeech24 autoencoder (the encoder of
    ``cfg/ae/vctk.yaml``) with the GOLF-ff decoder (``golf.yaml``), then the
    GOLF-ss decoder (``golf-precise.yaml``), seeded random weights, answers
    4 synthetic 6 s requests batched as B = 4; each kernel's launch count
    must move; one 2 s request is held against the port's own CPU run;
-5. summary: a ``kernels:`` line, then one JSON line per kernel table;
-6. last line: ``{"ok": true, "device": {...}}``.
+5. train: the same two models take 3 Adam steps each through the port's
+   ``Trainer`` on B = 64 synthetic items of 2 s; every loss must be finite
+   and B3a, B3b and B2 (GOLF-ff) or B4 (GOLF-ss) must launch; one step at
+   B = 2 x 1 s (dropout 0, train mode) is held against the port's CPU run,
+   loss and every gradient;
+6. summary: a ``kernels:`` line, the card, then one JSON line with the
+   kernel table;
+7. last line: ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device, and exits non-zero without one. Imports torch and
 golf_tpu_torch only.
@@ -35,19 +45,28 @@ import torch
 
 from golf_tpu_torch import kernels
 from golf_tpu_torch.core.sig import Sig, linear_upsample
-from golf_tpu_torch.ops.allpole import (allpole_const_cuda,
+from golf_tpu_torch.ops import lookup as lk
+from golf_tpu_torch.ops.allpole import (allpole, allpole_const,
+                                        allpole_const_cuda,
                                         allpole_const_plain, allpole_cuda,
                                         allpole_plain)
 from golf_tpu_torch.ops.dsp import rc2lpc
-from golf_tpu_torch.ops.lookup import lookup_blocks_cuda, lookup_blocks_plain
 from golf_tpu_torch.tasks.ae import VoiceAutoEncoder, build_voice_autoencoder
 from golf_tpu_torch.tasks.data import SyntheticVoiceDataset
+from golf_tpu_torch.train.loop import Trainer, trainable_parameters
 
 SEED = 0
 SR = 24000
 BATCH = 4
 SECONDS = 6.0
 CHECK_SECONDS = 2.0
+TRAIN_BATCH = 64            # cfg/ae/vctk.yaml: batch 64 of 2 s segments
+TRAIN_SECONDS = 2.0
+TRAIN_STEPS = 3
+TRAIN_CHECK_BATCH = 2       # the card-vs-CPU training step
+TRAIN_CHECK_SECONDS = 1.0
+TRAIN_GRAD_TOL = 1e-3       # of each gradient's largest entry
+PYRAMID_GRAD_TOL = 2e-2     # the encoder's conv pyramid (phase_train_vs_cpu)
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32 (non-tensor)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -120,9 +139,10 @@ def model_config(decoder: str) -> dict:
 
 
 def main_path_shapes(batch: int, t: int) -> dict:
-    """Operand shapes each kernel gets from the serving path for ``batch``
-    clips of ``t`` samples at the vctk widths (hop 240, 4x oversampling,
-    table hop 10 frames, 960-sample GOLF-ff windows, order 22)."""
+    """Operand shapes each kernel gets from the serving or training path for
+    ``batch`` clips of ``t`` samples at the vctk widths (hop 240, 4x
+    oversampling, table hop 10 frames, 960-sample GOLF-ff windows, order
+    22). B3b's second shape is that of the table cotangent it returns."""
     hop, os_, p = 240, 4, 22
     frames = -(-t // hop)                      # f0 frames (spectrogram: +1)
     table_rows = (frames + 2 * 5 - 10) // 10 + 1
@@ -133,8 +153,11 @@ def main_path_shapes(batch: int, t: int) -> dict:
     t_src = min(t, (frames - 1) * hop)
     t_ss = min(t_src, (frames - 1) * hop + 1)
     n_ff = batch * min((t_ss + 960 - 960) // hop + 1, frames)
+    lookup = ((batch, blocks, hop_os), (batch, table_rows, 2048))
     return {
-        "lookup": ((batch, blocks, hop_os), (batch, table_rows, 2048)),
+        "lookup": lookup,
+        "lookup_res": lookup,
+        "lookup_dtab": lookup,
         "allpole_const": ((n_ff, 960), (n_ff, p)),
         "allpole_tv": ((batch, t_ss), (batch, t_ss, p)),
     }
@@ -234,64 +257,174 @@ def phase_build() -> None:
             print(f"  ptxas[{name}]: {ln}")
 
 
-def phase_kernels(shapes: dict) -> dict:
-    """Each kernel against its plain version on the same inputs."""
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    rows = {}
-
+def lookup_inputs(gen, shapes):
     (b, blocks, hop), tab_shape = shapes["lookup"]
-    ph = torch.rand((b, blocks, hop), generator=gen, device=dev)
-    tables = torch.randn(tab_shape, generator=gen, device=dev)
-    out = lookup_blocks_cuda(ph, tables, hop)
-    ref = lookup_blocks_plain(ph, tables, hop)
-    err = (out - ref).abs().max().item()
-    print(f"lookup {tuple(ph.shape)} x {tuple(tables.shape)}: "
-          f"max abs err {err:.3e} (tolerance 2e-6)")
-    check(err <= 2e-6, "lookup vs plain")
-    n_el = ph.numel()
-    rows["lookup"] = dict(
-        err=err, ms=cuda_ms(lambda: lookup_blocks_cuda(ph, tables, hop), 200),
-        plain_ms=cuda_ms(lambda: lookup_blocks_plain(ph, tables, hop), 20),
-        bound=bound(4 * (2 * n_el + tables.numel()), 15 * n_el))
+    ph = torch.rand((b, blocks, hop), generator=gen, device="cuda")
+    tables = torch.randn(tab_shape, generator=gen, device="cuda")
+    return ph, tables, hop
 
-    x_shape, a_shape = shapes["allpole_const"]
-    x = torch.randn(x_shape, generator=gen, device=dev)
-    a = lpc_coeffs(gen, a_shape, dev)
-    out = allpole_const_cuda(x, a)
-    ref = allpole_const_plain(x, a)
-    err = (out - ref).abs().max().item()
-    rel = err / ref.abs().max().item()
-    print(f"allpole_const {tuple(x.shape)} p={a.shape[1]}: max err "
-          f"{err:.3e}, / max|y| {rel:.3e} (tolerance 1e-5)")
-    check(rel <= 1e-5 and torch.isfinite(out).all().item(),
-          "allpole_const vs plain")
-    rows["allpole_const"] = dict(
-        err=err, ms=cuda_ms(lambda: allpole_const_cuda(x, a), 50),
-        plain_ms=cuda_ms(lambda: allpole_const_plain(x, a), 5),
-        bound=bound(4 * (2 * x.numel() + a.numel()), 2 * a.numel()
-                    * x.shape[1]))
 
+def allpole_tv_inputs(gen, shapes):
+    """x and sample-rate coefficients upsampled from frames, as the GOLF-ss
+    filter makes them."""
     x_shape, a_shape = shapes["allpole_tv"]
     bsz, t = x_shape
     frames = -(-t // 240) + 1
-    x = torch.randn(x_shape, generator=gen, device=dev)
-    a_frames = lpc_coeffs(gen, (bsz, frames, a_shape[2]), dev)
+    x = torch.randn(x_shape, generator=gen, device="cuda")
+    a_frames = lpc_coeffs(gen, (bsz, frames, a_shape[2]), "cuda")
     a = linear_upsample(a_frames, 240, axis=1)[:, :t].contiguous()
-    out = allpole_cuda(x, a)
-    ref = allpole_plain(x, a)
-    err = (out - ref).abs().max().item()
-    rel = err / ref.abs().max().item()
-    print(f"allpole_tv {tuple(x.shape)} p={a.shape[2]}: max err {err:.3e}, "
-          f"/ max|y| {rel:.3e} (tolerance 1e-4: sequential vs two-pass "
-          f"blocked rounding)")
-    check(rel <= 1e-4 and torch.isfinite(out).all().item(),
-          "allpole_tv vs plain")
-    rows["allpole_tv"] = dict(
-        err=err, ms=cuda_ms(lambda: allpole_cuda(x, a), 10),
-        plain_ms=cuda_ms(lambda: allpole_plain(x, a), 3, warmup=1),
-        bound=bound(4 * (2 * x.numel() + a.numel()), 2 * a.numel()))
+    return x, a
+
+
+def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((out - ref).abs().max() / ref.abs().max()).item()
+
+
+def phase_kernels(shapes: dict, which=("lookup", "allpole_const",
+                                       "allpole_tv"), label="serve") -> dict:
+    """Each kernel against its plain version on the same inputs, with its
+    time, the plain version's time and the roofline bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {}
+    ph, tables, hop = lookup_inputs(gen, shapes)
+    n_el = ph.numel()
+    if "lookup" in which:
+        out = lk.lookup_blocks_cuda(ph, tables, hop)
+        err = (out - lk.lookup_blocks_plain(ph, tables, hop)).abs().max()
+        err = err.item()
+        print(f"[{label}] lookup (B1) {tuple(ph.shape)} x "
+              f"{tuple(tables.shape)}: max abs err {err:.3e} "
+              f"(tolerance 2e-6)")
+        check(err <= 2e-6, "lookup vs plain")
+        rows["lookup"] = dict(
+            err=err, ms=cuda_ms(lambda: lk.lookup_blocks_cuda(ph, tables,
+                                                              hop), 100),
+            plain_ms=cuda_ms(lambda: lk.lookup_blocks_plain(ph, tables, hop),
+                             10),
+            bound=bound(4 * (2 * n_el + tables.numel()), 15 * n_el))
+    if "lookup_res" in which:
+        outs = lk.lookup_res_cuda(ph, tables, hop)
+        refs = lk.lookup_res_plain(ph, tables, hop)
+        errs = [(o - r).abs().max().item() for o, r in zip(outs, refs)]
+        print(f"[{label}] lookup_res (B3a) {tuple(ph.shape)} x "
+              f"{tuple(tables.shape)}: max abs err out {errs[0]:.3e} "
+              f"(tolerance 2e-6, as B1), d_top {errs[1]:.3e}, d_bot "
+              f"{errs[2]:.3e} (tolerance 0: differences of the same "
+              f"gathered values)")
+        check(errs[0] <= 2e-6 and errs[1] == 0 and errs[2] == 0,
+              "lookup_res vs plain")
+        rows["lookup_res"] = dict(
+            err=max(errs),
+            ms=cuda_ms(lambda: lk.lookup_res_cuda(ph, tables, hop), 50),
+            plain_ms=cuda_ms(lambda: lk.lookup_res_plain(ph, tables, hop),
+                             5),
+            bound=bound(4 * (4 * n_el + tables.numel()), 17 * n_el))
+    if "lookup_dtab" in which:
+        g = torch.randn(ph.shape, generator=gen, device="cuda")
+        frames, s = tables.shape[1], tables.shape[2]
+        out = lk.lookup_dtab_cuda(ph, g, hop, frames, s)
+        ref = lk.lookup_dtab_plain(ph, g, hop, frames, s)
+        err = (out - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        print(f"[{label}] lookup_dtab (B3b) {tuple(ph.shape)} -> "
+              f"{tuple(out.shape)}: max abs err {err:.3e}, / max|ref| "
+              f"{rel:.3e} (tolerance 1e-5: shared-memory atomics add in "
+              f"an order that changes from run to run)")
+        check(rel <= 1e-5 and out.shape == tables.shape,
+              "lookup_dtab vs plain")
+        rows["lookup_dtab"] = dict(
+            err=err,
+            ms=cuda_ms(lambda: lk.lookup_dtab_cuda(ph, g, hop, frames, s),
+                       50),
+            plain_ms=cuda_ms(lambda: lk.lookup_dtab_plain(ph, g, hop, frames,
+                                                          s), 5),
+            bound=bound(4 * (2 * n_el + out.numel()), 20 * n_el))
+
+    if "allpole_const" in which:
+        x_shape, a_shape = shapes["allpole_const"]
+        x = torch.randn(x_shape, generator=gen, device="cuda")
+        a = lpc_coeffs(gen, a_shape, "cuda")
+        out = allpole_const_cuda(x, a)
+        ref = allpole_const_plain(x, a)
+        err = (out - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        print(f"[{label}] allpole_const (B2) {tuple(x.shape)} p={a.shape[1]}:"
+              f" max err {err:.3e}, / max|y| {rel:.3e} (tolerance 1e-5)")
+        check(rel <= 1e-5 and torch.isfinite(out).all().item(),
+              "allpole_const vs plain")
+        rows["allpole_const"] = dict(
+            err=err, ms=cuda_ms(lambda: allpole_const_cuda(x, a), 20),
+            plain_ms=cuda_ms(lambda: allpole_const_plain(x, a), 3),
+            bound=bound(4 * (2 * x.numel() + a.numel()), 2 * a.numel()
+                        * x.shape[1]))
+
+    if "allpole_tv" in which:
+        x, a = allpole_tv_inputs(gen, shapes)
+        out = allpole_cuda(x, a)
+        ref = allpole_plain(x, a)
+        err = (out - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        print(f"[{label}] allpole_tv (B4) {tuple(x.shape)} p={a.shape[2]}: "
+              f"max err {err:.3e}, / max|y| {rel:.3e} (tolerance 1e-4: "
+              f"sequential vs two-pass blocked rounding)")
+        check(rel <= 1e-4 and torch.isfinite(out).all().item(),
+              "allpole_tv vs plain")
+        rows["allpole_tv"] = dict(
+            err=err, ms=cuda_ms(lambda: allpole_cuda(x, a), 5),
+            plain_ms=cuda_ms(lambda: allpole_plain(x, a), 1, warmup=1),
+            bound=bound(4 * (2 * x.numel() + a.numel()), 2 * a.numel()))
     return rows
+
+
+def grads_of(fn, inputs, g):
+    outs = fn(*inputs)
+    return torch.autograd.grad(outs, inputs, g)
+
+
+def phase_backward(shapes: dict) -> None:
+    """Each autograd Function's backward through the kernels against the
+    same Function on the plain versions, on the card, at the training
+    shapes and on the same cotangent."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    ph, tables, hop = lookup_inputs(gen, shapes)
+    ph.requires_grad_()
+    tables.requires_grad_()
+    g = torch.randn(ph.shape, generator=gen, device="cuda")
+    got = grads_of(lambda p_, t: lk.lookup_blocks(p_, t, hop, lk.CUDA_OPS),
+                   (ph, tables), g)
+    ref = grads_of(lambda p_, t: lk.lookup_blocks(p_, t, hop, lk.PLAIN_OPS),
+                   (ph, tables), g)
+    errs = [rel_err(u, v) for u, v in zip(got, ref)]
+    print(f"backward lookup (B3a, then B3b) d_ph {errs[0]:.3e}, d_tables "
+          f"{tuple(got[1].shape)} {errs[1]:.3e} of max|ref| (tolerance "
+          f"1e-5: the atomics' order)")
+    check(max(errs) <= 1e-5, "lookup backward vs plain")
+
+    x_shape, a_shape = shapes["allpole_const"]
+    x = torch.randn(x_shape, generator=gen, device="cuda").requires_grad_()
+    a = lpc_coeffs(gen, a_shape, "cuda").requires_grad_()
+    g = torch.randn(x_shape, generator=gen, device="cuda")
+    got = grads_of(lambda x_, a_: allpole_const(x_, a_, allpole_const_cuda),
+                   (x, a), g)
+    ref = grads_of(lambda x_, a_: allpole_const(x_, a_, allpole_const_plain),
+                   (x, a), g)
+    errs = [rel_err(u, v) for u, v in zip(got, ref)]
+    print(f"backward allpole_const (B2 on the reversed cotangent) dx "
+          f"{errs[0]:.3e}, da {errs[1]:.3e} of max|ref| (tolerance 1e-4: "
+          f"sequential vs blocked two-pass, da sums 960 products a row)")
+    check(max(errs) <= 1e-4, "allpole_const backward vs plain")
+
+    x, a = allpole_tv_inputs(gen, shapes)
+    x.requires_grad_()
+    a.requires_grad_()
+    g = torch.randn(x.shape, generator=gen, device="cuda")
+    got = grads_of(lambda x_, a_: allpole(x_, a_, allpole_cuda), (x, a), g)
+    ref = grads_of(lambda x_, a_: allpole(x_, a_, allpole_plain), (x, a), g)
+    errs = [rel_err(u, v) for u, v in zip(got, ref)]
+    print(f"backward allpole_tv (B4 on flipped, column-shifted a) dx "
+          f"{errs[0]:.3e}, da {errs[1]:.3e} of max|ref| (tolerance 1e-4: "
+          f"sequential vs blocked two-pass)")
+    check(max(errs) <= 1e-4, "allpole_tv backward vs plain")
 
 
 def seeded_model(decoder: str, device) -> VoiceAutoEncoder:
@@ -376,37 +509,185 @@ def phase_serve(decoder: str, expect: dict) -> dict:
     return counts
 
 
+def train_model_config(decoder: str, dropout: float = None) -> dict:
+    cfg = model_config(decoder)
+    if dropout is not None:
+        cfg["encoder_init_args"]["dropout"] = dropout
+    return cfg
+
+
+def phase_train(decoder: str, expect: dict) -> dict:
+    """3 Adam steps of the full-width model on B = 64 x 2 s through the
+    port's Trainer; every loss finite; the path's kernels launched at the
+    training shapes."""
+    dev = torch.device("cuda")
+    torch.manual_seed(SEED)
+    task = seeded_model(decoder, dev)
+    x, f0 = requests(TRAIN_BATCH, TRAIN_SECONDS)
+    xs, f0s = Sig(x.to(dev), 1), Sig(f0.to(dev), 1)
+    trainer = Trainer(task, run_dir="chiprun_out/chip_smoke_train",
+                      max_steps=TRAIN_STEPS, seed=SEED)
+    task.init_running_stats(xs, f0s)
+    path = {"golf": ("lookup_res", "lookup_dtab", "allpole_const"),
+            "golf-precise": ("lookup_res", "lookup_dtab", "allpole_tv")
+            }[decoder]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.ALL:
+        k.launches = 0
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(xs, f0s)
+        losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        trainer.step += 1
+    counts = {k.name: k.launches for k in kernels.ALL}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train {decoder}: B={TRAIN_BATCH} x {TRAIN_SECONDS:.0f} s, "
+          f"losses {', '.join(f'{v:.5f}' for v in losses)}; step wall "
+          f"time (host clock around synchronize, TF32 off) "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; grad norm "
+          f"{metrics['grad_norm'].item():.4g}; peak memory "
+          f"{peak:.2f} GiB; launches {counts}")
+    check(all(np.isfinite(losses)), f"{decoder} train losses finite")
+    per_step = {"lookup_res": 1, "lookup_dtab": 1, "allpole_const": 2,
+                "allpole_tv": 2}
+    for name in path:
+        check(counts[name] >= per_step[name] * TRAIN_STEPS,
+              f"{decoder} train launched {name} {counts[name]} times")
+        k = next(k for k in kernels.ALL if k.name == name)
+        check(k.last_shapes == expect[name],
+              f"{name} shapes {k.last_shapes} == {expect[name]}")
+    return counts
+
+
+def phase_train_vs_cpu(decoder: str) -> None:
+    """One training step at B = 2 x 1 s, full width, on the card and on the
+    CPU: same weights, noise and random f0, dropout 0, train mode (cuDNN
+    has no RNN backward in eval mode, and dropout draws differ by
+    device)."""
+    dev = torch.device("cuda")
+    torch.manual_seed(SEED)
+    cpu_task = build_voice_autoencoder(train_model_config(decoder, 0.0),
+                                       device="cpu")
+    ref_task = seeded_model(decoder, "cpu")
+    cpu_task.load_state_dict(ref_task.state_dict())
+    x, f0 = requests(TRAIN_CHECK_BATCH, TRAIN_CHECK_SECONDS)
+    # white noise at -20 dB of full scale: without it most spectrogram bins
+    # are near silent, and the encoder's log amplifies the two FFT
+    # libraries' fp32 rounding there (the conv layers' gradients then
+    # differ by ~1e-2 between the card and the CPU)
+    x = x + 0.1 * torch.randn(x.shape,
+                              generator=torch.Generator().manual_seed(8))
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(7))
+    random_f0 = torch.tensor([[90.0], [310.0]])
+    cpu_task.init_running_stats(Sig(x, 1), Sig(f0, 1))
+    gpu_task = build_voice_autoencoder(train_model_config(decoder, 0.0),
+                                       device="cpu")
+    gpu_task.load_state_dict(cpu_task.state_dict())
+    gpu_task.to(dev)
+    grads = []
+    losses = []
+    for task, d in ((gpu_task, dev), (cpu_task, torch.device("cpu"))):
+        task.train()
+        loss, _ = task.training_step(Sig(x.to(d), 1), Sig(f0.to(d), 1),
+                                     noise=noise.to(d),
+                                     random_f0=random_f0.to(d))
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad.detach().cpu()
+                      for n, p in task.named_parameters()
+                      if p.requires_grad})
+    rel_loss = abs(losses[0] - losses[1]) / abs(losses[1])
+    errs = {}
+    for name, ref in grads[1].items():
+        got = grads[0][name]
+        if name.startswith("encoder.backbone.pyramid.convs.") and \
+                name.endswith(".bias"):
+            # in front of a train-mode batch norm: zero in exact arithmetic,
+            # rounding noise on both sides; held against the scale of the
+            # conv's weight gradient instead
+            w = grads[1][name[:-len("bias")] + "weight"].abs().max()
+            err = ((got - ref).abs().max() / w).item()
+        else:
+            err = ((got - ref).abs().max() / ref.abs().max()).item()
+        if name.startswith("encoder.backbone.pyramid."):
+            # the conv pyramid reads the log spectrogram, whose small bins
+            # carry the FFT libraries' rounding (on the CPU, against
+            # golf_tpu, a float64 spectrogram takes these errors from 1e-2
+            # to below 1e-4): held to PYRAMID_GRAD_TOL, scaled here
+            err *= TRAIN_GRAD_TOL / PYRAMID_GRAD_TOL
+        errs[name] = err
+    ranked = sorted(errs, key=errs.get, reverse=True)
+    worst, worst_name = errs[ranked[0]], ranked[0]
+    print(f"train {decoder}: card vs CPU, largest gradient errors (the "
+          f"pyramid's scaled by {TRAIN_GRAD_TOL / PYRAMID_GRAD_TOL:g}): " +
+          ", ".join(f"{n} {errs[n]:.2e}" for n in ranked[:4]))
+    print(f"train {decoder}: B={TRAIN_CHECK_BATCH} x "
+          f"{TRAIN_CHECK_SECONDS:.0f} s, card vs CPU: loss {losses[0]:.6f} "
+          f"vs {losses[1]:.6f} (rel {rel_loss:.2e}, tolerance 1e-4), worst "
+          f"gradient {worst_name} {worst:.2e} of its max|ref| (tolerance "
+          f"{TRAIN_GRAD_TOL:g}, the conv pyramid {PYRAMID_GRAD_TOL:g}: "
+          f"cuDNN, cuFFT and the sequential all-pole kernels sum in other "
+          f"orders than the CPU's oneDNN, pocketfft and blocked forms)")
+    check(rel_loss <= 1e-4, f"{decoder} train loss card vs CPU")
+    check(worst <= TRAIN_GRAD_TOL, f"{decoder} train gradients card vs CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     card = phase_environment()
     phase_build()
-    t = int(SECONDS * SR)
-    shapes = main_path_shapes(BATCH, t)
-    rows = phase_kernels(shapes)
+    serve_shapes = main_path_shapes(BATCH, int(SECONDS * SR))
+    train_shapes = main_path_shapes(TRAIN_BATCH, int(TRAIN_SECONDS * SR))
+    serve_rows = phase_kernels(serve_shapes)
+    rows = phase_kernels(train_shapes, [k.name for k in kernels.ALL],
+                         label="train")
+    phase_backward(train_shapes)
     counts = {k.name: 0 for k in kernels.ALL}
     for decoder in ("golf", "golf-precise"):
-        for name, c in phase_serve(decoder, shapes).items():
+        for name, c in phase_serve(decoder, serve_shapes).items():
             counts[name] += c
+    for decoder in ("golf", "golf-precise"):
+        for name, c in phase_train(decoder, train_shapes).items():
+            counts[name] += c
+        phase_train_vs_cpu(decoder)
 
     replaces = {"lookup": "golf_tpu/ops/lookup_pallas.py:107",
+                "lookup_res": "golf_tpu/ops/lookup_pallas.py:222",
+                "lookup_dtab": "golf_tpu/ops/lookup_pallas.py:128",
                 "allpole_const": "golf_tpu/ops/allpole_pallas.py:89",
                 "allpole_tv": "golf_tpu/ops/allpole_pallas.py:33"}
     table = []
     for k in kernels.ALL:
         r = rows[k.name]
-        table.append({
+        entry = {
             "name": k.name, "route": "cuda",
             "source": f"golf_tpu_torch/kernels/csrc/{k.source}",
             "replaces": replaces[k.name], "launches": counts[k.name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": None})
+            "library_ms": None,
+            "shapes": [list(s) for s in train_shapes[k.name]]}
+        if k.name in serve_rows:
+            sr_ = serve_rows[k.name]
+            entry["serve"] = {
+                "shapes": [list(s) for s in serve_shapes[k.name]],
+                "max_abs_err": sr_["err"], "ms": sr_["ms"],
+                "plain_ms": sr_["plain_ms"], "bound_ms": sr_["bound"][0]}
+        table.append(entry)
     print("kernels: [" + "; ".join(
         f"{e['name']}: launches {e['launches']}, {e['ms'] * 1e3:.1f} us, "
         f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']}), plain "
-        f"{e['plain_ms'] * 1e3:.1f} us" for e in table) + "]")
+        f"{e['plain_ms'] * 1e3:.1f} us (training shapes)" for e in table)
+        + "]")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,7 @@ _ALIASES = {
     "models.ctrl": f"{_PKG}.models.ctrl",
     "models.enc": f"{_PKG}.models.enc",
     "models.unet": f"{_PKG}.models.unet",
+    "loss.spec": f"{_PKG}.loss.spec",
     "ltng.ae": f"{_PKG}.tasks.ae",
     "ltng.data": f"{_PKG}.tasks.data",
 }

@@ -95,43 +95,56 @@ class CudaKernel:
 def build(kernels: Iterable[CudaKernel], log: Optional[Dict] = None
           ) -> float:
     """Build (one ``nvcc`` per source, all started together) and bind every
-    kernel whose library is missing. Returns the wall time in seconds;
-    ``log`` receives each build's compiler output (``-Xptxas -v``)."""
+    kernel whose library is missing; kernels that share a source share its
+    library. Returns the wall time in seconds; ``log`` receives each build's
+    compiler output (``-Xptxas -v``), by source."""
     t0 = time.perf_counter()
     BUILD.mkdir(parents=True, exist_ok=True)
-    procs = []
+    pending: Dict[Path, list] = {}
     for k in kernels:
-        if k._fn is not None:
-            continue
-        lib = k.library_path
+        if k._fn is None:
+            pending.setdefault(k.library_path, []).append(k)
+    procs = []
+    for lib, group in pending.items():
         if lib.exists():
-            k._bind()
+            for k in group:
+                k._bind()
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(k.build_command(tmp), stdout=subprocess.PIPE,
+        proc = subprocess.Popen(group[0].build_command(tmp),
+                                stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        procs.append((k, proc, tmp, lib))
+        procs.append((group, proc, tmp, lib))
     failed = []
-    for k, proc, tmp, lib in procs:
+    for group, proc, tmp, lib in procs:
         out, _ = proc.communicate()
         if log is not None:
-            log[k.name] = out
+            log[group[0].source] = out
         if proc.returncode != 0:
-            failed.append(f"{k.source}:\n{out}")
+            failed.append(f"{group[0].source}:\n{out}")
             continue
         os.replace(tmp, lib)
-        k._bind()
+        for k in group:
+            k._bind()
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
 
 
+# no FMA contraction in the lookup kernels: they then round like the plain
+# versions' separate multiplies and adds, bit for bit (B1, B3a) or up to the
+# order of the atomic sums (B3b)
+_NO_FMA = ("--fmad=false",)
+
 LOOKUP = CudaKernel(
     "lookup", "lookup.cu", "golf_lookup_fwd",
-    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # no FMA contraction: the kernel then rounds like the plain version's
-    # separate multiplies and adds, bit for bit
-    extra_flags=("--fmad=false",))
+    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], extra_flags=_NO_FMA)
+LOOKUP_RES = CudaKernel(
+    "lookup_res", "lookup.cu", "golf_lookup_fwd_res",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], extra_flags=_NO_FMA)
+LOOKUP_DTAB = CudaKernel(
+    "lookup_dtab", "lookup_dtab.cu", "golf_lookup_dtab",
+    [_P, _P, _P, _I, _I, _I, _I, _I, _P], extra_flags=_NO_FMA)
 ALLPOLE_CONST = CudaKernel(
     "allpole_const", "allpole_const.cu", "golf_allpole_const",
     [_P, _P, _P, _I, _I, _I, _I, _P])
@@ -139,4 +152,4 @@ ALLPOLE_TV = CudaKernel(
     "allpole_tv", "allpole_tv.cu", "golf_allpole_tv",
     [_P, _P, _P, _I, _I, _I, _I, _P])
 
-ALL = (LOOKUP, ALLPOLE_CONST, ALLPOLE_TV)
+ALL = (LOOKUP, LOOKUP_RES, LOOKUP_DTAB, ALLPOLE_CONST, ALLPOLE_TV)

@@ -32,6 +32,23 @@ def _strided_max(x: torch.Tensor, s: int, axis: int) -> torch.Tensor:
     return x.movedim(-1, axis)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """flax's ``BatchNorm`` in train mode: the running variance follows the
+    biased batch variance (``nn.BatchNorm2d`` would take the unbiased one).
+    In eval mode it is ``nn.BatchNorm2d``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            self.running_mean.lerp_(x.mean(dim=(0, 2, 3)), self.momentum)
+            self.running_var.lerp_(x.var(dim=(0, 2, 3), unbiased=False),
+                                   self.momentum)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
 class ConvPyramid(nn.Module):
     """Conv2d((2s+1, 3)) + BN + ReLU + MaxPool((s, 1)) over frequency."""
 
@@ -46,7 +63,7 @@ class ConvPyramid(nn.Module):
             for i, o, s in zip(ins, channels, strides))
         # flax BatchNorm: eps 1e-5, running averages decay by 0.99
         self.norms = nn.ModuleList(
-            nn.BatchNorm2d(o, eps=1e-5, momentum=0.01) for o in channels)
+            BatchNorm2d(o, eps=1e-5, momentum=0.01) for o in channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for conv, norm, s in zip(self.convs, self.norms, self.strides):
@@ -104,6 +121,14 @@ class UNetEncoder(BackboneModelInterface):
 
     def forward(self, x: Sig, f0: Optional[Sig] = None, train: bool = False
                 ) -> Sig:
+        """``train`` updates the running min/max; the batch norms and the
+        LSTM's dropout follow the module's mode. ``golf_tpu`` drives all
+        three from ``train``, so the two must agree."""
+        if train != self.training:
+            raise ValueError(
+                f"train={train} but the encoder is in "
+                f"{'train' if self.training else 'eval'} mode; call "
+                f".train() or .eval() to match")
         feature, f0_d = self.features(x, f0, train)
         h = self.pyramid(feature)                      # (B, C, freq', T)
         b, c, fr, t = h.shape

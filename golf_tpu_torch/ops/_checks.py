@@ -7,7 +7,9 @@ import torch
 
 def check_kernel_inputs(name: str, **tensors: torch.Tensor) -> None:
     """Every tensor a kernel reads must be a contiguous fp32 CUDA tensor on
-    one device, and nothing may need a gradient through the kernel."""
+    one device, and nothing may need a gradient through the raw wrapper:
+    gradients go through the autograd Functions of ``ops.lookup`` and
+    ``ops.allpole``, whose backward runs the kernels again."""
     device = None
     for key, t in tensors.items():
         if not t.is_cuda:
@@ -24,4 +26,6 @@ def check_kernel_inputs(name: str, **tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in tensors.values()):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet")
+            f"{name}: the raw kernel wrapper has no backward; use the "
+            f"differentiable op (ops.lookup.lookup_blocks, ops.allpole."
+            f"allpole or allpole_const)")

@@ -7,13 +7,15 @@
 row, GOLF-ff) route by device: a CUDA tensor goes to the hand-written
 kernel (``kernels/csrc/allpole_tv.cu``, ``allpole_const.cu``), a CPU tensor
 to the plain PyTorch version beside it (the sequential scan, or the blocked
-two-pass form of ``golf_tpu``). The kernels have no backward yet.
+two-pass form of ``golf_tpu``). Both are ``torch.autograd.Function``s with
+``golf_tpu``'s adjoints, which run the same filter again on the reversed
+cotangent, so the backward goes through the same kernel as the forward.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -198,15 +200,98 @@ def allpole_const_cuda(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def allpole(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """Time-varying all-pole. x: (B, T), a: (B, T, p) -> (B, T)."""
-    if x.is_cuda:
-        return allpole_cuda(x, a)
-    return allpole_plain(x, a)
+# ---------------------------------------------------------------------------
+# Adjoints (golf_tpu/ops/allpole.py:214-259 and 385-408)
+# ---------------------------------------------------------------------------
+
+def _shift_columns(a: torch.Tensor) -> torch.Tensor:
+    """c[:, n, j] = a[:, n + j + 1, j], zero past the end: coefficient j of
+    the transposed recurrence at the time it multiplies dx."""
+    t = a.shape[1]
+    c = torch.zeros_like(a)
+    for j in range(a.shape[-1]):
+        c[:, :t - j - 1, j] = a[:, j + 1:, j]
+    return c
 
 
-def allpole_const(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """Constant-coefficient all-pole. x: (N, T), a: (N, p) -> (N, T)."""
-    if x.is_cuda:
-        return allpole_const_cuda(x, a)
-    return allpole_const_plain(x, a)
+def _delayed_stack(y: torch.Tensor, p: int) -> torch.Tensor:
+    """d[:, n, j] = y[:, n - j - 1], zero before the start. (B, T) ->
+    (B, T, p)."""
+    t = y.shape[1]
+    window = torch.nn.functional.pad(y, (p, 0))[:, :t + p - 1]
+    return torch.flip(window.unfold(1, p, 1), (-1,))
+
+
+def _reversed(fn: Callable, g: torch.Tensor, a: torch.Tensor
+              ) -> torch.Tensor:
+    """``flip(fn(flip(g), a))`` along time; ``a`` is passed as it is."""
+    return torch.flip(fn(torch.flip(g, (1,)).contiguous(), a), (1,))
+
+
+class _Allpole(torch.autograd.Function):
+    """Time-varying all-pole with ``golf_tpu``'s adjoint: dx is the filter
+    run backwards in time with the column-shifted coefficients, and
+    ``da = -dx[..., None] * _delayed_stack(y, p)``."""
+
+    @staticmethod
+    def forward(ctx, x, a, fn):
+        y = fn(x, a)
+        ctx.save_for_backward(y, a)
+        ctx.fn = fn
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, a = ctx.saved_tensors
+        c = torch.flip(_shift_columns(a), (1,))
+        dx = _reversed(ctx.fn, g, c)
+        del c
+        da = None
+        if ctx.needs_input_grad[1]:
+            da = -dx[..., None] * _delayed_stack(y, a.shape[-1])
+        return dx, da, None
+
+
+class _AllpoleConst(torch.autograd.Function):
+    """Constant-coefficient all-pole with ``golf_tpu``'s adjoint: the
+    transposed system has the same coefficients in reversed time, and da
+    is p shifted dots (no (N, T, p) stack)."""
+
+    @staticmethod
+    def forward(ctx, x, a, fn):
+        y = fn(x, a)
+        ctx.save_for_backward(y, a)
+        ctx.fn = fn
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, a = ctx.saved_tensors
+        dx = _reversed(ctx.fn, g, a)
+        da = None
+        if ctx.needs_input_grad[1]:
+            t = y.shape[1]
+            da = -torch.stack([torch.sum(dx[:, j + 1:] * y[:, :t - j - 1],
+                                         dim=1)
+                               for j in range(a.shape[-1])], dim=-1)
+        return dx, da, None
+
+
+def allpole(x: torch.Tensor, a: torch.Tensor,
+            fn: Optional[Callable] = None) -> torch.Tensor:
+    """Time-varying all-pole, differentiable. x: (B, T), a: (B, T, p) ->
+    (B, T). ``fn`` names the forward explicitly (``allpole_cuda`` or
+    ``allpole_plain``, for comparisons on the card); by default the
+    tensors' device decides."""
+    if fn is None:
+        fn = allpole_cuda if x.is_cuda else allpole_plain
+    return _Allpole.apply(x, a, fn)
+
+
+def allpole_const(x: torch.Tensor, a: torch.Tensor,
+                  fn: Optional[Callable] = None) -> torch.Tensor:
+    """Constant-coefficient all-pole, differentiable. x: (N, T), a: (N, p)
+    -> (N, T). ``fn`` as for ``allpole``."""
+    if fn is None:
+        fn = allpole_const_cuda if x.is_cuda else allpole_const_plain
+    return _AllpoleConst.apply(x, a, fn)

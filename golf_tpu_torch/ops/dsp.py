@@ -26,6 +26,30 @@ def _mod1_scan(totals: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class _WrappedCumsum(torch.autograd.Function):
+    """``golf_tpu``'s custom VJP (ops/dsp.py:60-72): d out_t / d x_s =
+    1[s <= t] almost everywhere (the mod-1 wraps have unit slope), so the
+    cotangent is the reversed inclusive cumsum."""
+
+    @staticmethod
+    def forward(ctx, x, block):
+        b, t = x.shape
+        nb = -(-t // block)
+        xp = F.pad(x, (0, nb * block - t))
+        local = torch.cumsum(xp.reshape(b, nb, block), dim=-1)
+        off = _mod1_scan(torch.remainder(local[..., -1], 1))
+        off_excl = torch.cat([torch.zeros_like(off[:, :1]), off[:, :-1]],
+                             dim=1)
+        out = torch.remainder(torch.remainder(local, 1)
+                              + off_excl[..., None], 1)
+        return out.reshape(b, nb * block)[:, :t]
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.flip(torch.cumsum(torch.flip(g, (1,)), dim=1), (1,)), \
+            None
+
+
 def wrapped_cumsum(x: torch.Tensor, block: int = PHASE_BLOCK
                    ) -> torch.Tensor:
     """Inclusive cumsum of ``x`` along dim 1, reduced mod 1, with a rounding
@@ -36,16 +60,9 @@ def wrapped_cumsum(x: torch.Tensor, block: int = PHASE_BLOCK
     scaled by a harmonic index. Here each ``block`` of samples is summed
     locally (magnitude <= block/2 cycles) and the wrapped block totals are
     combined by a mod-1 scan, so the error stays ~ulp(block/2) +
-    depth*ulp(2).
+    depth*ulp(2). Differentiable, with the reversed cumsum as its adjoint.
     """
-    b, t = x.shape
-    nb = -(-t // block)
-    xp = F.pad(x, (0, nb * block - t))
-    local = torch.cumsum(xp.reshape(b, nb, block), dim=-1)
-    off = _mod1_scan(torch.remainder(local[..., -1], 1))
-    off_excl = torch.cat([torch.zeros_like(off[:, :1]), off[:, :-1]], dim=1)
-    out = torch.remainder(torch.remainder(local, 1) + off_excl[..., None], 1)
-    return out.reshape(b, nb * block)[:, :t]
+    return _WrappedCumsum.apply(x, block)
 
 
 def get_window_fn(window: str = "hann") -> Callable[[int], np.ndarray]:

@@ -1,6 +1,7 @@
 """Synthetic voice data (counterpart of ``golf_tpu.tasks.data``'s
-``SyntheticVoiceDataset`` and ``Synthetic`` module). Corpus loaders (VCTK
-and the rest) are not ported yet. Batches are numpy arrays."""
+``SyntheticVoiceDataset`` and ``Synthetic`` module): train, valid and
+predict splits. Corpus loaders (VCTK and the rest) are not ported yet.
+Batches are numpy arrays."""
 
 from __future__ import annotations
 
@@ -91,7 +92,8 @@ class Synthetic:
         self.duration = duration
         self.sample_rate = sample_rate
         self.seed = seed
-        self.train_dataset = self.predict_dataset = None
+        self.train_dataset = self.valid_dataset = None
+        self.predict_dataset = None
 
     def _make(self, split: str) -> SyntheticVoiceDataset:
         offs = {"train": 0, "valid": 1, "test": 2}[split]
@@ -102,12 +104,17 @@ class Synthetic:
     def setup(self, stage=None):
         if stage == "fit":
             self.train_dataset = self._make("train")
+        if stage in ("fit", "validate"):
+            self.valid_dataset = self._make("valid")
         if stage == "predict":
             self.predict_dataset = _WithRelPath(self._make("test"))
 
     def train_dataloader(self):
         return DataLoader(self.train_dataset, self.batch_size, shuffle=True,
                           drop_last=True, seed=self.seed)
+
+    def val_dataloader(self):
+        return DataLoader(self.valid_dataset, self.batch_size)
 
     def predict_dataloader(self):
         return DataLoader(self.predict_dataset, 1)
