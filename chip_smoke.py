@@ -6,14 +6,20 @@
 Phases (any failure exits non-zero):
 1. environment: versions, the card's name and power limit; TF32 off (for
    every phase, the train phase's step times included);
-2. build: the five CUDA kernels of the serving and training paths (four
-   sources, one ``nvcc`` each, started together), from
+2. build: the six CUDA kernel entry points of the serving and training
+   paths (four sources, one ``nvcc`` each, started together), from
    ``golf_tpu_torch/kernels/csrc``;
 3. kernels vs their plain PyTorch versions, on the card, at the shapes the
-   serving path (B1, B2, B4) and the training path (all five) give them,
-   with each one's time, its plain version's time and its roofline bound;
-   then each autograd Function's backward through the kernels against the
-   same Function on the plain versions, on the same cotangent;
+   serving path (B1, B2, B4 and its adjoint entry) and the training path
+   (all six) give them, with each one's time, its plain version's time and
+   its roofline bound; B4 and its adjoint entry also against
+   ``allpole_chunked_plain`` (the same chunked float64 algorithm in plain
+   PyTorch) and the adjoint entry bit for bit against the forward entry on
+   the materialised flipped, column-shifted operands; then each autograd
+   Function's backward through the kernels against the same Function on the
+   plain versions, on the same cotangent;
+   resonance: on resonant filters (capped at 0.95 and uncapped) B4's error
+   against a float64 scan must be no larger than the float32 scan's;
 4. serve: the full-width Interspeech24 autoencoder (the encoder of
    ``cfg/ae/vctk.yaml``) with the GOLF-ff decoder (``golf.yaml``), then the
    GOLF-ss decoder (``golf-precise.yaml``), seeded random weights, answers
@@ -21,7 +27,8 @@ Phases (any failure exits non-zero):
    must move; one 2 s request is held against the port's own CPU run;
 5. train: the same two models take 3 Adam steps each through the port's
    ``Trainer`` on B = 64 synthetic items of 2 s; every loss must be finite
-   and B3a, B3b and B2 (GOLF-ff) or B4 (GOLF-ss) must launch; one step at
+   and B3a, B3b and B2 (GOLF-ff) or B4 and its adjoint entry, once each a
+   step (GOLF-ss), must launch; one step at
    B = 2 x 1 s (dropout 0, train mode) is held against the port's CPU run,
    loss and every gradient;
 6. summary: a ``kernels:`` line, the card, then one JSON line with the
@@ -48,8 +55,13 @@ from golf_tpu_torch.core.sig import Sig, linear_upsample
 from golf_tpu_torch.ops import lookup as lk
 from golf_tpu_torch.ops.allpole import (allpole, allpole_const,
                                         allpole_const_cuda,
-                                        allpole_const_plain, allpole_cuda,
-                                        allpole_plain)
+                                        allpole_const_plain,
+                                        allpole_adjoint_cuda,
+                                        allpole_adjoint_plain,
+                                        allpole_chunked_plain, allpole_cuda,
+                                        allpole_plain, allpole_scan,
+                                        resonant_inputs)
+from golf_tpu_torch.ops import allpole as tap
 from golf_tpu_torch.ops.dsp import rc2lpc
 from golf_tpu_torch.tasks.ae import VoiceAutoEncoder, build_voice_autoencoder
 from golf_tpu_torch.tasks.data import SyntheticVoiceDataset
@@ -67,9 +79,11 @@ TRAIN_CHECK_BATCH = 2       # the card-vs-CPU training step
 TRAIN_CHECK_SECONDS = 1.0
 TRAIN_GRAD_TOL = 1e-3       # of each gradient's largest entry
 PYRAMID_GRAD_TOL = 2e-2     # the encoder's conv pyramid (phase_train_vs_cpu)
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32 (non-tensor)
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 and fp64
+# (outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP64_FLOPS = 34e12
 
 # ---------------------------------------------------------------------------
 # Model configuration: cfg/ae/vctk.yaml's model.init_args with the decoder
@@ -160,6 +174,7 @@ def main_path_shapes(batch: int, t: int) -> dict:
         "lookup_dtab": lookup,
         "allpole_const": ((n_ff, 960), (n_ff, p)),
         "allpole_tv": ((batch, t_ss), (batch, t_ss, p)),
+        "allpole_tv_adjoint": ((batch, t_ss), (batch, t_ss, p)),
     }
 
 
@@ -215,7 +230,8 @@ def lpc_coeffs(gen: torch.Generator, shape, device) -> torch.Tensor:
     """Coefficients as the model makes them: rc2lpc(tanh(logits)). The
     logits' scale (0.2) keeps the plain version's blocked two-pass form
     accurate: its error grows with the filter's gain (about 1e-6 of max|y|
-    here, a few percent at a scale of 0.5, on the CPU in fp32)."""
+    here, a few percent at a scale of 0.5, on the CPU in fp32). Resonant
+    filters, where that form fails, are ``phase_resonance``'s."""
     logits = 0.2 * torch.randn(shape, generator=gen, device=device)
     return rc2lpc(torch.tanh(logits)).contiguous()
 
@@ -360,19 +376,55 @@ def phase_kernels(shapes: dict, which=("lookup", "allpole_const",
 
     if "allpole_tv" in which:
         x, a = allpole_tv_inputs(gen, shapes)
+        g = torch.randn(x.shape, generator=gen, device="cuda")
         out = allpole_cuda(x, a)
         ref = allpole_plain(x, a)
-        err = (out - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
+        rel = rel_err(out, ref)
         print(f"[{label}] allpole_tv (B4) {tuple(x.shape)} p={a.shape[2]}: "
-              f"max err {err:.3e}, / max|y| {rel:.3e} (tolerance 1e-4: "
-              f"sequential vs two-pass blocked rounding)")
+              f"/ max|y| {rel:.3e} against allpole_plain (tolerance 1e-4: "
+              f"chunked float64 vs golf_tpu's float32 two-pass blocked "
+              f"form)")
         check(rel <= 1e-4 and torch.isfinite(out).all().item(),
               "allpole_tv vs plain")
+        dx = allpole_adjoint_cuda(g, a)
+        errs = [rel_err(out, allpole_chunked_plain(x, a)),
+                rel_err(dx, allpole_chunked_plain(g, a, adjoint=True))]
+        c = torch.flip(tap._shift_columns(a), (1,)).contiguous()
+        same = torch.equal(dx, torch.flip(allpole_cuda(
+            torch.flip(g, (1,)).contiguous(), c), (1,)))
+        del c
+        print(f"[{label}] allpole_tv (B4) and allpole_tv_adjoint against "
+              f"allpole_chunked_plain on the card: {errs[0]:.3e}, "
+              f"{errs[1]:.3e} of max|y| (tolerance 1e-5: the same float64 "
+              f"algorithm, sums in other orders); adjoint entry == forward "
+              f"entry on the materialised flip(_shift_columns(a)), flip(g): "
+              f"{same}")
+        check(max(errs) <= 1e-5, "allpole_tv and its adjoint vs mirror")
+        check(same, "adjoint entry bit for bit")
+        nbytes = 4 * (2 * x.numel() + a.numel())
+        n_maps = x.shape[0] * (-(-x.shape[1] // tap.CHUNK) - 1) * tap.CHUNK
+        p = a.shape[2]
+        # the design's float64 floor: p (p + 1) FMAs a sample in phase 1,
+        # p in phase 3
+        floor_ms = 2 * p * ((p + 1) * n_maps + x.numel()) \
+            / PEAK_FP64_FLOPS * 1e3
         rows["allpole_tv"] = dict(
-            err=err, ms=cuda_ms(lambda: allpole_cuda(x, a), 5),
+            err=(out - ref).abs().max().item(),
+            ms=cuda_ms(lambda: allpole_cuda(x, a), 20),
             plain_ms=cuda_ms(lambda: allpole_plain(x, a), 1, warmup=1),
-            bound=bound(4 * (2 * x.numel() + a.numel()), 2 * a.numel()))
+            bound=bound(nbytes, 2 * a.numel()), fp64_floor_ms=floor_ms)
+        dref = allpole_adjoint_plain(g, a)
+        rows["allpole_tv_adjoint"] = dict(
+            err=(dx - dref).abs().max().item(),
+            ms=cuda_ms(lambda: allpole_adjoint_cuda(g, a), 20),
+            plain_ms=cuda_ms(lambda: allpole_adjoint_plain(g, a), 1,
+                             warmup=1),
+            bound=bound(nbytes, 2 * a.numel()), fp64_floor_ms=floor_ms)
+        rel = rel_err(dx, dref)
+        print(f"[{label}] allpole_tv_adjoint {tuple(g.shape)}: / max|ref| "
+              f"{rel:.3e} against allpole_adjoint_plain (tolerance 1e-4, "
+              f"as the forward)")
+        check(rel <= 1e-4, "allpole_tv_adjoint vs plain")
     return rows
 
 
@@ -418,13 +470,37 @@ def phase_backward(shapes: dict) -> None:
     x.requires_grad_()
     a.requires_grad_()
     g = torch.randn(x.shape, generator=gen, device="cuda")
-    got = grads_of(lambda x_, a_: allpole(x_, a_, allpole_cuda), (x, a), g)
-    ref = grads_of(lambda x_, a_: allpole(x_, a_, allpole_plain), (x, a), g)
+    got = grads_of(lambda x_, a_: allpole(x_, a_, tap.CUDA_OPS), (x, a), g)
+    ref = grads_of(lambda x_, a_: allpole(x_, a_, tap.PLAIN_OPS), (x, a), g)
     errs = [rel_err(u, v) for u, v in zip(got, ref)]
-    print(f"backward allpole_tv (B4 on flipped, column-shifted a) dx "
-          f"{errs[0]:.3e}, da {errs[1]:.3e} of max|ref| (tolerance 1e-4: "
-          f"sequential vs blocked two-pass)")
+    print(f"backward allpole_tv (B4's adjoint entry) dx {errs[0]:.3e}, da "
+          f"{errs[1]:.3e} of max|ref| (tolerance 1e-4: chunked float64 vs "
+          f"blocked two-pass)")
     check(max(errs) <= 1e-4, "allpole_tv backward vs plain")
+
+
+def phase_resonance() -> None:
+    """B = 4, T = 4800, p = 22 on resonant filters (``resonant_inputs``:
+    capped at 0.95, then uncapped). The first seed whose float64 output is
+    finite and whose float32 scan is off by at least 1e-5 of max|y| is
+    used; B4's error against the float64 scan must be no larger than the
+    float32 scan's."""
+    for cap in (0.95, None):
+        for seed in range(20):
+            x, a = (t.cuda() for t in resonant_inputs(seed, cap=cap))
+            ref = allpole_scan(x.double(), a.double())
+            if not torch.isfinite(ref).all():
+                continue
+            err32 = rel_err(allpole_scan(x, a).double(), ref)
+            if err32 >= 1e-5:
+                break
+        else:
+            raise RuntimeError(f"no resonant seed found at cap {cap}")
+        err = rel_err(allpole_cuda(x, a).double(), ref)
+        print(f"resonance (cap {cap}, seed {seed}, max|a| "
+              f"{a.abs().max().item():.1f}): error against the float64 "
+              f"scan, of max|y|: B4 {err:.3e}, float32 scan {err32:.3e}")
+        check(err <= err32, f"B4 within the float32 scan's error, cap {cap}")
 
 
 def seeded_model(decoder: str, device) -> VoiceAutoEncoder:
@@ -503,8 +579,9 @@ def phase_serve(decoder: str, expect: dict) -> dict:
            / y_cpu.data.abs().max()).item()
     print(f"serve {decoder}: 2 s request, card vs CPU: max err / max|y| "
           f"{rel:.3e} (tolerance 1e-3: cuDNN LSTM and cuFFT sum in another "
-          f"order than the CPU, and the all-pole kernel runs the "
-          f"sequential recurrence where the CPU runs the blocked form)")
+          f"order than the CPU, and the all-pole kernels run the "
+          f"sequential (B2) and chunked float64 (B4) forms where the CPU "
+          f"runs the blocked float32 forms)")
     check(rel <= 1e-3, f"{decoder} card vs CPU")
     return counts
 
@@ -529,8 +606,8 @@ def phase_train(decoder: str, expect: dict) -> dict:
                       max_steps=TRAIN_STEPS, seed=SEED)
     task.init_running_stats(xs, f0s)
     path = {"golf": ("lookup_res", "lookup_dtab", "allpole_const"),
-            "golf-precise": ("lookup_res", "lookup_dtab", "allpole_tv")
-            }[decoder]
+            "golf-precise": ("lookup_res", "lookup_dtab", "allpole_tv",
+                             "allpole_tv_adjoint")}[decoder]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.ALL:
@@ -554,9 +631,9 @@ def phase_train(decoder: str, expect: dict) -> dict:
           f"{peak:.2f} GiB; launches {counts}")
     check(all(np.isfinite(losses)), f"{decoder} train losses finite")
     per_step = {"lookup_res": 1, "lookup_dtab": 1, "allpole_const": 2,
-                "allpole_tv": 2}
+                "allpole_tv": 1, "allpole_tv_adjoint": 1}
     for name in path:
-        check(counts[name] >= per_step[name] * TRAIN_STEPS,
+        check(counts[name] == per_step[name] * TRAIN_STEPS,
               f"{decoder} train launched {name} {counts[name]} times")
         k = next(k for k in kernels.ALL if k.name == name)
         check(k.last_shapes == expect[name],
@@ -631,8 +708,9 @@ def phase_train_vs_cpu(decoder: str) -> None:
           f"vs {losses[1]:.6f} (rel {rel_loss:.2e}, tolerance 1e-4), worst "
           f"gradient {worst_name} {worst:.2e} of its max|ref| (tolerance "
           f"{TRAIN_GRAD_TOL:g}, the conv pyramid {PYRAMID_GRAD_TOL:g}: "
-          f"cuDNN, cuFFT and the sequential all-pole kernels sum in other "
-          f"orders than the CPU's oneDNN, pocketfft and blocked forms)")
+          f"cuDNN, cuFFT and the all-pole kernels (sequential B2, chunked "
+          f"float64 B4) sum in other orders than the CPU's oneDNN, "
+          f"pocketfft and blocked forms)")
     check(rel_loss <= 1e-4, f"{decoder} train loss card vs CPU")
     check(worst <= TRAIN_GRAD_TOL, f"{decoder} train gradients card vs CPU")
 
@@ -650,6 +728,7 @@ def main() -> int:
     rows = phase_kernels(train_shapes, [k.name for k in kernels.ALL],
                          label="train")
     phase_backward(train_shapes)
+    phase_resonance()
     counts = {k.name: 0 for k in kernels.ALL}
     for decoder in ("golf", "golf-precise"):
         for name, c in phase_serve(decoder, serve_shapes).items():
@@ -663,7 +742,8 @@ def main() -> int:
                 "lookup_res": "golf_tpu/ops/lookup_pallas.py:222",
                 "lookup_dtab": "golf_tpu/ops/lookup_pallas.py:128",
                 "allpole_const": "golf_tpu/ops/allpole_pallas.py:89",
-                "allpole_tv": "golf_tpu/ops/allpole_pallas.py:33"}
+                "allpole_tv": "golf_tpu/ops/allpole_pallas.py:33",
+                "allpole_tv_adjoint": "golf_tpu/ops/allpole_pallas.py:33"}
     table = []
     for k in kernels.ALL:
         r = rows[k.name]
@@ -675,18 +755,30 @@ def main() -> int:
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None,
             "shapes": [list(s) for s in train_shapes[k.name]]}
+        if "fp64_floor_ms" in r:
+            entry["fp64_floor_ms"] = r["fp64_floor_ms"]
         if k.name in serve_rows:
             sr_ = serve_rows[k.name]
             entry["serve"] = {
                 "shapes": [list(s) for s in serve_shapes[k.name]],
                 "max_abs_err": sr_["err"], "ms": sr_["ms"],
                 "plain_ms": sr_["plain_ms"], "bound_ms": sr_["bound"][0]}
+            if "fp64_floor_ms" in sr_:
+                entry["serve"]["fp64_floor_ms"] = sr_["fp64_floor_ms"]
         table.append(entry)
+    def serve_note(e):
+        if "serve" not in e:
+            return ""
+        sv = e["serve"]
+        return (f"; serving shapes {sv['ms'] * 1e3:.1f} us, bound "
+                f"{sv['bound_ms'] * 1e3:.1f} us, plain "
+                f"{sv['plain_ms'] * 1e3:.1f} us")
+
     print("kernels: [" + "; ".join(
         f"{e['name']}: launches {e['launches']}, {e['ms'] * 1e3:.1f} us, "
         f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']}), plain "
-        f"{e['plain_ms'] * 1e3:.1f} us (training shapes)" for e in table)
-        + "]")
+        f"{e['plain_ms'] * 1e3:.1f} us (training shapes){serve_note(e)}"
+        for e in table) + "]")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))

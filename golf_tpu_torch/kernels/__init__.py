@@ -144,12 +144,16 @@ LOOKUP_RES = CudaKernel(
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], extra_flags=_NO_FMA)
 LOOKUP_DTAB = CudaKernel(
     "lookup_dtab", "lookup_dtab.cu", "golf_lookup_dtab",
-    [_P, _P, _P, _I, _I, _I, _I, _I, _P], extra_flags=_NO_FMA)
+    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], extra_flags=_NO_FMA)
 ALLPOLE_CONST = CudaKernel(
     "allpole_const", "allpole_const.cu", "golf_allpole_const",
     [_P, _P, _P, _I, _I, _I, _I, _P])
 ALLPOLE_TV = CudaKernel(
     "allpole_tv", "allpole_tv.cu", "golf_allpole_tv",
-    [_P, _P, _P, _I, _I, _I, _I, _P])
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+ALLPOLE_TV_ADJ = CudaKernel(
+    "allpole_tv_adjoint", "allpole_tv.cu", "golf_allpole_tv_adjoint",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 
-ALL = (LOOKUP, LOOKUP_RES, LOOKUP_DTAB, ALLPOLE_CONST, ALLPOLE_TV)
+ALL = (LOOKUP, LOOKUP_RES, LOOKUP_DTAB, ALLPOLE_CONST, ALLPOLE_TV,
+       ALLPOLE_TV_ADJ)

@@ -1,49 +1,75 @@
 // Bilinear wavetable lookup, table half of the adjoint (B3b).
 //
 // Replaces: golf_tpu/ops/lookup_pallas.py::_dtab_kernel, launched by
-// bilinear_lookup_pallas_dtab (pallas_call at lookup_pallas.py:316).
+// bilinear_lookup_pallas_dtab (pallas_call at lookup_pallas.py:316), with
+// the fold of lookup_pallas.py:326-330.
 //
 // Computes, for ph (B, blocks, hop) in [0, 1) and the output cotangent
 // g (B, blocks, hop), with col, c0, c1 (wrapping S to 0), cw and rw = i/hop
-// as in the forward (lookup.cu), the per-block histogram
-//   h[b, f, 0, c0] += g (1 - rw) (1 - cw),   h[b, f, 0, c1] += g (1 - rw) cw,
-//   h[b, f, 1, c0] += g rw (1 - cw),         h[b, f, 1, c1] += g rw cw,
-// written as (B, blocks, 2, S). Row 0 is block f's cotangent of table row f,
-// row 1 its cotangent of row f + 1; the wrapper folds them into
-// (B, frames, S) with two adds, as golf_tpu does outside its kernel
-// (lookup_pallas.py:326-330). The corner weights are the expressions of
-// lookup_pallas.py:146-149, built with --fmad=false so each product rounds
-// as the plain version's; the order of the sums differs (atomics).
+// as in the forward (lookup.cu), the table cotangent d (B, frames, S):
+//   d[b, f, c0] += g (1 - rw) (1 - cw),   d[b, f, c1] += g (1 - rw) cw,
+//   d[b, f + 1, c0] += g rw (1 - cw),     d[b, f + 1, c1] += g rw cw,
+// for sample i of block f. The wrapper zeroes d. The corner weights are the
+// expressions of lookup_pallas.py:146-149, built with --fmad=false so each
+// product rounds as the plain version's; the order of the sums differs
+// (atomics).
 //
 // What bounds it: bytes. Each sample reads its phase and its cotangent
-// (8 bytes) and does ~20 flops and four shared-memory atomic adds; the
-// histogram is written once per block. At the training shape
-// (64, 20, 9600), S = 2048, that is ~109 MB counted against the
-// (B, frames, S) result, about 33 us at 3.35 TB/s.
+// (8 bytes) and does ~20 flops; d is written once. At the training shape
+// (64, 20, 9600), S = 2048, that is ~109 MB, about 33 us at 3.35 TB/s. In
+// practice the shared-memory atomics (below).
 //
 // Design: the TPU kernel builds one-hot matrices and scatters by matmul
-// because the TPU has no vector scatter. Hopper has native shared-memory
-// float atomics, so one CTA per (batch, block) keeps the block's 2 x S
-// histogram (16 KB at S = 2048) in shared memory, strides over the hop
-// samples with coalesced loads, adds the four corner weights with atomics
-// and writes the histogram once. Neighbouring samples have neighbouring
-// phases, so the atomics of a warp mostly hit different banks. The order of
-// the atomic adds varies from run to run, so results agree with the plain
-// version to a tolerance, not bit for bit.
+// because the TPU has no vector scatter. Here one CTA per (batch, block)
+// keeps the block's two histogram rows in shared memory, interleaved as
+// (row f, row f + 1) pairs per column, strides over the hop samples with
+// coalesced loads and adds each sample's four corner weights there. It then
+// adds the two rows straight into d[b, f] and d[b, f + 1] with global
+// reductions (atomicAdd with its result unused: RED in the SASS); block
+// f - 1 adds to row f too, so no per-block intermediate is written and no
+// fold runs afterwards.
+// The atomics: sm_90 has no native shared-memory fp32 add. cuobjdump -sass
+// shows atomicAdd(float*) on shared memory as a compare-and-swap loop
+// (ATOMS.CAST.SPIN), four loops a sample. The pairing adds a sample's two
+// weights of one column in one 64-bit compare-and-swap loop (ATOMS.CAS.64),
+// two a sample: each add still rounds on its own. Merging a thread's run of
+// samples in registers does not help here: the phase moves S f0 / (4 sr)
+// columns a sample, 1.3 to 21 at S = 2048 and 60 to 1000 Hz, so
+// neighbouring samples rarely share a column. 512 threads a CTA put the
+// 1280 (batch, block) units of the training shape in 2.4 waves of four
+// CTAs an SM (256 threads: 1.2 waves); trial builds with 256 and 1024
+// threads ran slower.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+
+// adds (x, y) to the float pair at h with one 64-bit compare-and-swap loop
+__device__ __forceinline__ void add_pair(float2* h, float x, float y) {
+  unsigned long long* addr = reinterpret_cast<unsigned long long*>(h);
+  unsigned long long old = *reinterpret_cast<volatile unsigned long long*>(
+      addr);
+  unsigned long long seen;
+  do {
+    seen = old;
+    float2 v = *reinterpret_cast<const float2*>(&seen);
+    v.x = v.x + x;
+    v.y = v.y + y;
+    old = atomicCAS(addr, seen, *reinterpret_cast<unsigned long long*>(&v));
+  } while (old != seen);
+}
 
 __global__ void __launch_bounds__(kThreads)
 lookup_dtab_kernel(const float* __restrict__ ph, const float* __restrict__ g,
-                   float* __restrict__ dtab, int blocks, int hop, int S) {
-  extern __shared__ float hist[];  // [2 * S]: row f, then row f + 1
+                   float* __restrict__ dtab, int blocks, int hop, int frames,
+                   int S) {
+  extern __shared__ float2 hist[];  // [S]: (row f, row f + 1) per column
   const int f = blockIdx.x;
   const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < 2 * S; i += kThreads) hist[i] = 0.0f;
+  for (int i = threadIdx.x; i < S; i += kThreads)
+    hist[i] = make_float2(0.0f, 0.0f);
   __syncthreads();
 
   const size_t base = ((size_t)b * blocks + f) * (size_t)hop;
@@ -59,22 +85,25 @@ lookup_dtab_kernel(const float* __restrict__ ph, const float* __restrict__ g,
     const float gi = g[base + i];
     const float g0 = gi * (1.0f - rw);
     const float g1 = gi * rw;
-    atomicAdd(&hist[c0], g0 * (1.0f - cw));
-    atomicAdd(&hist[c1], g0 * cw);
-    atomicAdd(&hist[S + c0], g1 * (1.0f - cw));
-    atomicAdd(&hist[S + c1], g1 * cw);
+    add_pair(&hist[c0], g0 * (1.0f - cw), g1 * (1.0f - cw));
+    add_pair(&hist[c1], g0 * cw, g1 * cw);
   }
   __syncthreads();
 
-  float* dst = dtab + ((size_t)b * blocks + f) * 2 * (size_t)S;
-  for (int i = threadIdx.x; i < 2 * S; i += kThreads) dst[i] = hist[i];
+  float* row0 = dtab + ((size_t)b * frames + f) * (size_t)S;
+  float* row1 = row0 + S;
+  for (int i = threadIdx.x; i < S; i += kThreads) {
+    const float2 v = hist[i];
+    atomicAdd(&row0[i], v.x);
+    atomicAdd(&row1[i], v.y);
+  }
 }
 
 }  // namespace
 
 extern "C" int golf_lookup_dtab(const float* ph, const float* g, float* dtab,
-                                int batch, int blocks, int hop, int S,
-                                int device, cudaStream_t stream) {
+                                int batch, int blocks, int hop, int frames,
+                                int S, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = 2 * (size_t)S * sizeof(float);
@@ -86,6 +115,6 @@ extern "C" int golf_lookup_dtab(const float* ph, const float* g, float* dtab,
   }
   dim3 grid(blocks, batch);
   lookup_dtab_kernel<<<grid, kThreads, smem, stream>>>(ph, g, dtab, blocks,
-                                                        hop, S);
+                                                        hop, frames, S);
   return (int)cudaGetLastError();
 }

@@ -8,21 +8,36 @@ row, GOLF-ff) route by device: a CUDA tensor goes to the hand-written
 kernel (``kernels/csrc/allpole_tv.cu``, ``allpole_const.cu``), a CPU tensor
 to the plain PyTorch version beside it (the sequential scan, or the blocked
 two-pass form of ``golf_tpu``). Both are ``torch.autograd.Function``s with
-``golf_tpu``'s adjoints, which run the same filter again on the reversed
-cotangent, so the backward goes through the same kernel as the forward.
+``golf_tpu``'s adjoints: the transposed filter on the reversed cotangent.
+
+The time-varying kernel is chunked: float64 state maps of every chunk of
+``CHUNK`` steps, a float64 carry of the state across chunks, then every
+chunk re-run from its incoming state. Its adjoint entry
+(``allpole_adjoint_cuda``) reads the cotangent and the coefficients where
+they lie, so the backward builds no column-shifted or flipped (B, T, p)
+copy; on the CPU the adjoint stays ``golf_tpu``'s materialised form.
+``allpole_chunked_plain`` is the kernel's algorithm in plain PyTorch (both
+entries), for the tests and ``chip_smoke.py``; no route runs it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from ..kernels import ALLPOLE_CONST, ALLPOLE_TV
+from ..core.sig import linear_upsample
+from ..kernels import ALLPOLE_CONST, ALLPOLE_TV, ALLPOLE_TV_ADJ
 from ._checks import check_kernel_inputs
+from .dsp import rc2lpc
 
 MAX_ORDER = 64
+# steps a chunk of the time-varying kernel (and of its plain mirror); of
+# 256, 384 and 512, 512 ran fastest at both the training and the serving
+# shape on the H100 (PERF.md)
+CHUNK = 512
 
 
 def _choose_block(t: int) -> int:
@@ -111,6 +126,75 @@ def allpole_plain(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return _allpole_blocked(x, a, zi, block)
 
 
+def allpole_chunked_plain(x: torch.Tensor, a: torch.Tensor,
+                          chunk: int = CHUNK,
+                          adjoint: bool = False) -> torch.Tensor:
+    """The time-varying kernel's algorithm, vectorised over chunks of
+    ``chunk`` steps (2 chunk + ceil(T / chunk) Python steps): each chunk's
+    state map and zero-state offset in float64, the float64 carry of the
+    state across chunks, then every chunk re-run from its incoming state,
+    also in float64. With ``adjoint`` it returns the transposed filter of
+    the cotangent ``x``, ``flip(allpole(flip(x), flip(_shift_columns(a))))``,
+    indexing ``x`` and ``a`` in place as the adjoint entry does: reversed
+    step m reads x[T - 1 - m] and, for tap j < m, a[T - m + j, j]."""
+    b, t = x.shape
+    p = a.shape[-1]
+    n_chunks = -(-t // chunk)
+    steps = torch.arange(n_chunks * chunk, device=x.device).view(n_chunks,
+                                                                 chunk)
+    taps = torch.arange(p, device=x.device)
+    src = t - 1 - steps if adjoint else steps
+    xs = torch.where(steps < t, x[:, src.clamp(0, t - 1)], 0).double()
+
+    def coef(u: int) -> torch.Tensor:
+        """(B, chunks, p) coefficients of step u of every chunk."""
+        m = steps[:, u, None]
+        rows = t - m + taps if adjoint else m.expand(n_chunks, p)
+        ok = (rows < t) & (m < t)
+        return torch.where(ok, a[:, rows.clamp(0, t - 1), taps], 0).double()
+
+    # maps: columns c < p follow each incoming state component, column p
+    # the zero-state response; state component i is the output i + 1 back
+    s = torch.cat([torch.eye(p, dtype=torch.float64, device=x.device),
+                   x.new_zeros((1, p), dtype=torch.float64)])
+    s = s.expand(b, n_chunks, p + 1, p)
+    for u in range(chunk):
+        r = -(s * coef(u)[:, :, None, :]).sum(-1)
+        r[..., p] += xs[:, :, u]
+        s = torch.cat([r[..., None], s[..., :-1]], dim=-1)
+    s_in = [x.new_zeros((b, p), dtype=torch.float64)]
+    for k in range(n_chunks - 1):
+        s_in.append(torch.einsum("bji,bj->bi", s[:, k, :p], s_in[-1])
+                    + s[:, k, p])
+    state = torch.stack(s_in, dim=1)
+    ys = []
+    for u in range(chunk):
+        y_u = xs[:, :, u] - (state * coef(u)).sum(-1)
+        state = torch.cat([y_u[..., None], state[..., :-1]], dim=-1)
+        ys.append(y_u)
+    y = torch.stack(ys, dim=2).reshape(b, -1)[:, :t].to(x.dtype)
+    return torch.flip(y, (1,)) if adjoint else y
+
+
+def resonant_inputs(seed: int, b: int = 4, t: int = 4800, p: int = 22,
+                    cap: Optional[float] = 0.95):
+    """Inputs of the resonance checks (tests, ``chip_smoke.py``): x (B, T)
+    ~ N(0, 1) and coefficients as GOLF-ss's filter makes them near the unit
+    circle, rc2lpc(cap tanh(logits)) (rc2lpc(tanh(logits)) without a cap),
+    the logits N(0, 1) per sequence plus a slow random walk (steps of
+    0.1 N(0, 1)) over 240-sample frames, upsampled linearly. fp32 CPU
+    tensors, from numpy's generator at ``seed``."""
+    rng = np.random.default_rng(seed)
+    frames = -(-t // 240) + 1
+    logits = (rng.standard_normal((b, 1, p))
+              + np.cumsum(0.1 * rng.standard_normal((b, frames, p)), axis=1))
+    rc = torch.tanh(torch.from_numpy(logits.astype(np.float32)))
+    a = rc2lpc(rc if cap is None else cap * rc)
+    a = linear_upsample(a, 240, axis=1)[:, :t].contiguous()
+    x = torch.from_numpy(rng.standard_normal((b, t)).astype(np.float32))
+    return x, a
+
+
 def _allpole_const_blocked(x: torch.Tensor, a: torch.Tensor,
                            block_size: int) -> torch.Tensor:
     """Blocked two-pass form with constant per-row coefficients: the state
@@ -162,22 +246,40 @@ def allpole_const_plain(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def allpole_cuda(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """Time-varying kernel. x: (B, T), a: (B, T, p), fp32, contiguous."""
-    check_kernel_inputs("allpole", x=x, a=a)
-    if x.ndim != 2:
-        raise ValueError(f"allpole: x must be (B, T), got {tuple(x.shape)}")
+def _allpole_tv_launch(kernel, name: str, x: torch.Tensor, a: torch.Tensor
+                       ) -> torch.Tensor:
+    check_kernel_inputs(name, x=x, a=a)
+    if x.ndim != 2 or not 1 <= x.shape[0] <= 65535:
+        raise ValueError(f"{name}: x must be (B, T) with B <= 65535, got "
+                         f"{tuple(x.shape)}")
     b, t = x.shape
     if a.ndim != 3 or a.shape[:2] != (b, t) or not 1 <= a.shape[2] <= MAX_ORDER:
-        raise ValueError(f"allpole: a must be (B, T, 1..{MAX_ORDER}) for x "
+        raise ValueError(f"{name}: a must be (B, T, 1..{MAX_ORDER}) for x "
                          f"{tuple(x.shape)}, got {tuple(a.shape)}")
+    p = a.shape[2]
     y = torch.empty_like(x)
     if x.numel():
-        ALLPOLE_TV.launch(x.data_ptr(), a.data_ptr(), y.data_ptr(), b, t,
-                          a.shape[2], x.device.index,
-                          torch.cuda.current_stream(x.device).cuda_stream,
-                          shapes=(tuple(x.shape), tuple(a.shape)))
+        n_chunks = -(-t // CHUNK)
+        # float64 maps (B, chunks - 1, p + 1, p), then incoming states
+        scratch = torch.empty(b * ((n_chunks - 1) * (p + 1) * p
+                                   + n_chunks * p),
+                              dtype=torch.float64, device=x.device)
+        kernel.launch(x.data_ptr(), a.data_ptr(), y.data_ptr(),
+                      scratch.data_ptr(), b, t, p, CHUNK, x.device.index,
+                      torch.cuda.current_stream(x.device).cuda_stream,
+                      shapes=(tuple(x.shape), tuple(a.shape)))
     return y
+
+
+def allpole_cuda(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Time-varying kernel. x: (B, T), a: (B, T, p), fp32, contiguous."""
+    return _allpole_tv_launch(ALLPOLE_TV, "allpole", x, a)
+
+
+def allpole_adjoint_cuda(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The time-varying kernel's adjoint entry: dx of the cotangent g (B, T)
+    for coefficients a (B, T, p), read in place."""
+    return _allpole_tv_launch(ALLPOLE_TV_ADJ, "allpole_adjoint", g, a)
 
 
 def allpole_const_cuda(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -228,24 +330,40 @@ def _reversed(fn: Callable, g: torch.Tensor, a: torch.Tensor
     return torch.flip(fn(torch.flip(g, (1,)).contiguous(), a), (1,))
 
 
+def allpole_adjoint_plain(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``golf_tpu``'s adjoint of the time-varying filter: the plain forward
+    on the flipped cotangent and the flipped, column-shifted
+    coefficients."""
+    return _reversed(allpole_plain, g, torch.flip(_shift_columns(a), (1,)))
+
+
+class AllpoleOps(NamedTuple):
+    """The two functions of one route of the time-varying filter: forward
+    (x, a) -> y and adjoint (g, a) -> dx."""
+    fwd: Callable
+    adj: Callable
+
+
+CUDA_OPS = AllpoleOps(allpole_cuda, allpole_adjoint_cuda)
+PLAIN_OPS = AllpoleOps(allpole_plain, allpole_adjoint_plain)
+
+
 class _Allpole(torch.autograd.Function):
     """Time-varying all-pole with ``golf_tpu``'s adjoint: dx is the filter
     run backwards in time with the column-shifted coefficients, and
     ``da = -dx[..., None] * _delayed_stack(y, p)``."""
 
     @staticmethod
-    def forward(ctx, x, a, fn):
-        y = fn(x, a)
+    def forward(ctx, x, a, ops):
+        y = ops.fwd(x, a)
         ctx.save_for_backward(y, a)
-        ctx.fn = fn
+        ctx.ops = ops
         return y
 
     @staticmethod
     def backward(ctx, g):
         y, a = ctx.saved_tensors
-        c = torch.flip(_shift_columns(a), (1,))
-        dx = _reversed(ctx.fn, g, c)
-        del c
+        dx = ctx.ops.adj(g.contiguous(), a)
         da = None
         if ctx.needs_input_grad[1]:
             da = -dx[..., None] * _delayed_stack(y, a.shape[-1])
@@ -278,20 +396,21 @@ class _AllpoleConst(torch.autograd.Function):
 
 
 def allpole(x: torch.Tensor, a: torch.Tensor,
-            fn: Optional[Callable] = None) -> torch.Tensor:
+            ops: Optional[AllpoleOps] = None) -> torch.Tensor:
     """Time-varying all-pole, differentiable. x: (B, T), a: (B, T, p) ->
-    (B, T). ``fn`` names the forward explicitly (``allpole_cuda`` or
-    ``allpole_plain``, for comparisons on the card); by default the
-    tensors' device decides."""
-    if fn is None:
-        fn = allpole_cuda if x.is_cuda else allpole_plain
-    return _Allpole.apply(x, a, fn)
+    (B, T). ``ops`` names the route explicitly (``CUDA_OPS`` or
+    ``PLAIN_OPS``, for comparisons on the card); by default the tensors'
+    device decides."""
+    if ops is None:
+        ops = CUDA_OPS if x.is_cuda else PLAIN_OPS
+    return _Allpole.apply(x, a, ops)
 
 
 def allpole_const(x: torch.Tensor, a: torch.Tensor,
                   fn: Optional[Callable] = None) -> torch.Tensor:
     """Constant-coefficient all-pole, differentiable. x: (N, T), a: (N, p)
-    -> (N, T). ``fn`` as for ``allpole``."""
+    -> (N, T). ``fn`` names the forward explicitly (``allpole_const_cuda``
+    or ``allpole_const_plain``); by default the tensors' device decides."""
     if fn is None:
         fn = allpole_const_cuda if x.is_cuda else allpole_const_plain
     return _AllpoleConst.apply(x, a, fn)

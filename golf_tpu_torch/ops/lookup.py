@@ -14,7 +14,8 @@ plain version):
   ``d_bot = v11 - v10`` (B3a, the same source), which make the phase
   cotangent elementwise (``dph_from_res``);
 * the table cotangent (B3b, ``kernels/csrc/lookup_dtab.cu``): a per-block
-  histogram of the four corner weights, folded into rows f and f+1.
+  histogram of the four corner weights, folded into rows f and f+1 (inside
+  the kernel; ``fold_rows`` in the plain version).
 
 ``lookup_blocks`` runs B1 when nothing needs a gradient, else the
 ``torch.autograd.Function`` whose forward runs B3a and whose backward is
@@ -179,8 +180,8 @@ def lookup_res_cuda(ph: torch.Tensor, tables: torch.Tensor, hop: int
 def lookup_dtab_cuda(ph: torch.Tensor, g: torch.Tensor, hop: int,
                      frames: int, s: int) -> torch.Tensor:
     """B3b: the table cotangent (B, frames, S) of the output cotangent
-    ``g``; the kernel writes the per-block histogram (B, blocks, 2, S) and
-    two adds fold it into rows f and f+1."""
+    ``g``; the kernel adds each block's histogram into rows f and f+1 of
+    the zeroed result."""
     check_kernel_inputs("lookup_dtab", ph=ph, g=g)
     _check_blocks("lookup_dtab", ph, hop, s)
     b, blocks, _ = ph.shape
@@ -188,12 +189,13 @@ def lookup_dtab_cuda(ph: torch.Tensor, g: torch.Tensor, hop: int,
         raise ValueError(f"lookup_dtab: g {tuple(g.shape)} must match ph "
                          f"{tuple(ph.shape)} and frames {frames} >= "
                          f"{blocks + 1}")
-    hist = torch.empty((b, blocks, 2, s), dtype=ph.dtype, device=ph.device)
+    d = torch.zeros((b, frames, s), dtype=ph.dtype, device=ph.device)
     if ph.numel():
-        LOOKUP_DTAB.launch(ph.data_ptr(), g.data_ptr(), hist.data_ptr(), b,
-                           blocks, hop, s, ph.device.index, _stream(ph),
+        LOOKUP_DTAB.launch(ph.data_ptr(), g.data_ptr(), d.data_ptr(), b,
+                           blocks, hop, frames, s, ph.device.index,
+                           _stream(ph),
                            shapes=(tuple(ph.shape), (b, frames, s)))
-    return fold_rows(hist, frames)
+    return d
 
 
 # ---------------------------------------------------------------------------

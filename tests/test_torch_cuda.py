@@ -96,8 +96,8 @@ def test_cuda_function_backward_matches_plain(cuda_device, name):
     else:
         inputs = (torch.from_numpy(r.standard_normal((3, 4000)).astype(
             np.float32)), _lpc(r, (3, 4000, 22), 0.1))
-        fns = [lambda x, a, f=f: tap.allpole(x, a, f)
-               for f in (tap.allpole_cuda, tap.allpole_plain)]
+        fns = [lambda x, a, ops=ops: tap.allpole(x, a, ops)
+               for ops in (tap.CUDA_OPS, tap.PLAIN_OPS)]
     grads = []
     for fn in fns:
         ins = [t.cuda().requires_grad_() for t in inputs]
@@ -105,8 +105,8 @@ def test_cuda_function_backward_matches_plain(cuda_device, name):
         g = torch.from_numpy(np.random.default_rng(3).standard_normal(
             tuple(out.shape)).astype(np.float32)).cuda()
         grads.append(torch.autograd.grad(out, ins, g))
-    # the kernels' sequential recurrences and atomics against the plain
-    # versions' blocked forms and scatter_add: 1e-4 of max|ref|
+    # the kernels (sequential, chunked float64) and atomics against the
+    # plain versions' blocked forms and scatter_add: 1e-4 of max|ref|
     for u, v in zip(*grads):
         assert ((u - v).abs().max() / v.abs().max()).item() <= 1e-4
 
@@ -115,7 +115,8 @@ def test_cuda_function_backward_matches_plain(cuda_device, name):
 @pytest.mark.parametrize("p", [22, 5, 40])
 def test_cuda_allpole_matches_plain(cuda_device, p):
     # the plain versions run the blocked two-pass form, the kernels the
-    # sequential recurrence: 1e-5 of max|y| at this low filter gain
+    # chunked float64 form (B4) and the sequential recurrence (B2): 1e-5 of
+    # max|y| at this low filter gain
     rng = np.random.default_rng(p)
     x = torch.from_numpy(rng.standard_normal((3, 3000)).astype(np.float32))
     a = _lpc(rng, (3, 3000, p), 0.1)
@@ -126,6 +127,61 @@ def test_cuda_allpole_matches_plain(cuda_device, p):
         out = kernel(x.cuda(), aa.cuda()).cpu()
         ref = plain(x, aa)
         assert (out - ref).abs().max() / ref.abs().max() < 1e-5
+
+
+# (B, T): several chunks with a ragged end, T shorter than a chunk, T = 1
+CHUNKED_SHAPES = [(3, 3 * tap.CHUNK + 37), (2, 100), (2, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [5, 22, 40])
+@pytest.mark.parametrize("b,t", CHUNKED_SHAPES)
+def test_cuda_allpole_chunked_matches_mirror(cuda_device, b, t, p):
+    """B4 and its adjoint entry against ``allpole_chunked_plain`` (the same
+    algorithm in plain PyTorch) on the card."""
+    rng = np.random.default_rng(t + p)
+    x = torch.from_numpy(rng.standard_normal((b, t)).astype(np.float32))
+    a = _lpc(rng, (b, t, p), 0.2)
+    x, a = x.cuda(), a.cuda()
+    for kernel, adjoint in ((tap.allpole_cuda, False),
+                            (tap.allpole_adjoint_cuda, True)):
+        out = kernel(x, a)
+        ref = tap.allpole_chunked_plain(x, a, adjoint=adjoint)
+        # float64 on both sides; the sums run in other orders: 1e-5 of
+        # max|y|
+        assert out.shape == (b, t)
+        assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_allpole_adjoint_is_the_materialised_adjoint(cuda_device):
+    """The adjoint entry, reading g and a in place, equals the forward entry
+    on the flipped cotangent and the flipped, column-shifted coefficients,
+    bit for bit."""
+    rng = np.random.default_rng(9)
+    t = 2 * tap.CHUNK + 91
+    g = torch.from_numpy(rng.standard_normal((3, t)).astype(np.float32))
+    a = _lpc(rng, (3, t, 22), 0.2)
+    g, a = g.cuda(), a.cuda()
+    dx = tap.allpole_adjoint_cuda(g, a)
+    c = torch.flip(tap._shift_columns(a), (1,)).contiguous()
+    ref = torch.flip(tap.allpole_cuda(torch.flip(g, (1,)).contiguous(), c),
+                     (1,))
+    assert torch.equal(dx, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_allpole_resonant_error_within_float32_scan(cuda_device):
+    """On a resonant filter (uncapped) B4's error against a float64 scan is
+    no larger than the float32 scan's, on the same inputs."""
+    x, a = tap.resonant_inputs(0, cap=None)
+    x, a = x.cuda(), a.cuda()
+    ref = tap.allpole_scan(x.double(), a.double())
+    scale = ref.abs().max()
+    err32 = ((tap.allpole_scan(x, a).double() - ref).abs().max() / scale)
+    err = ((tap.allpole_cuda(x, a).double() - ref).abs().max() / scale)
+    assert torch.isfinite(ref).all() and err32.item() >= 1e-5
+    assert err.item() <= err32.item()
 
 
 @pytest.mark.cuda
