@@ -6,20 +6,26 @@
 Phases (any failure exits non-zero):
 1. environment: versions, the card's name and power limit; TF32 off (for
    every phase, the train phase's step times included);
-2. build: the six CUDA kernel entry points of the serving and training
+2. build: the seven CUDA kernel entry points of the serving and training
    paths (four sources, one ``nvcc`` each, started together), from
-   ``golf_tpu_torch/kernels/csrc``;
+   ``golf_tpu_torch/kernels/csrc``, with ``ptxas``'s registers and spills;
 3. kernels vs their plain PyTorch versions, on the card, at the shapes the
-   serving path (B1, B2, B4 and its adjoint entry) and the training path
-   (all six) give them, with each one's time, its plain version's time and
-   its roofline bound; B4 and its adjoint entry also against
+   serving path (B1, B2 and its adjoint entry, B4 and its adjoint entry)
+   and the training path (all seven) give them, with each one's time, its
+   plain version's time and its roofline bound; B2 and its adjoint entry
+   also against their float64 mirrors (``allpole_const_scan64``,
+   ``allpole_const_adjoint_scan64``), and the adjoint entry beside the
+   composite it replaces (``golf_tpu``'s flips and shifted dots around B2,
+   ``composite_ms``); B4 and its adjoint entry also against
    ``allpole_chunked_plain`` (the same chunked float64 algorithm in plain
    PyTorch) and the adjoint entry bit for bit against the forward entry on
    the materialised flipped, column-shifted operands; then each autograd
    Function's backward through the kernels against the same Function on the
    plain versions, on the same cotangent;
    resonance: on resonant filters (capped at 0.95 and uncapped) B4's error
-   against a float64 scan must be no larger than the float32 scan's;
+   against a float64 scan must be no larger than the float32 scan's, and
+   B2's y and its adjoint's dx within 1e-6 of a float64 scan (da within
+   1e-5 of the float64 mirror);
 4. serve: the full-width Interspeech24 autoencoder (the encoder of
    ``cfg/ae/vctk.yaml``) with the GOLF-ff decoder (``golf.yaml``), then the
    GOLF-ss decoder (``golf-precise.yaml``), seeded random weights, answers
@@ -27,8 +33,8 @@ Phases (any failure exits non-zero):
    must move; one 2 s request is held against the port's own CPU run;
 5. train: the same two models take 3 Adam steps each through the port's
    ``Trainer`` on B = 64 synthetic items of 2 s; every loss must be finite
-   and B3a, B3b and B2 (GOLF-ff) or B4 and its adjoint entry, once each a
-   step (GOLF-ss), must launch; one step at
+   and B3a, B3b, B2 and B2's adjoint entry (GOLF-ff) or B3a, B3b, B4 and
+   B4's adjoint entry (GOLF-ss) must launch once each a step; one step at
    B = 2 x 1 s (dropout 0, train mode) is held against the port's CPU run,
    loss and every gradient;
 6. summary: a ``kernels:`` line, the card, then one JSON line with the
@@ -43,6 +49,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -54,12 +61,17 @@ from golf_tpu_torch import kernels
 from golf_tpu_torch.core.sig import Sig, linear_upsample
 from golf_tpu_torch.ops import lookup as lk
 from golf_tpu_torch.ops.allpole import (allpole, allpole_const,
+                                        allpole_const_adjoint_cuda,
+                                        allpole_const_adjoint_plain,
+                                        allpole_const_adjoint_scan64,
                                         allpole_const_cuda,
                                         allpole_const_plain,
+                                        allpole_const_scan64,
                                         allpole_adjoint_cuda,
                                         allpole_adjoint_plain,
                                         allpole_chunked_plain, allpole_cuda,
                                         allpole_plain, allpole_scan,
+                                        resonant_const_inputs,
                                         resonant_inputs)
 from golf_tpu_torch.ops import allpole as tap
 from golf_tpu_torch.ops.dsp import rc2lpc
@@ -173,6 +185,7 @@ def main_path_shapes(batch: int, t: int) -> dict:
         "lookup_res": lookup,
         "lookup_dtab": lookup,
         "allpole_const": ((n_ff, 960), (n_ff, p)),
+        "allpole_const_adjoint": ((n_ff, 960), (n_ff, p)),
         "allpole_tv": ((batch, t_ss), (batch, t_ss, p)),
         "allpole_tv_adjoint": ((batch, t_ss), (batch, t_ss, p)),
     }
@@ -219,10 +232,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes: float, flops: float):
-    """Roofline bound in ms and what sets it."""
+def bound(nbytes: float, flops: float, fp64: bool = False):
+    """Roofline bound in ms and what sets it: ``flops`` at the fp32 peak,
+    or the fp64 peak for a float64 kernel."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / (PEAK_FP64_FLOPS if fp64 else PEAK_FP32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -261,16 +275,36 @@ def phase_environment() -> str:
     return card
 
 
+def entry_name(mangled: str) -> str:
+    """``ring_kernel<2, 4>`` from a mangled kernel name: the innermost of its
+    length-prefixed names and its integer or bool template arguments."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[i:])
+    if args:
+        name += f"<{', '.join(re.findall(r'L[a-z](\d+)E', args.group(1)))}>"
+    return name
+
+
 def phase_build() -> None:
     log: dict = {}
     seconds = kernels.build(kernels.ALL, log)
     print(f"build: {seconds:.1f} s for {len(kernels.ALL)} kernels "
           f"({', '.join(k.source for k in kernels.ALL)})")
     for name, out in log.items():
-        usage = [ln.strip() for ln in out.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        for ln in usage:
-            print(f"  ptxas[{name}]: {ln}")
+        entry = "?"
+        for ln in out.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                entry = entry_name(m.group(1))
+            elif "registers" in ln or "spill" in ln:
+                ln = ln.replace("ptxas info    :", "").strip()
+                print(f"  ptxas[{name}] {entry}: {ln}")
 
 
 def lookup_inputs(gen, shapes):
@@ -299,7 +333,8 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
 def phase_kernels(shapes: dict, which=("lookup", "allpole_const",
                                        "allpole_tv"), label="serve") -> dict:
     """Each kernel against its plain version on the same inputs, with its
-    time, the plain version's time and the roofline bound."""
+    time, the plain version's time and the roofline bound. "allpole_const"
+    covers B2 and its adjoint entry."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
     ph, tables, hop = lookup_inputs(gen, shapes)
@@ -360,19 +395,50 @@ def phase_kernels(shapes: dict, which=("lookup", "allpole_const",
         x_shape, a_shape = shapes["allpole_const"]
         x = torch.randn(x_shape, generator=gen, device="cuda")
         a = lpc_coeffs(gen, a_shape, "cuda")
+        g = torch.randn(x_shape, generator=gen, device="cuda")
         out = allpole_const_cuda(x, a)
         ref = allpole_const_plain(x, a)
         err = (out - ref).abs().max().item()
         rel = err / ref.abs().max().item()
+        rel64 = rel_err(out, allpole_const_scan64(x, a))
         print(f"[{label}] allpole_const (B2) {tuple(x.shape)} p={a.shape[1]}:"
-              f" max err {err:.3e}, / max|y| {rel:.3e} (tolerance 1e-5)")
-        check(rel <= 1e-5 and torch.isfinite(out).all().item(),
-              "allpole_const vs plain")
+              f" max err {err:.3e}, / max|y| {rel:.3e} against "
+              f"allpole_const_plain (tolerance 1e-5: float64 sequential vs "
+              f"golf_tpu's float32 blocked form); {rel64:.3e} against "
+              f"allpole_const_scan64 (tolerance 1e-6: the same float64 "
+              f"recurrence, sums in another order)")
+        check(rel <= 1e-5 and rel64 <= 1e-6
+              and torch.isfinite(out).all().item(), "allpole_const vs plain")
+        n, t = x.shape
+        p = a.shape[1]
         rows["allpole_const"] = dict(
-            err=err, ms=cuda_ms(lambda: allpole_const_cuda(x, a), 20),
+            err=err, ms=cuda_ms(lambda: allpole_const_cuda(x, a), 50),
             plain_ms=cuda_ms(lambda: allpole_const_plain(x, a), 3),
-            bound=bound(4 * (2 * x.numel() + a.numel()), 2 * a.numel()
-                        * x.shape[1]))
+            bound=bound(4 * (2 * n * t + n * p), 2 * p * n * t, fp64=True))
+
+        dx, da = allpole_const_adjoint_cuda(g, out, a)
+        dx64, da64 = allpole_const_adjoint_scan64(g, out, a)
+        dxp, dap = allpole_const_adjoint_plain(g, out, a)
+        errs64 = [rel_err(dx, dx64), rel_err(da, da64)]
+        errs = [rel_err(dx, dxp), rel_err(da, dap)]
+        print(f"[{label}] allpole_const_adjoint {tuple(g.shape)}: dx "
+              f"{errs64[0]:.3e}, da {errs64[1]:.3e} of max|ref| against "
+              f"allpole_const_adjoint_scan64 (tolerance 1e-6); dx "
+              f"{errs[0]:.3e}, da {errs[1]:.3e} against "
+              f"allpole_const_adjoint_plain (tolerance 1e-4: float64 vs "
+              f"golf_tpu's float32 blocked run and dots)")
+        check(max(errs64) <= 1e-6 and max(errs) <= 1e-4,
+              "allpole_const_adjoint vs mirror and plain")
+        rows["allpole_const_adjoint"] = dict(
+            err=max((dx - dxp).abs().max().item(),
+                    (da - dap).abs().max().item()),
+            ms=cuda_ms(lambda: allpole_const_adjoint_cuda(g, out, a), 50),
+            plain_ms=cuda_ms(lambda: allpole_const_adjoint_plain(g, out, a),
+                             3),
+            composite_ms=cuda_ms(lambda: tap._const_adjoint_composite(
+                allpole_const_cuda, g, out, a), 10),
+            bound=bound(4 * (3 * n * t + 2 * n * p), 4 * p * n * t,
+                        fp64=True))
 
     if "allpole_tv" in which:
         x, a = allpole_tv_inputs(gen, shapes)
@@ -456,14 +522,14 @@ def phase_backward(shapes: dict) -> None:
     x = torch.randn(x_shape, generator=gen, device="cuda").requires_grad_()
     a = lpc_coeffs(gen, a_shape, "cuda").requires_grad_()
     g = torch.randn(x_shape, generator=gen, device="cuda")
-    got = grads_of(lambda x_, a_: allpole_const(x_, a_, allpole_const_cuda),
+    got = grads_of(lambda x_, a_: allpole_const(x_, a_, tap.CONST_CUDA_OPS),
                    (x, a), g)
-    ref = grads_of(lambda x_, a_: allpole_const(x_, a_, allpole_const_plain),
+    ref = grads_of(lambda x_, a_: allpole_const(x_, a_, tap.CONST_PLAIN_OPS),
                    (x, a), g)
     errs = [rel_err(u, v) for u, v in zip(got, ref)]
-    print(f"backward allpole_const (B2 on the reversed cotangent) dx "
-          f"{errs[0]:.3e}, da {errs[1]:.3e} of max|ref| (tolerance 1e-4: "
-          f"sequential vs blocked two-pass, da sums 960 products a row)")
+    print(f"backward allpole_const (B2's adjoint entry) dx {errs[0]:.3e}, "
+          f"da {errs[1]:.3e} of max|ref| (tolerance 1e-4: sequential "
+          f"float64 vs blocked two-pass, da sums 960 products a row)")
     check(max(errs) <= 1e-4, "allpole_const backward vs plain")
 
     x, a = allpole_tv_inputs(gen, shapes)
@@ -501,6 +567,38 @@ def phase_resonance() -> None:
               f"{a.abs().max().item():.1f}): error against the float64 "
               f"scan, of max|y|: B4 {err:.3e}, float32 scan {err32:.3e}")
         check(err <= err32, f"B4 within the float32 scan's error, cap {cap}")
+
+    # B2 and its adjoint entry on resonant constant filters, N = 256 rows
+    # of T = 960 at p = 22 (resonant_const_inputs, seed 0)
+    for cap in (0.95, None):
+        x, a = (t.cuda() for t in resonant_const_inputs(0, cap=cap))
+        n, t = x.shape
+        a_tv = a[:, None, :].expand(n, t, a.shape[1])
+        g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (n, t)).astype(np.float32)).cuda()
+        ref = allpole_scan(x.double(), a_tv.double())
+        dx_ref = torch.flip(allpole_scan(torch.flip(g, (1,)).double(),
+                                         a_tv.double()), (1,))
+        check(torch.isfinite(ref).all().item()
+              and torch.isfinite(dx_ref).all().item(),
+              f"float64 scans finite, cap {cap}")
+        y = allpole_const_cuda(x, a)
+        dx, da = allpole_const_adjoint_cuda(g, y, a)
+        # the mirror pairs the same y with its float64 dx, as the kernel
+        _, da_ref = allpole_const_adjoint_scan64(g.double(), y, a.double())
+        err_y, err_dx = rel_err(y.double(), ref), rel_err(dx.double(), dx_ref)
+        err_da = rel_err(da.double(), da_ref)
+        err32 = rel_err(allpole_scan(x, a_tv).double(), ref)
+        err32_dx = rel_err(torch.flip(allpole_scan(torch.flip(g, (1,)), a_tv),
+                                      (1,)).double(), dx_ref)
+        print(f"resonance B2 (cap {cap}, N={n}, T={t}, max|a| "
+              f"{a.abs().max().item():.1f}): against the float64 scan, of "
+              f"max-abs: y {err_y:.3e}, adjoint dx {err_dx:.3e} (tolerance "
+              f"1e-6); float32 scan y {err32:.3e}, dx {err32_dx:.3e}; da "
+              f"{err_da:.3e} of max|da| against the float64 mirror "
+              f"(tolerance 1e-5)")
+        check(err_y <= 1e-6 and err_dx <= 1e-6 and err_da <= 1e-5,
+              f"B2 and its adjoint on resonant filters, cap {cap}")
 
 
 def seeded_model(decoder: str, device) -> VoiceAutoEncoder:
@@ -605,7 +703,8 @@ def phase_train(decoder: str, expect: dict) -> dict:
     trainer = Trainer(task, run_dir="chiprun_out/chip_smoke_train",
                       max_steps=TRAIN_STEPS, seed=SEED)
     task.init_running_stats(xs, f0s)
-    path = {"golf": ("lookup_res", "lookup_dtab", "allpole_const"),
+    path = {"golf": ("lookup_res", "lookup_dtab", "allpole_const",
+                     "allpole_const_adjoint"),
             "golf-precise": ("lookup_res", "lookup_dtab", "allpole_tv",
                              "allpole_tv_adjoint")}[decoder]
     torch.cuda.synchronize()
@@ -630,8 +729,9 @@ def phase_train(decoder: str, expect: dict) -> dict:
           f"{metrics['grad_norm'].item():.4g}; peak memory "
           f"{peak:.2f} GiB; launches {counts}")
     check(all(np.isfinite(losses)), f"{decoder} train losses finite")
-    per_step = {"lookup_res": 1, "lookup_dtab": 1, "allpole_const": 2,
-                "allpole_tv": 1, "allpole_tv_adjoint": 1}
+    per_step = {"lookup_res": 1, "lookup_dtab": 1, "allpole_const": 1,
+                "allpole_const_adjoint": 1, "allpole_tv": 1,
+                "allpole_tv_adjoint": 1}
     for name in path:
         check(counts[name] == per_step[name] * TRAIN_STEPS,
               f"{decoder} train launched {name} {counts[name]} times")
@@ -742,6 +842,9 @@ def main() -> int:
                 "lookup_res": "golf_tpu/ops/lookup_pallas.py:222",
                 "lookup_dtab": "golf_tpu/ops/lookup_pallas.py:128",
                 "allpole_const": "golf_tpu/ops/allpole_pallas.py:89",
+                # run by golf_tpu's VJP on the reversed cotangent
+                # (allpole.py:400), with the shifted dots at allpole.py:403
+                "allpole_const_adjoint": "golf_tpu/ops/allpole_pallas.py:89",
                 "allpole_tv": "golf_tpu/ops/allpole_pallas.py:33",
                 "allpole_tv_adjoint": "golf_tpu/ops/allpole_pallas.py:33"}
     table = []
@@ -755,29 +858,39 @@ def main() -> int:
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None,
             "shapes": [list(s) for s in train_shapes[k.name]]}
-        if "fp64_floor_ms" in r:
-            entry["fp64_floor_ms"] = r["fp64_floor_ms"]
+        if k.name == "allpole_const_adjoint":
+            entry["also_replaces"] = "golf_tpu/ops/allpole.py:403-404"
+        for key in ("fp64_floor_ms", "composite_ms"):
+            if key in r:
+                entry[key] = r[key]
         if k.name in serve_rows:
             sr_ = serve_rows[k.name]
             entry["serve"] = {
                 "shapes": [list(s) for s in serve_shapes[k.name]],
                 "max_abs_err": sr_["err"], "ms": sr_["ms"],
                 "plain_ms": sr_["plain_ms"], "bound_ms": sr_["bound"][0]}
-            if "fp64_floor_ms" in sr_:
-                entry["serve"]["fp64_floor_ms"] = sr_["fp64_floor_ms"]
+            for key in ("fp64_floor_ms", "composite_ms"):
+                if key in sr_:
+                    entry["serve"][key] = sr_[key]
         table.append(entry)
+    def composite_note(e):
+        if "composite_ms" not in e:
+            return ""
+        return f", composite {e['composite_ms'] * 1e3:.1f} us"
+
     def serve_note(e):
         if "serve" not in e:
             return ""
         sv = e["serve"]
         return (f"; serving shapes {sv['ms'] * 1e3:.1f} us, bound "
                 f"{sv['bound_ms'] * 1e3:.1f} us, plain "
-                f"{sv['plain_ms'] * 1e3:.1f} us")
+                f"{sv['plain_ms'] * 1e3:.1f} us" + composite_note(sv))
 
     print("kernels: [" + "; ".join(
         f"{e['name']}: launches {e['launches']}, {e['ms'] * 1e3:.1f} us, "
         f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']}), plain "
-        f"{e['plain_ms'] * 1e3:.1f} us (training shapes){serve_note(e)}"
+        f"{e['plain_ms'] * 1e3:.1f} us{composite_note(e)} (training "
+        f"shapes){serve_note(e)}"
         for e in table) + "]")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

@@ -148,6 +148,9 @@ LOOKUP_DTAB = CudaKernel(
 ALLPOLE_CONST = CudaKernel(
     "allpole_const", "allpole_const.cu", "golf_allpole_const",
     [_P, _P, _P, _I, _I, _I, _I, _P])
+ALLPOLE_CONST_ADJ = CudaKernel(
+    "allpole_const_adjoint", "allpole_const.cu", "golf_allpole_const_adjoint",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
 ALLPOLE_TV = CudaKernel(
     "allpole_tv", "allpole_tv.cu", "golf_allpole_tv",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
@@ -155,5 +158,5 @@ ALLPOLE_TV_ADJ = CudaKernel(
     "allpole_tv_adjoint", "allpole_tv.cu", "golf_allpole_tv_adjoint",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 
-ALL = (LOOKUP, LOOKUP_RES, LOOKUP_DTAB, ALLPOLE_CONST, ALLPOLE_TV,
-       ALLPOLE_TV_ADJ)
+ALL = (LOOKUP, LOOKUP_RES, LOOKUP_DTAB, ALLPOLE_CONST, ALLPOLE_CONST_ADJ,
+       ALLPOLE_TV, ALLPOLE_TV_ADJ)

@@ -5,10 +5,11 @@
 
 ``allpole`` (time-varying, GOLF-ss) and ``allpole_const`` (constant per
 row, GOLF-ff) route by device: a CUDA tensor goes to the hand-written
-kernel (``kernels/csrc/allpole_tv.cu``, ``allpole_const.cu``), a CPU tensor
-to the plain PyTorch version beside it (the sequential scan, or the blocked
-two-pass form of ``golf_tpu``). Both are ``torch.autograd.Function``s with
-``golf_tpu``'s adjoints: the transposed filter on the reversed cotangent.
+kernels (``kernels/csrc/allpole_tv.cu``, ``allpole_const.cu``), a CPU
+tensor to the plain PyTorch versions beside them (the sequential scan, or
+the blocked two-pass form of ``golf_tpu``). Both are
+``torch.autograd.Function``s with ``golf_tpu``'s adjoints: the transposed
+filter on the reversed cotangent.
 
 The time-varying kernel is chunked: float64 state maps of every chunk of
 ``CHUNK`` steps, a float64 carry of the state across chunks, then every
@@ -18,6 +19,14 @@ they lie, so the backward builds no column-shifted or flipped (B, T, p)
 copy; on the CPU the adjoint stays ``golf_tpu``'s materialised form.
 ``allpole_chunked_plain`` is the kernel's algorithm in plain PyTorch (both
 entries), for the tests and ``chip_smoke.py``; no route runs it.
+
+The constant-coefficient kernel is the sequential recurrence with a
+float64 state, one row a thread. Its adjoint entry
+(``allpole_const_adjoint_cuda``) walks the cotangent backwards in place and
+forms ``da`` in the same pass; on the CPU the adjoint stays ``golf_tpu``'s
+composite (flipped run, then p shifted dots). ``allpole_const_scan64`` and
+``allpole_const_adjoint_scan64`` are the kernels' arithmetic in plain
+PyTorch, for the tests and ``chip_smoke.py``; no route runs them.
 """
 
 from __future__ import annotations
@@ -29,7 +38,8 @@ import numpy as np
 import torch
 
 from ..core.sig import linear_upsample
-from ..kernels import ALLPOLE_CONST, ALLPOLE_TV, ALLPOLE_TV_ADJ
+from ..kernels import (ALLPOLE_CONST, ALLPOLE_CONST_ADJ, ALLPOLE_TV,
+                       ALLPOLE_TV_ADJ)
 from ._checks import check_kernel_inputs
 from .dsp import rc2lpc
 
@@ -242,6 +252,58 @@ def allpole_const_plain(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return allpole_scan(x, a[:, None, :].expand(n, t, p))
 
 
+def allpole_const_scan64(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The constant-coefficient kernel's arithmetic: the sequential
+    recurrence with a float64 state and sums. x: (N, T), a: (N, p) -> (N, T)
+    in x's dtype."""
+    n, t = x.shape
+    c = a.double()
+    s = x.new_zeros((n, a.shape[1]), dtype=torch.float64)
+    ys = []
+    for u in range(t):
+        y_u = x[:, u].double() - (c * s).sum(-1)
+        s = torch.cat([y_u[:, None], s[:, :-1]], dim=1)
+        ys.append(y_u)
+    return torch.stack(ys, dim=1).to(x.dtype) if ys else x.clone()
+
+
+def allpole_const_adjoint_scan64(g: torch.Tensor, y: torch.Tensor,
+                                 a: torch.Tensor):
+    """The adjoint entry's arithmetic: the transposed recurrence walked from
+    the end with a float64 state, dx[t] = g[t] - sum_i a[i] dx[t + 1 + i],
+    and da[j] = -sum_s y[s] dx[s + 1 + j], each y[s] paired with the
+    float64 state before step s (which holds dx[s + 1..s + p]), as the
+    kernel pairs them. Returns (dx, da) in g's dtype."""
+    n, t = g.shape
+    c = a.double()
+    s = g.new_zeros((n, a.shape[1]), dtype=torch.float64)
+    da = torch.zeros_like(s)
+    yd = y.double()
+    dxs = []
+    for u in range(t - 1, -1, -1):
+        da += yd[:, u, None] * s
+        d = g[:, u].double() - (c * s).sum(-1)
+        s = torch.cat([d[:, None], s[:, :-1]], dim=1)
+        dxs.append(d)
+    dx = torch.stack(dxs[::-1], dim=1).to(g.dtype) if dxs else g.clone()
+    return dx, (-da).to(g.dtype)
+
+
+def resonant_const_inputs(seed: int, n: int = 256, t: int = 960,
+                          p: int = 22, cap: Optional[float] = 0.95):
+    """Inputs of the constant-coefficient resonance checks (tests,
+    ``chip_smoke.py``): x (N, T) ~ N(0, 1) and per-row coefficients
+    rc2lpc(cap tanh(z)) (rc2lpc(tanh(z)) without a cap), z ~ N(0, 1) i.i.d.
+    per row and tap. fp32 CPU tensors, from numpy's generator at
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    rc = torch.tanh(torch.from_numpy(
+        rng.standard_normal((n, p)).astype(np.float32)))
+    a = rc2lpc(rc if cap is None else cap * rc).contiguous()
+    x = torch.from_numpy(rng.standard_normal((n, t)).astype(np.float32))
+    return x, a
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -282,17 +344,22 @@ def allpole_adjoint_cuda(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return _allpole_tv_launch(ALLPOLE_TV_ADJ, "allpole_adjoint", g, a)
 
 
+def _check_const_shapes(name: str, x: torch.Tensor, a: torch.Tensor
+                        ) -> None:
+    if x.ndim != 2:
+        raise ValueError(f"{name}: x must be (N, T), got {tuple(x.shape)}")
+    if a.ndim != 2 or a.shape[0] != x.shape[0] or \
+            not 1 <= a.shape[1] <= MAX_ORDER:
+        raise ValueError(f"{name}: a must be (N, 1..{MAX_ORDER}) for x "
+                         f"{tuple(x.shape)}, got {tuple(a.shape)}")
+
+
 def allpole_const_cuda(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """Constant-coefficient kernel. x: (N, T), a: (N, p), fp32,
     contiguous."""
     check_kernel_inputs("allpole_const", x=x, a=a)
-    if x.ndim != 2:
-        raise ValueError(f"allpole_const: x must be (N, T), got "
-                         f"{tuple(x.shape)}")
+    _check_const_shapes("allpole_const", x, a)
     n, t = x.shape
-    if a.ndim != 2 or a.shape[0] != n or not 1 <= a.shape[1] <= MAX_ORDER:
-        raise ValueError(f"allpole_const: a must be (N, 1..{MAX_ORDER}) for "
-                         f"x {tuple(x.shape)}, got {tuple(a.shape)}")
     y = torch.empty_like(x)
     if x.numel():
         ALLPOLE_CONST.launch(x.data_ptr(), a.data_ptr(), y.data_ptr(), n, t,
@@ -300,6 +367,30 @@ def allpole_const_cuda(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
                              torch.cuda.current_stream(x.device).cuda_stream,
                              shapes=(tuple(x.shape), tuple(a.shape)))
     return y
+
+
+def allpole_const_adjoint_cuda(g: torch.Tensor, y: torch.Tensor,
+                               a: torch.Tensor, with_da: bool = True):
+    """The constant-coefficient kernel's adjoint entry: (dx, da) for the
+    cotangent g (N, T) of y = allpole_const(x, a), g and y read in place;
+    da (N, p) is None without ``with_da`` (then y is not read)."""
+    check_kernel_inputs("allpole_const_adjoint", g=g, y=y, a=a)
+    _check_const_shapes("allpole_const_adjoint", g, a)
+    if y.shape != g.shape:
+        raise ValueError(f"allpole_const_adjoint: y {tuple(y.shape)} must "
+                         f"have g's shape {tuple(g.shape)}")
+    n, t = g.shape
+    dx = torch.empty_like(g)
+    da = torch.empty_like(a) if with_da else None
+    if g.numel():
+        ALLPOLE_CONST_ADJ.launch(
+            g.data_ptr(), y.data_ptr(), a.data_ptr(), dx.data_ptr(),
+            da.data_ptr() if with_da else None, n, t, a.shape[1],
+            g.device.index, torch.cuda.current_stream(g.device).cuda_stream,
+            shapes=(tuple(g.shape), tuple(a.shape)))
+    elif with_da:
+        da.zero_()
+    return dx, da
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +439,41 @@ CUDA_OPS = AllpoleOps(allpole_cuda, allpole_adjoint_cuda)
 PLAIN_OPS = AllpoleOps(allpole_plain, allpole_adjoint_plain)
 
 
+def _const_adjoint_composite(fwd: Callable, g: torch.Tensor, y: torch.Tensor,
+                             a: torch.Tensor, with_da: bool = True):
+    """``golf_tpu``'s adjoint of the constant-coefficient filter around the
+    forward ``fwd``: dx is ``fwd`` on the flipped cotangent, flipped back,
+    and da is p shifted dots. ``golf_tpu`` slices y[:, :t - j - 1], which
+    wraps for j >= t and raises for T < p; here the slice stops at 0, so
+    those taps get 0."""
+    dx = _reversed(fwd, g, a)
+    da = None
+    if with_da:
+        t = y.shape[1]
+        da = -torch.stack([torch.sum(dx[:, j + 1:] * y[:, :max(t - j - 1, 0)],
+                                     dim=1)
+                           for j in range(a.shape[-1])], dim=-1)
+    return dx, da
+
+
+def allpole_const_adjoint_plain(g: torch.Tensor, y: torch.Tensor,
+                                a: torch.Tensor, with_da: bool = True):
+    """``golf_tpu``'s adjoint of the constant-coefficient filter on the
+    plain forward: (dx, da), da None without ``with_da``."""
+    return _const_adjoint_composite(allpole_const_plain, g, y, a, with_da)
+
+
+class ConstOps(NamedTuple):
+    """The two functions of one route of the constant-coefficient filter:
+    forward (x, a) -> y and adjoint (g, y, a, with_da) -> (dx, da)."""
+    fwd: Callable
+    adj: Callable
+
+
+CONST_CUDA_OPS = ConstOps(allpole_const_cuda, allpole_const_adjoint_cuda)
+CONST_PLAIN_OPS = ConstOps(allpole_const_plain, allpole_const_adjoint_plain)
+
+
 class _Allpole(torch.autograd.Function):
     """Time-varying all-pole with ``golf_tpu``'s adjoint: dx is the filter
     run backwards in time with the column-shifted coefficients, and
@@ -372,26 +498,22 @@ class _Allpole(torch.autograd.Function):
 
 class _AllpoleConst(torch.autograd.Function):
     """Constant-coefficient all-pole with ``golf_tpu``'s adjoint: the
-    transposed system has the same coefficients in reversed time, and da
-    is p shifted dots (no (N, T, p) stack)."""
+    transposed system has the same coefficients in reversed time, and
+    ``da[j] = -sum_t dx[t] y[t - j - 1]`` (no (N, T, p) stack); the route's
+    adjoint forms both (on CUDA in one pass, da only when ``a`` needs a
+    gradient)."""
 
     @staticmethod
-    def forward(ctx, x, a, fn):
-        y = fn(x, a)
+    def forward(ctx, x, a, ops):
+        y = ops.fwd(x, a)
         ctx.save_for_backward(y, a)
-        ctx.fn = fn
+        ctx.ops = ops
         return y
 
     @staticmethod
     def backward(ctx, g):
         y, a = ctx.saved_tensors
-        dx = _reversed(ctx.fn, g, a)
-        da = None
-        if ctx.needs_input_grad[1]:
-            t = y.shape[1]
-            da = -torch.stack([torch.sum(dx[:, j + 1:] * y[:, :t - j - 1],
-                                         dim=1)
-                               for j in range(a.shape[-1])], dim=-1)
+        dx, da = ctx.ops.adj(g.contiguous(), y, a, ctx.needs_input_grad[1])
         return dx, da, None
 
 
@@ -407,10 +529,11 @@ def allpole(x: torch.Tensor, a: torch.Tensor,
 
 
 def allpole_const(x: torch.Tensor, a: torch.Tensor,
-                  fn: Optional[Callable] = None) -> torch.Tensor:
+                  ops: Optional[ConstOps] = None) -> torch.Tensor:
     """Constant-coefficient all-pole, differentiable. x: (N, T), a: (N, p)
-    -> (N, T). ``fn`` names the forward explicitly (``allpole_const_cuda``
-    or ``allpole_const_plain``); by default the tensors' device decides."""
-    if fn is None:
-        fn = allpole_const_cuda if x.is_cuda else allpole_const_plain
-    return _AllpoleConst.apply(x, a, fn)
+    -> (N, T). ``ops`` names the route explicitly (``CONST_CUDA_OPS`` or
+    ``CONST_PLAIN_OPS``, for comparisons on the card); by default the
+    tensors' device decides."""
+    if ops is None:
+        ops = CONST_CUDA_OPS if x.is_cuda else CONST_PLAIN_OPS
+    return _AllpoleConst.apply(x, a, ops)

@@ -91,8 +91,8 @@ def test_cuda_function_backward_matches_plain(cuda_device, name):
     elif name == "allpole_const":
         inputs = (torch.from_numpy(r.standard_normal((300, 960)).astype(
             np.float32)), _lpc(r, (300, 22), 0.2))
-        fns = [lambda x, a, f=f: tap.allpole_const(x, a, f)
-               for f in (tap.allpole_const_cuda, tap.allpole_const_plain)]
+        fns = [lambda x, a, ops=ops: tap.allpole_const(x, a, ops)
+               for ops in (tap.CONST_CUDA_OPS, tap.CONST_PLAIN_OPS)]
     else:
         inputs = (torch.from_numpy(r.standard_normal((3, 4000)).astype(
             np.float32)), _lpc(r, (3, 4000, 22), 0.1))
@@ -105,7 +105,7 @@ def test_cuda_function_backward_matches_plain(cuda_device, name):
         g = torch.from_numpy(np.random.default_rng(3).standard_normal(
             tuple(out.shape)).astype(np.float32)).cuda()
         grads.append(torch.autograd.grad(out, ins, g))
-    # the kernels (sequential, chunked float64) and atomics against the
+    # the kernels (sequential and chunked float64) and atomics against the
     # plain versions' blocked forms and scatter_add: 1e-4 of max|ref|
     for u, v in zip(*grads):
         assert ((u - v).abs().max() / v.abs().max()).item() <= 1e-4
@@ -184,6 +184,80 @@ def test_cuda_allpole_resonant_error_within_float32_scan(cuda_device):
     assert err.item() <= err32.item()
 
 
+CONST_T = [1, 21, 100, 960, 1000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 8, 22, 40, 64])
+@pytest.mark.parametrize("t", CONST_T)
+def test_cuda_allpole_const_matches_float64_mirror(cuda_device, t, p):
+    """B2 and its adjoint entry (dx and da) against the float64 mirrors
+    (``allpole_const_scan64``, ``allpole_const_adjoint_scan64``) on the card:
+    the register ring (p <= 22), the shared-memory state (p > 22), 16-byte
+    (T % 4 == 0) and 4-byte staging, ragged tiles, T < p."""
+    for n in (1, 33, 300):
+        rng = np.random.default_rng(n * 1000 + t + p)
+        x = torch.from_numpy(rng.standard_normal((n, t)).astype(np.float32))
+        g = torch.from_numpy(rng.standard_normal((n, t)).astype(np.float32))
+        a = _lpc(rng, (n, p), 0.2)
+        x, g, a = x.cuda(), g.cuda(), a.cuda()
+        y = tap.allpole_const_cuda(x, a)
+        dx, da = tap.allpole_const_adjoint_cuda(g, y, a)
+        dx_only, none = tap.allpole_const_adjoint_cuda(g, y, a, False)
+        y_ref = tap.allpole_const_scan64(x, a)
+        dx_ref, da_ref = tap.allpole_const_adjoint_scan64(g, y, a)
+        # float64 on both sides, sums in another order, fp32 out: 1e-6 of
+        # max|ref|
+        for out, ref in ((y, y_ref), (dx, dx_ref), (da, da_ref)):
+            assert out.shape == ref.shape
+            assert ((out - ref).abs().max()
+                    / ref.abs().max().clamp_min(1e-30)).item() <= 1e-6
+        assert none is None and torch.equal(dx_only, dx)
+
+
+@pytest.mark.cuda
+def test_cuda_allpole_const_backward_launches_the_adjoint_entry(cuda_device):
+    """On CUDA the Function's forward launches B2 once and its backward the
+    adjoint entry once (no B2 on the flipped cotangent)."""
+    from golf_tpu_torch import kernels
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((40, 960)).astype(np.float32))
+    a = _lpc(rng, (40, 22), 0.2)
+    x, a = x.cuda().requires_grad_(), a.cuda().requires_grad_()
+    fwd, adj = kernels.ALLPOLE_CONST, kernels.ALLPOLE_CONST_ADJ
+    before = (fwd.launches, adj.launches)
+    y = tap.allpole_const(x, a)
+    y.backward(torch.ones_like(y))
+    assert (fwd.launches - before[0], adj.launches - before[1]) == (1, 1)
+    assert x.grad.shape == x.shape and a.grad.shape == a.shape
+
+
+@pytest.mark.cuda
+def test_cuda_allpole_const_resonant_within_float64_scan(cuda_device):
+    """On resonant constant filters (capped at 0.95 and uncapped) B2's y
+    and the adjoint's dx are within 1e-6 of max-abs of a float64 scan, and
+    da within 1e-5 of max|da| of the float64 mirror."""
+    for cap in (0.95, None):
+        x, a = tap.resonant_const_inputs(0, cap=cap)
+        x, a = x.cuda(), a.cuda()
+        n, t = x.shape
+        a_tv = a[:, None, :].expand(n, t, a.shape[1]).double()
+        g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (n, t)).astype(np.float32)).cuda()
+        ref = tap.allpole_scan(x.double(), a_tv)
+        y = tap.allpole_const_cuda(x, a)
+        dx, da = tap.allpole_const_adjoint_cuda(g, y, a)
+        dx_ref = torch.flip(tap.allpole_scan(torch.flip(g, (1,)).double(),
+                                             a_tv), (1,))
+        _, da_ref = tap.allpole_const_adjoint_scan64(g.double(), y,
+                                                     a.double())
+        assert torch.isfinite(ref).all() and torch.isfinite(dx_ref).all()
+        for out, r, tol in ((y, ref, 1e-6), (dx, dx_ref, 1e-6),
+                            (da, da_ref, 1e-5)):
+            assert ((out.double() - r).abs().max()
+                    / r.abs().max()).item() <= tol
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
     x = torch.zeros(2, 8, device=cuda_device)
@@ -196,6 +270,16 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         lookup_blocks_cuda(torch.zeros(1, 2, 4, device=cuda_device),
                            torch.zeros(1, 2, 8, device=cuda_device), 4)
+    a = torch.zeros(2, 3, device=cuda_device)
+    with pytest.raises(ValueError):
+        tap.allpole_const_adjoint_cuda(x, torch.zeros(2, 7,
+                                                      device=cuda_device), a)
+    with pytest.raises(ValueError):
+        tap.allpole_const_adjoint_cuda(x, x, torch.zeros(
+            2, tap.MAX_ORDER + 1, device=cuda_device))
+    with pytest.raises(ValueError):
+        tap.allpole_const_adjoint_cuda(x, x.cpu(), a)
+    with pytest.raises(TypeError):
+        tap.allpole_const_adjoint_cuda(x, x.double(), a)
     with pytest.raises(NotImplementedError):
-        tap.allpole_const_cuda(x.requires_grad_(),
-                               torch.zeros(2, 3, device=cuda_device))
+        tap.allpole_const_cuda(x.requires_grad_(), a)
