@@ -5,6 +5,7 @@ Usage:
     python autoencode_torch.py fit --config cfg/ae/vctk.yaml \
         --model cfg/ae/decoder/golf.yaml data.class_path=ltng.data.Synthetic
     python autoencode_torch.py validate ... --ckpt_path <run_dir>/ckpt/last
+    python autoencode_torch.py test ... [--ckpt_path <run_dir>/ckpt/last]
     python autoencode_torch.py predict ... [--ckpt_path <run_dir>/ckpt/last]
 
 Add ``--device cpu`` to run on the CPU.

@@ -37,9 +37,27 @@ Phases (any failure exits non-zero):
    B4's adjoint entry (GOLF-ss) must launch once each a step; one step at
    B = 2 x 1 s (dropout 0, train mode) is held against the port's CPU run,
    loss and every gradient;
-6. summary: a ``kernels:`` line, the card, then one JSON line with the
+6. stream_kernels: B4's initial-state entry (``zi``, streaming) at
+   (4, 2400, 22) and (1, 2400, 22) against its plain version (golf_tpu's
+   streaming form), a float64 scan from the same state, with a null state
+   bit for bit equal to a zero state, and ten chunks chained through
+   ``zi_next`` against one-shot B4; B1 at a push's window shape; times
+   beside the byte bounds;
+7. stream: the full-width encoder and GOLF-ss decoder stream B = 4
+   requests of 6 s in pushes of 2400 samples (60 pushes and a flush):
+   ``StreamingEncoder`` (look-ahead 24 frames) against the offline encoder
+   (flushed rows within 1e-4, all rows within 2e-2) and ``GOLFStream``
+   against the offline decoder on the same ctrl and noise (5e-4 of
+   max|y|); per-push latency of each (p50, p99, slowest), the real-time
+   factor (the audio's length over the host time of every push and the
+   flush, encoder and decoder together), and B1's and B4's launches a
+   push;
+8. test: ``test_step`` (MSS and MCD) on B = 4 x 2 s for each decoder, after
+   one warm-up call, finite and within 1e-5 relative of the port's CPU
+   run;
+9. summary: a ``kernels:`` line, the card, then one JSON line with the
    kernel table;
-7. last line: ``{"ok": true, "device": {...}}``.
+10. last line: ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device, and exits non-zero without one. Imports torch and
 golf_tpu_torch only.
@@ -71,10 +89,12 @@ from golf_tpu_torch.ops.allpole import (allpole, allpole_const,
                                         allpole_adjoint_plain,
                                         allpole_chunked_plain, allpole_cuda,
                                         allpole_plain, allpole_scan,
+                                        allpole_stream, allpole_stream_plain,
                                         resonant_const_inputs,
                                         resonant_inputs)
 from golf_tpu_torch.ops import allpole as tap
 from golf_tpu_torch.ops.dsp import rc2lpc
+from golf_tpu_torch.serve import GOLFStream, StreamingEncoder, chunk_ctrl
 from golf_tpu_torch.tasks.ae import VoiceAutoEncoder, build_voice_autoencoder
 from golf_tpu_torch.tasks.data import SyntheticVoiceDataset
 from golf_tpu_torch.train.loop import Trainer, trainable_parameters
@@ -89,6 +109,16 @@ TRAIN_SECONDS = 2.0
 TRAIN_STEPS = 3
 TRAIN_CHECK_BATCH = 2       # the card-vs-CPU training step
 TRAIN_CHECK_SECONDS = 1.0
+STREAM_CHUNK = 2400         # samples a push (100 ms at 24 kHz)
+STREAM_LOOKAHEAD = 24       # the streaming encoder's look-ahead, frames
+STREAM_CHAIN = 10           # chunks chained through zi in stream_kernels
+# pushes left out of the latency percentiles: the decoder's first two
+# return at once, its next two run the first window of each shape (two and
+# three chunks), which meets new FFT sizes
+STREAM_WARM_PUSHES = 4
+TEST_BATCH = 4
+TEST_SECONDS = 2.0
+TEST_REL_TOL = 1e-5         # test_step's MSS loss and MCD, card vs CPU
 TRAIN_GRAD_TOL = 1e-3       # of each gradient's largest entry
 PYRAMID_GRAD_TOL = 2e-2     # the encoder's conv pyramid (phase_train_vs_cpu)
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 and fp64
@@ -189,6 +219,17 @@ def main_path_shapes(batch: int, t: int) -> dict:
         "allpole_tv": ((batch, t_ss), (batch, t_ss, p)),
         "allpole_tv_adjoint": ((batch, t_ss), (batch, t_ss, p)),
     }
+
+
+def stream_shapes(batch: int) -> dict:
+    """Operand shapes of B1 and B4 in a streaming push past the first: the
+    window of three chunks (4x oversampled, table hop 9600) with three
+    table rows and one of look-ahead; B4 on the central chunk."""
+    hop_os = 240 * 10 * 4
+    blocks = -(-((3 * STREAM_CHUNK - 1) * 4 + 1) // hop_os)
+    rows = 3 * STREAM_CHUNK // 2400 + 1
+    return {"lookup": ((batch, blocks, hop_os), (batch, rows, 2048)),
+            "allpole_tv": ((batch, STREAM_CHUNK), (batch, STREAM_CHUNK, 22))}
 
 
 # ---------------------------------------------------------------------------
@@ -314,16 +355,19 @@ def lookup_inputs(gen, shapes):
     return ph, tables, hop
 
 
-def allpole_tv_inputs(gen, shapes):
-    """x and sample-rate coefficients upsampled from frames, as the GOLF-ss
-    filter makes them."""
-    x_shape, a_shape = shapes["allpole_tv"]
-    bsz, t = x_shape
+def tv_coeffs(gen, b: int, t: int, p: int = 22) -> torch.Tensor:
+    """Sample-rate coefficients upsampled from 240-sample frames, as the
+    GOLF-ss filter makes them."""
     frames = -(-t // 240) + 1
+    return linear_upsample(lpc_coeffs(gen, (b, frames, p), "cuda"), 240,
+                           axis=1)[:, :t].contiguous()
+
+
+def allpole_tv_inputs(gen, shapes):
+    """x and the coefficients at B4's shapes in ``shapes``."""
+    x_shape, a_shape = shapes["allpole_tv"]
     x = torch.randn(x_shape, generator=gen, device="cuda")
-    a_frames = lpc_coeffs(gen, (bsz, frames, a_shape[2]), "cuda")
-    a = linear_upsample(a_frames, 240, axis=1)[:, :t].contiguous()
-    return x, a
+    return x, tv_coeffs(gen, *x_shape, a_shape[2])
 
 
 def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -601,6 +645,255 @@ def phase_resonance() -> None:
               f"B2 and its adjoint on resonant filters, cap {cap}")
 
 
+def phase_stream_kernels() -> dict:
+    """B4's initial-state entry at a push's shape, B = 4 and B = 1, and B1
+    at a push's window shape, against their plain versions, with their
+    times and byte bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = {}
+    for b in (BATCH, 1):
+        t = STREAM_CHUNK
+        x = torch.randn((b, t), generator=gen, device="cuda")
+        a = tv_coeffs(gen, b, t)
+        zi = torch.randn((b, a.shape[2]), generator=gen, device="cuda")
+        y = allpole_cuda(x, a, zi)
+        plain = allpole_stream_plain(x, a, zi)
+        rel_plain = rel_err(y, plain)
+        rel64 = rel_err(y.double(), allpole_scan(x.double(), a.double(),
+                                                 zi.double()))
+        same = torch.equal(allpole_cuda(x, a),
+                           allpole_cuda(x, a, torch.zeros_like(zi)))
+        xs = torch.randn((b, STREAM_CHAIN * t), generator=gen, device="cuda")
+        as_ = tv_coeffs(gen, b, STREAM_CHAIN * t)
+        z, parts = None, []
+        for c in range(STREAM_CHAIN):
+            sl = slice(c * t, (c + 1) * t)
+            y_c, z = allpole_stream(xs[:, sl], as_[:, sl], z)
+            parts.append(y_c)
+        rel_chain = rel_err(torch.cat(parts, dim=1), allpole_cuda(xs, as_))
+        print(f"[stream] allpole_tv (B4) zi entry {tuple(x.shape)} "
+              f"p={a.shape[2]}: / max|y| {rel_plain:.3e} against "
+              f"allpole_stream_plain (tolerance 1e-4: float64 chunked vs "
+              f"golf_tpu's float32 blocked form from zi), {rel64:.3e} "
+              f"against a float64 scan from zi (tolerance 1e-5); null zi == "
+              f"zero zi bit for bit: {same}; {STREAM_CHAIN} chunks chained "
+              f"through zi_next vs one-shot B4 on "
+              f"{tuple(xs.shape)}: {rel_chain:.3e} (tolerance 1e-5: the "
+              f"float32 hand-off of zi)")
+        check(rel_plain <= 1e-4 and rel64 <= 1e-5
+              and torch.isfinite(y).all().item(), f"B4 zi entry, B={b}")
+        check(same, "B4 null zi bit for bit")
+        check(rel_chain <= 1e-5, "B4 chained chunks vs one-shot")
+        rows[f"allpole_tv/{b}"] = dict(
+            err=(y - plain).abs().max().item(),
+            ms=cuda_ms(lambda: allpole_cuda(x, a, zi), 200),
+            plain_ms=cuda_ms(lambda: allpole_stream_plain(x, a, zi), 3),
+            bound=bound(4 * (2 * x.numel() + a.numel() + 2 * zi.numel()),
+                        2 * a.numel()),
+            shapes=[list(x.shape), list(a.shape), list(zi.shape)])
+    ph, tables, hop = lookup_inputs(gen, stream_shapes(BATCH))
+    out = lk.lookup_blocks_cuda(ph, tables, hop)
+    err = (out - lk.lookup_blocks_plain(ph, tables, hop)).abs().max().item()
+    print(f"[stream] lookup (B1) {tuple(ph.shape)} x {tuple(tables.shape)}: "
+          f"max abs err {err:.3e} (tolerance 2e-6)")
+    check(err <= 2e-6, "lookup vs plain at the stream window")
+    n_el = ph.numel()
+    rows["lookup"] = dict(
+        err=err, ms=cuda_ms(lambda: lk.lookup_blocks_cuda(ph, tables, hop),
+                            200),
+        plain_ms=cuda_ms(lambda: lk.lookup_blocks_plain(ph, tables, hop), 10),
+        bound=bound(4 * (2 * n_el + tables.numel()), 15 * n_el),
+        shapes=[list(ph.shape), list(tables.shape)])
+    for name, r in rows.items():
+        print(f"[stream] {name}: {r['ms'] * 1e3:.2f} us a launch, bound "
+              f"{r['bound'][0] * 1e3:.3f} us ({r['bound'][1]}), plain "
+              f"{r['plain_ms'] * 1e3:.1f} us")
+    return rows
+
+
+def timed(fn):
+    """(fn(), host seconds around it, synchronised on both sides)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def leaves(raw: dict) -> dict:
+    """The raw encoder groups as name -> tensor."""
+    out = {}
+    for k, v in raw.items():
+        for i, sig in enumerate(v if isinstance(v, tuple) else (v,)):
+            out[f"{k}[{i}]"] = sig.data
+    return out
+
+
+def phase_stream(shapes: dict) -> dict:
+    """B = 4 streams of 6 s through the full-width encoder and GOLF-ss
+    decoder, pushes of STREAM_CHUNK samples: the streaming encoder against
+    the offline encoder, the streaming decoder against the offline decoder
+    on the offline ctrl with the same noise; per-push latency (host clock
+    around synchronize) and launches."""
+    dev = torch.device("cuda")
+    task = seeded_model("golf-precise", dev)
+    x, f0 = requests(BATCH, SECONDS)
+    xs, f0s = Sig(x.to(dev), 1), Sig(f0.to(dev), 1)
+    task.init_running_stats(xs, f0s)
+    task.eval()
+    enc, dec = task.encoder, task.decoder
+    t = x.shape[1]
+    n = t // STREAM_CHUNK
+    noise = torch.randn((BATCH, t), device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED + 3))
+    with torch.inference_mode():
+        raw = enc(xs, f0s)
+        ctrl = dec.apply_ctrl({k: v for k, v in raw.items()
+                               if k.endswith("_params")})
+        phase = task.phase_from_f0(f0s).data
+        y_off = dec(Sig(phase, 1), **ctrl, noise=noise).data
+
+    se = StreamingEncoder(enc, lookahead=STREAM_LOOKAHEAD, batch=BATCH)
+    stream = GOLFStream(dec, chunk=STREAM_CHUNK)
+    enc_parts, dec_parts, enc_lat, dec_lat = [], [], [], []
+    for k in kernels.ALL:
+        k.launches = 0
+    with torch.inference_mode():
+        for c in range(n):
+            sl = slice(c * STREAM_CHUNK, (c + 1) * STREAM_CHUNK)
+            r, dt = timed(lambda: se.push(xs.data[:, sl], f0s.data[:, sl]))
+            enc_lat.append(dt)
+            if r is not None:
+                enc_parts.append(leaves(r))
+            out, dt = timed(lambda: stream.push(
+                chunk_ctrl(ctrl, c, STREAM_CHUNK), phase[:, sl],
+                noise[:, sl]))
+            dec_lat.append(dt)
+            if out is not None:
+                dec_parts.append(out)
+        r, enc_flush_s = timed(se.flush)
+        enc_parts.append(leaves(r))
+        n_flushed = next(iter(enc_parts[-1].values())).shape[1]
+        out, dec_flush_s = timed(lambda: stream.flush(
+            chunk_ctrl(ctrl, n, STREAM_CHUNK, rest=True)))
+        dec_parts.append(out)
+    counts = {k.name: k.launches for k in kernels.ALL}
+    print(f"stream: {n} pushes of {STREAM_CHUNK} samples and a flush, "
+          f"B={BATCH}; launches {counts}")
+    for name in ("lookup", "allpole_tv"):
+        check(counts[name] == n, f"stream launched {name} once an emitted "
+              f"chunk: {counts[name]} for {n}")
+        k = next(k for k in kernels.ALL if k.name == name)
+        check(k.last_shapes == shapes[name],
+              f"{name} shapes {k.last_shapes} == {shapes[name]}")
+
+    y = torch.cat(dec_parts, dim=1)
+    check(y.shape[1] >= y_off.shape[1] and torch.isfinite(y).all().item(),
+          "stream output finite and long enough")
+    dec_err = rel_err(y[:, :y_off.shape[1]], y_off)
+    ref = leaves(raw)
+    m = next(iter(ref.values())).shape[1]
+    enc_tail, enc_mid = 0.0, 0.0
+    for k, want in ref.items():
+        got = torch.cat([p[k] for p in enc_parts], dim=1)
+        check(got.shape == want.shape, f"encoder rows {k} {tuple(got.shape)}"
+              f" == {tuple(want.shape)}")
+        scale = want.abs().max().item() + 1e-9
+        enc_tail = max(enc_tail, (got[:, m - n_flushed:]
+                                  - want[:, m - n_flushed:]).abs().max()
+                       .item() / scale)
+        enc_mid = max(enc_mid, (got - want).abs().max().item() / scale)
+    print(f"stream: decoder vs offline decoder (same ctrl and noise) "
+          f"{dec_err:.3e} of max|y| (tolerance 5e-4, golf_tpu's bound); "
+          f"encoder vs offline encoder, look-ahead {STREAM_LOOKAHEAD}: "
+          f"flushed rows ({n_flushed}) {enc_tail:.3e} (tolerance 1e-4), "
+          f"all rows {enc_mid:.3e} (tolerance 2e-2) of each leaf's max-abs")
+    check(dec_err <= 5e-4, "stream decoder vs offline")
+    check(enc_tail <= 1e-4 and enc_mid <= 2e-2, "stream encoder vs offline")
+
+    def pct(lat):
+        warm = np.asarray(lat[STREAM_WARM_PUSHES:]) * 1e3
+        return float(np.median(warm)), float(np.percentile(warm, 99))
+
+    enc_p50, enc_p99 = pct(enc_lat)
+    dec_p50, dec_p99 = pct(dec_lat)
+    chunk_ms = STREAM_CHUNK / SR * 1e3
+    # the whole window: every push and both flushes, warm-up included
+    host_s = sum(enc_lat) + sum(dec_lat) + enc_flush_s + dec_flush_s
+    audio_s = y.shape[1] / SR
+    result = {
+        "pushes": n, "batch": BATCH, "chunk_ms": chunk_ms,
+        "enc_push_ms_p50": enc_p50, "enc_push_ms_p99": enc_p99,
+        "dec_push_ms_p50": dec_p50, "dec_push_ms_p99": dec_p99,
+        "enc_push_ms_max": max(enc_lat) * 1e3,
+        "dec_push_ms_max": max(dec_lat) * 1e3,
+        "enc_flush_ms": enc_flush_s * 1e3, "dec_flush_ms": dec_flush_s * 1e3,
+        "enc_host_s": sum(enc_lat) + enc_flush_s,
+        "dec_host_s": sum(dec_lat) + dec_flush_s,
+        "audio_s": audio_s, "real_time_factor": audio_s / host_s,
+        "algorithmic_latency_ms": {
+            "encoder": (STREAM_LOOKAHEAD + se.edge) * 240 / SR * 1e3,
+            "decoder": 2 * chunk_ms},
+        "launches_per_push": {k: v / n for k, v in counts.items() if v},
+        "dec_err": dec_err, "enc_flush_err": enc_tail, "enc_err": enc_mid}
+    print(f"stream: per push (host clock around synchronize, pushes "
+          f"{STREAM_WARM_PUSHES + 1} to {n}) "
+          f"encoder p50 {enc_p50:.2f} ms p99 {enc_p99:.2f} ms, decoder p50 "
+          f"{dec_p50:.2f} ms p99 {dec_p99:.2f} ms; slowest of all pushes "
+          f"{result['enc_push_ms_max']:.2f} and "
+          f"{result['dec_push_ms_max']:.2f} ms; real-time factor "
+          f"{result['real_time_factor']:.2f} ({audio_s:g} s of audio a "
+          f"stream, {BATCH} streams, over {host_s * 1e3:.1f} ms of host time "
+          f"for all {n} pushes and the flush, encoder "
+          f"{result['enc_host_s'] * 1e3:.1f} and decoder "
+          f"{result['dec_host_s'] * 1e3:.1f})")
+    print(json.dumps({"stream": result}))
+    return counts
+
+
+def phase_test(decoder: str) -> dict:
+    """``test_step`` (MSS loss and MCD) of the full-width model on
+    B = 4 x 2 s on the card, held against the port's CPU run with the same
+    weights and noise."""
+    dev = torch.device("cuda")
+    task = seeded_model(decoder, dev)
+    x, f0 = requests(TEST_BATCH, TEST_SECONDS)
+    task.init_running_stats(Sig(x.to(dev), 1), Sig(f0.to(dev), 1))
+    task.eval()
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(9))
+    args = (Sig(x.to(dev), 1), Sig(f0.to(dev), 1))
+    with torch.inference_mode():
+        # one warm-up call: the solver's and the FFT plans' set-up
+        _, warm_secs = timed(lambda: task.test_step(*args,
+                                                    noise=noise.to(dev)))
+        for k in kernels.ALL:
+            k.launches = 0
+        out, secs = timed(lambda: task.test_step(*args, noise=noise.to(dev)))
+    counts = {k.name: k.launches for k in kernels.ALL}
+    cpu_task = seeded_model(decoder, "cpu")
+    cpu_task.load_state_dict({k: v.cpu() for k, v in
+                              task.state_dict().items()})
+    cpu_task.eval()
+    with torch.inference_mode():
+        ref = cpu_task.test_step(Sig(x, 1), Sig(f0, 1), noise=noise)
+    errs = {k: abs(float(out[k]) - float(ref[k])) / abs(float(ref[k]))
+            for k in ("loss", "mcd")}
+    print(f"test {decoder}: B={TEST_BATCH} x {TEST_SECONDS:g} s, MSS loss "
+          f"{float(out['loss']):.5f} (CPU {float(ref['loss']):.5f}, rel "
+          f"{errs['loss']:.2e}), MCD {float(out['mcd']):.4f} dB (CPU "
+          f"{float(ref['mcd']):.4f}, rel {errs['mcd']:.2e}); tolerance "
+          f"{TEST_REL_TOL:g} relative for both; {secs * 1e3:.1f} ms after a "
+          f"warm-up call of {warm_secs * 1e3:.1f} ms; launches {counts}")
+    check(all(np.isfinite(float(out[k])) for k in ("loss", "mcd")),
+          f"{decoder} test metrics finite")
+    check(max(errs.values()) <= TEST_REL_TOL,
+          f"{decoder} test_step card vs CPU")
+    end = {"golf": "allpole_const", "golf-precise": "allpole_tv"}[decoder]
+    for name in ("lookup", end):
+        check(counts[name] == 1, f"{decoder} test_step launched {name} once")
+    return counts
+
+
 def seeded_model(decoder: str, device) -> VoiceAutoEncoder:
     """Full-width model with seeded weights; the zero-initialised head and
     acoustic filter get small random values so the LPC and the room filter
@@ -837,6 +1130,13 @@ def main() -> int:
         for name, c in phase_train(decoder, train_shapes).items():
             counts[name] += c
         phase_train_vs_cpu(decoder)
+    stream_rows = phase_stream_kernels()
+    stream_counts = phase_stream(stream_shapes(BATCH))
+    for name, c in stream_counts.items():
+        counts[name] += c
+    for decoder in ("golf", "golf-precise"):
+        for name, c in phase_test(decoder).items():
+            counts[name] += c
 
     replaces = {"lookup": "golf_tpu/ops/lookup_pallas.py:107",
                 "lookup_res": "golf_tpu/ops/lookup_pallas.py:222",
@@ -863,6 +1163,23 @@ def main() -> int:
         for key in ("fp64_floor_ms", "composite_ms"):
             if key in r:
                 entry[key] = r[key]
+        stream_row = stream_rows.get(
+            "allpole_tv/4" if k.name == "allpole_tv" else k.name)
+        if stream_row is not None:
+            entry["stream"] = {
+                "shapes": stream_row["shapes"],
+                "launches": stream_counts[k.name],
+                "launches_per_push": stream_counts[k.name]
+                / (SECONDS * SR // STREAM_CHUNK),
+                "max_abs_err": stream_row["err"], "ms": stream_row["ms"],
+                "plain_ms": stream_row["plain_ms"],
+                "bound_ms": stream_row["bound"][0],
+                "bound_by": stream_row["bound"][1]}
+            if k.name == "allpole_tv":
+                r1 = stream_rows["allpole_tv/1"]
+                entry["stream"]["b1"] = {
+                    "shapes": r1["shapes"], "ms": r1["ms"],
+                    "plain_ms": r1["plain_ms"], "bound_ms": r1["bound"][0]}
         if k.name in serve_rows:
             sr_ = serve_rows[k.name]
             entry["serve"] = {
@@ -879,12 +1196,19 @@ def main() -> int:
         return f", composite {e['composite_ms'] * 1e3:.1f} us"
 
     def serve_note(e):
-        if "serve" not in e:
-            return ""
-        sv = e["serve"]
-        return (f"; serving shapes {sv['ms'] * 1e3:.1f} us, bound "
-                f"{sv['bound_ms'] * 1e3:.1f} us, plain "
-                f"{sv['plain_ms'] * 1e3:.1f} us" + composite_note(sv))
+        note = ""
+        if "serve" in e:
+            sv = e["serve"]
+            note = (f"; serving shapes {sv['ms'] * 1e3:.1f} us, bound "
+                    f"{sv['bound_ms'] * 1e3:.1f} us, plain "
+                    f"{sv['plain_ms'] * 1e3:.1f} us" + composite_note(sv))
+        if "stream" in e:
+            st = e["stream"]
+            note += (f"; stream push {st['ms'] * 1e3:.2f} us, bound "
+                     f"{st['bound_ms'] * 1e3:.3f} us, plain "
+                     f"{st['plain_ms'] * 1e3:.1f} us, "
+                     f"{st['launches_per_push']:g} a push")
+        return note
 
     print("kernels: [" + "; ".join(
         f"{e['name']}: launches {e['launches']}, {e['ms'] * 1e3:.1f} us, "

@@ -153,10 +153,10 @@ ALLPOLE_CONST_ADJ = CudaKernel(
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
 ALLPOLE_TV = CudaKernel(
     "allpole_tv", "allpole_tv.cu", "golf_allpole_tv",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 ALLPOLE_TV_ADJ = CudaKernel(
     "allpole_tv_adjoint", "allpole_tv.cu", "golf_allpole_tv_adjoint",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 
 ALL = (LOOKUP, LOOKUP_RES, LOOKUP_DTAB, ALLPOLE_CONST, ALLPOLE_CONST_ADJ,
        ALLPOLE_TV, ALLPOLE_TV_ADJ)

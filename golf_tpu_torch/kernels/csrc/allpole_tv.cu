@@ -7,8 +7,11 @@
 // column-shifted coefficients (golf_tpu/ops/allpole.py:247-256).
 //
 // golf_allpole_tv computes y[b, t] = x[b, t] - sum_{i=1..p} a[b, t, i-1]
-// y[b, t-i] from a zero state, for x (B, T) and a (B, T, p), fp32,
-// contiguous. golf_allpole_tv_adjoint computes
+// y[b, t-i] for x (B, T) and a (B, T, p), fp32, contiguous, from the
+// initial state y[b, -1 - i] = zi[b, i] (streaming: golf_tpu's
+// allpole_stream, golf_tpu/ops/allpole.py:262-282, which runs the float32
+// scan or blocked form there), or from a zero state where zi is null, as
+// the Pallas kernel does. golf_allpole_tv_adjoint computes
 // dx = flip(filter(flip(g), flip(c))) with c[n, j] = a[n + j + 1, j] (zero
 // past the end) without building c or any flipped copy: in reversed step m
 // tap j reads a[b, T - m + j, j] for j < m (zero otherwise), g is read and
@@ -287,13 +290,16 @@ chunk_kernel(const float* __restrict__ x, const float* __restrict__ a,
 // Phase 2: the carry. One CTA per sequence, thread i < p computes row i:
 // s_{k+1}[i] = v_k[i] + sum_j M_k[i][j] s_k[j], with M_k stored by column
 // (entry (i, j) at j p + i, so thread i reads consecutive addresses).
+// s_0 is the initial state zi (B, p), turned to float64, or zero where zi
+// is null; with one chunk (K = 1) there are no maps and the re-run starts
+// from it.
 // P bounds p (the sum is unrolled over P).
 // ---------------------------------------------------------------------------
 
 template <int P>
 __global__ void __launch_bounds__(32 * ((P + 31) / 32))
-carry_kernel(const double* __restrict__ maps, double* __restrict__ s_in,
-             int p, int K) {
+carry_kernel(const double* __restrict__ maps, const float* __restrict__ zi,
+             double* __restrict__ s_in, int p, int K) {
   constexpr int stages = carry_stages(P);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int per_map = (p + 1) * p;        // even: 16-byte copies tile it
@@ -317,8 +323,11 @@ carry_kernel(const double* __restrict__ maps, double* __restrict__ s_in,
   };
 
   if (i < p) {
-    ss[i] = 0.0;
-    sb[i] = 0.0;
+    // zi[b, i] is the output i + 1 steps before the first, which is state
+    // component i, the slot the re-run reads as y[t - 1 - i]
+    const double z = zi != nullptr ? (double)zi[(size_t)b * p + i] : 0.0;
+    ss[i] = z;
+    sb[i] = z;
   }
   for (int k = 0; k < stages - 1; ++k) issue(k);
   for (int k = 0; k < nmaps; ++k) {
@@ -353,8 +362,9 @@ cudaError_t allow_smem(const void* fn, size_t bytes) {
 // P: the register ring's order, or 0 for the window in shared memory (then
 // CP = 64 bounds the carry's order)
 template <int P, bool ADJ>
-cudaError_t run(const float* x, const float* a, float* y, double* scratch,
-                int B, int T, int p, int L, cudaStream_t stream) {
+cudaError_t run(const float* x, const float* a, const float* zi, float* y,
+                double* scratch, int B, int T, int p, int L,
+                cudaStream_t stream) {
   constexpr int CP = P > 0 ? P : 64;
   const int K = (T + L - 1) / L;
   double* maps = scratch;
@@ -375,7 +385,7 @@ cudaError_t run(const float* x, const float* a, float* y, double* scratch,
       (carry_stages(CP) * (size_t)(p + 1) * p + CP) * sizeof(double);
   auto* k2 = carry_kernel<CP>;
   if ((err = allow_smem((const void*)k2, smem2)) != cudaSuccess) return err;
-  k2<<<B, 32 * ((p + 31) / 32), smem2, stream>>>(maps, s_in, p, K);
+  k2<<<B, 32 * ((p + 31) / 32), smem2, stream>>>(maps, zi, s_in, p, K);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const size_t smem3 = chunk_smem<P, false>(p, 32);
@@ -386,30 +396,38 @@ cudaError_t run(const float* x, const float* a, float* y, double* scratch,
 }
 
 template <bool ADJ>
-int dispatch(const float* x, const float* a, float* y, double* scratch,
-             int B, int T, int p, int L, int device, cudaStream_t stream) {
+int dispatch(const float* x, const float* a, const float* zi, float* y,
+             double* scratch, int B, int T, int p, int L, int device,
+             cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (p < 1 || p > 64 || L < 1 || T < 1 || B < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (p == kRingOrder)
-    return (int)run<kRingOrder, ADJ>(x, a, y, scratch, B, T, p, L, stream);
-  return (int)run<0, ADJ>(x, a, y, scratch, B, T, p, L, stream);
+    return (int)run<kRingOrder, ADJ>(x, a, zi, y, scratch, B, T, p, L,
+                                     stream);
+  return (int)run<0, ADJ>(x, a, zi, y, scratch, B, T, p, L, stream);
 }
 
 }  // namespace
 
 // scratch: B (ceil(T / L) - 1) (p + 1) p doubles of maps, then
-// B ceil(T / L) p doubles of incoming states.
-extern "C" int golf_allpole_tv(const float* x, const float* a, float* y,
-                               double* scratch, int B, int T, int p, int L,
-                               int device, cudaStream_t stream) {
-  return dispatch<false>(x, a, y, scratch, B, T, p, L, device, stream);
+// B ceil(T / L) p doubles of incoming states. zi: the initial state (B, p),
+// the last p outputs before x, most recent first; null for a zero state.
+// The adjoint entry takes it too, so that both entries share one signature;
+// its wrapper passes null (the cotangent's recurrence starts from zero past
+// the end, where the coefficients it would need lie outside a).
+extern "C" int golf_allpole_tv(const float* x, const float* a,
+                               const float* zi, float* y, double* scratch,
+                               int B, int T, int p, int L, int device,
+                               cudaStream_t stream) {
+  return dispatch<false>(x, a, zi, y, scratch, B, T, p, L, device, stream);
 }
 
 extern "C" int golf_allpole_tv_adjoint(const float* g, const float* a,
-                                       float* dx, double* scratch, int B,
-                                       int T, int p, int L, int device,
+                                       const float* zi, float* dx,
+                                       double* scratch, int B, int T, int p,
+                                       int L, int device,
                                        cudaStream_t stream) {
-  return dispatch<true>(g, a, dx, scratch, B, T, p, L, device, stream);
+  return dispatch<true>(g, a, zi, dx, scratch, B, T, p, L, device, stream);
 }

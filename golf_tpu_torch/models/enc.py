@@ -65,7 +65,12 @@ class VocoderParameterEncoderInterface(nn.Module):
 
     def forward(self, x: Sig, f0: Optional[Sig] = None, train: bool = False
                 ) -> Dict[str, Any]:
-        h = self.backbone(x, f0=f0, train=train)
+        return self.params_from_head(self.backbone(x, f0=f0, train=train))
+
+    def params_from_head(self, h: Sig) -> Dict[str, Any]:
+        """The head's rows (B, T, channels) -> the named raw parameter
+        groups, with f0 mapped into [f0_min, f0_max]; pointwise in time, so
+        a streaming encoder maps its rows as they come."""
         params: Dict[str, Any] = {}
         for key, group in split_heads(h, *self.layout).items():
             if key == "f0":

@@ -129,12 +129,22 @@ class UNetEncoder(BackboneModelInterface):
                 f"train={train} but the encoder is in "
                 f"{'train' if self.training else 'eval'} mode; call "
                 f".train() or .eval() to match")
-        feature, f0_d = self.features(x, f0, train)
+        h = self.lstm(self.rows(*self.features(x, f0, train)))
+        return Sig(self.head(h), self.hop_length)
+
+    def rows(self, feature: torch.Tensor, f0_d: Optional[torch.Tensor]
+             ) -> torch.Tensor:
+        """The recurrent stack's input (B, T, freq' C [+ 1]): the conv
+        pyramid's output flattened as ``golf_tpu`` does, and log1p(f0)."""
         h = self.pyramid(feature)                      # (B, C, freq', T)
         b, c, fr, t = h.shape
         h = h.permute(0, 3, 2, 1).reshape(b, t, fr * c)
         if f0_d is not None:
             h = h[:, :f0_d.shape[-1]]
             h = torch.cat([h, torch.log1p(f0_d)[..., None]], dim=-1)
-        h = self.norm(self.lstm(h))
-        return Sig(self.out_linear(h), self.hop_length)
+        return h
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """LayerNorm and the output linear over the recurrent stack's
+        output."""
+        return self.out_linear(self.norm(h))

@@ -1,7 +1,8 @@
 """All-pole (LPC synthesis) filters, forward (counterpart of
 ``golf_tpu.ops.allpole``).
 
-    y[n] = x[n] - sum_{i=1..p} a_i[n] y[n-i],   zero initial state.
+    y[n] = x[n] - sum_{i=1..p} a_i[n] y[n-i],   zero initial state
+    (``allpole_stream``: the state a previous chunk left).
 
 ``allpole`` (time-varying, GOLF-ss) and ``allpole_const`` (constant per
 row, GOLF-ff) route by device: a CUDA tensor goes to the hand-written
@@ -19,6 +20,8 @@ they lie, so the backward builds no column-shifted or flipped (B, T, p)
 copy; on the CPU the adjoint stays ``golf_tpu``'s materialised form.
 ``allpole_chunked_plain`` is the kernel's algorithm in plain PyTorch (both
 entries), for the tests and ``chip_smoke.py``; no route runs it.
+``allpole_stream`` (streaming, no gradient) runs the forward entry from an
+initial state ``zi``, the last p outputs of the previous chunk.
 
 The constant-coefficient kernel is the sequential recurrence with a
 float64 state, one row a thread. Its adjoint entry
@@ -138,11 +141,13 @@ def allpole_plain(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 
 def allpole_chunked_plain(x: torch.Tensor, a: torch.Tensor,
                           chunk: int = CHUNK,
-                          adjoint: bool = False) -> torch.Tensor:
+                          adjoint: bool = False,
+                          zi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The time-varying kernel's algorithm, vectorised over chunks of
     ``chunk`` steps (2 chunk + ceil(T / chunk) Python steps): each chunk's
     state map and zero-state offset in float64, the float64 carry of the
-    state across chunks, then every chunk re-run from its incoming state,
+    state across chunks from the initial state ``zi`` (B, p) in float64
+    (zero when None), then every chunk re-run from its incoming state,
     also in float64. With ``adjoint`` it returns the transposed filter of
     the cotangent ``x``, ``flip(allpole(flip(x), flip(_shift_columns(a))))``,
     indexing ``x`` and ``a`` in place as the adjoint entry does: reversed
@@ -172,7 +177,8 @@ def allpole_chunked_plain(x: torch.Tensor, a: torch.Tensor,
         r = -(s * coef(u)[:, :, None, :]).sum(-1)
         r[..., p] += xs[:, :, u]
         s = torch.cat([r[..., None], s[..., :-1]], dim=-1)
-    s_in = [x.new_zeros((b, p), dtype=torch.float64)]
+    s_in = [x.new_zeros((b, p), dtype=torch.float64) if zi is None
+            else zi.double()]
     for k in range(n_chunks - 1):
         s_in.append(torch.einsum("bji,bj->bi", s[:, k, :p], s_in[-1])
                     + s[:, k, p])
@@ -308,9 +314,12 @@ def resonant_const_inputs(seed: int, n: int = 256, t: int = 960,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _allpole_tv_launch(kernel, name: str, x: torch.Tensor, a: torch.Tensor
-                       ) -> torch.Tensor:
-    check_kernel_inputs(name, x=x, a=a)
+def _allpole_tv_launch(kernel, name: str, x: torch.Tensor, a: torch.Tensor,
+                       zi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch one entry of the time-varying kernel with the (nullable)
+    initial state zi."""
+    check_kernel_inputs(name, x=x, a=a,
+                        **({} if zi is None else {"zi": zi}))
     if x.ndim != 2 or not 1 <= x.shape[0] <= 65535:
         raise ValueError(f"{name}: x must be (B, T) with B <= 65535, got "
                          f"{tuple(x.shape)}")
@@ -319,6 +328,9 @@ def _allpole_tv_launch(kernel, name: str, x: torch.Tensor, a: torch.Tensor
         raise ValueError(f"{name}: a must be (B, T, 1..{MAX_ORDER}) for x "
                          f"{tuple(x.shape)}, got {tuple(a.shape)}")
     p = a.shape[2]
+    if zi is not None and tuple(zi.shape) != (b, p):
+        raise ValueError(f"{name}: zi must be (B, p) = {(b, p)}, got "
+                         f"{tuple(zi.shape)}")
     y = torch.empty_like(x)
     if x.numel():
         n_chunks = -(-t // CHUNK)
@@ -326,16 +338,20 @@ def _allpole_tv_launch(kernel, name: str, x: torch.Tensor, a: torch.Tensor
         scratch = torch.empty(b * ((n_chunks - 1) * (p + 1) * p
                                    + n_chunks * p),
                               dtype=torch.float64, device=x.device)
-        kernel.launch(x.data_ptr(), a.data_ptr(), y.data_ptr(),
+        kernel.launch(x.data_ptr(), a.data_ptr(),
+                      None if zi is None else zi.data_ptr(), y.data_ptr(),
                       scratch.data_ptr(), b, t, p, CHUNK, x.device.index,
                       torch.cuda.current_stream(x.device).cuda_stream,
                       shapes=(tuple(x.shape), tuple(a.shape)))
     return y
 
 
-def allpole_cuda(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """Time-varying kernel. x: (B, T), a: (B, T, p), fp32, contiguous."""
-    return _allpole_tv_launch(ALLPOLE_TV, "allpole", x, a)
+def allpole_cuda(x: torch.Tensor, a: torch.Tensor,
+                 zi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Time-varying kernel. x: (B, T), a: (B, T, p), fp32, contiguous; zi
+    (B, p), the last p outputs before x, most recent first (None: a zero
+    state)."""
+    return _allpole_tv_launch(ALLPOLE_TV, "allpole", x, a, zi)
 
 
 def allpole_adjoint_cuda(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -537,3 +553,38 @@ def allpole_const(x: torch.Tensor, a: torch.Tensor,
     if ops is None:
         ops = CONST_CUDA_OPS if x.is_cuda else CONST_PLAIN_OPS
     return _AllpoleConst.apply(x, a, ops)
+
+
+def allpole_stream(x: torch.Tensor, a: torch.Tensor,
+                   zi: Optional[torch.Tensor] = None):
+    """Stateful time-varying all-pole for streaming (``golf_tpu``'s
+    ``allpole_stream``). x: (B, Tc), a: (B, Tc, p), zi: (B, p), the last p
+    outputs of the previous chunk, most recent first (zero at stream start,
+    or None). Returns ``(y, zi_next)`` in float32, so that consecutive
+    chunks reproduce the one-shot filter on the concatenation. Inference
+    only: no gradient. A CUDA tensor goes to the kernel's forward entry with
+    ``zi``; a CPU tensor to ``golf_tpu``'s form with the state (the scan
+    for short chunks, else the blocked two-pass form)."""
+    p = a.shape[-1]
+    if x.shape[1] < p:
+        raise ValueError(f"allpole_stream: a chunk of {x.shape[1]} samples "
+                         f"is shorter than the order {p}")
+    with torch.no_grad():
+        x32, a32 = x.float().contiguous(), a.float().contiguous()
+        zi32 = x32.new_zeros((x.shape[0], p)) if zi is None \
+            else zi.float().contiguous()
+        y = (allpole_cuda if x.is_cuda else allpole_stream_plain)(x32, a32,
+                                                                  zi32)
+    return y.to(x.dtype), torch.flip(y[:, -p:], (1,))
+
+
+def allpole_stream_plain(x: torch.Tensor, a: torch.Tensor,
+                         zi: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel's initial-state entry, ``golf_tpu``'s
+    streaming form: the scan from ``zi`` for short chunks, else the blocked
+    two-pass form from ``zi``."""
+    t = x.shape[1]
+    block = _choose_block(t)
+    if t <= 64 or block >= t:
+        return allpole_scan(x, a, zi)
+    return _allpole_blocked(x, a, zi, block)

@@ -36,7 +36,13 @@ class _WrappedCumsum(torch.autograd.Function):
         b, t = x.shape
         nb = -(-t // block)
         xp = F.pad(x, (0, nb * block - t))
-        local = torch.cumsum(xp.reshape(b, nb, block), dim=-1)
+        # each block's running sum accumulates in float64 and is rounded
+        # once a sample: what PyTorch's float32 cumsum does on the CPU (bit
+        # for bit), and not on CUDA, where a block's float32 roundings
+        # entered every later block's offset (3.5e-5 cycles after 6 s of
+        # the 96 kHz oversampled phase on an H100; tools/stream_precision.py)
+        local = torch.cumsum(xp.reshape(b, nb, block).double(),
+                             dim=-1).to(x.dtype)
         off = _mod1_scan(torch.remainder(local[..., -1], 1))
         off_excl = torch.cat([torch.zeros_like(off[:, :1]), off[:, :-1]],
                              dim=1)

@@ -6,13 +6,14 @@ synthesizer -> the criterion (an MSS loss) plus the optional f0 and voicing
 losses (masked above 50 Hz) and the coefficient-smoothness regulariser.
 With ``train_with_true_f0`` the synthesis phase is the given f0 over the
 sample rate: in training unvoiced frames take one random f0 in U(50, 500)
-per item, in validation and predict 150 Hz. The MCD test step is not ported
-yet.
+per item, in validation, test and predict 150 Hz. The test step adds the
+mel-cepstral distortion (MCD) to the MSS loss.
 """
 
 from __future__ import annotations
 
 import inspect
+import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -22,6 +23,8 @@ from ..core.device import resolve_device
 from ..core.sig import Sig, sig_where
 from ..models.ctrl import Synth
 from ..models.enc import VocoderParameterEncoderInterface, full_layout
+from ..ops.cepstrum import mcep
+from ..ops.stft import spectrogram
 
 
 def masked_l1(pred: torch.Tensor, target: torch.Tensor,
@@ -209,6 +212,30 @@ class VoiceAutoEncoder(nn.Module):
                                    f0_in_hz)
         out["loss"] = loss + aux
         return out
+
+    def test_step(self, x: Sig, f0_in_hz: Sig,
+                  generator: Optional[torch.Generator] = None,
+                  noise: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        """MSS loss plus MCD (``golf_tpu``'s ``test_step``): mel-cepstra of
+        order 34 at alpha 0.46 from 512-point magnitude spectrograms at hop
+        sr/200, with two Newton iterations."""
+        x_hat, _ = self.predict_step(x, f0_in_hz, generator=generator,
+                                     noise=noise)
+        t = min(x_hat.shape[1], x.shape[1])
+        loss = self.criterion(x_hat.data[:, :t], x.data[:, :t])
+        hop = self.sample_rate // 200
+
+        def mceps(sig):
+            amp = spectrogram(sig, 512, hop, win_length=512,
+                              window="hanning", power=1.0, center=True)
+            return mcep(amp.transpose(1, 2), 34, alpha=0.46, n_iter=2)
+
+        mc_x = mceps(x.data[:, :t])
+        mc_y = mceps(x_hat.data[:, :t])
+        f = min(mc_x.shape[1], mc_y.shape[1])
+        mcd = 10 * math.sqrt(2) / math.log(10) * torch.mean(
+            torch.linalg.vector_norm(mc_x[:, :f] - mc_y[:, :f], dim=-1))
+        return {"loss": loss, "mcd": mcd, "N": x.shape[0]}
 
     @torch.no_grad()
     def init_running_stats(self, x: Sig, f0_in_hz: Sig) -> None:

@@ -1,16 +1,18 @@
-"""CLI runner for the port: the ``fit``, ``validate`` and ``predict``
-subcommands of the voice autoencoder (counterpart of
+"""CLI runner for the port: the ``fit``, ``validate``, ``test`` and
+``predict`` subcommands of the voice autoencoder (counterpart of
 ``golf_tpu.tasks.cli``)::
 
     python autoencode_torch.py fit --config cfg/ae/vctk.yaml \\
         --model cfg/ae/decoder/golf.yaml data.class_path=ltng.data.Synthetic
     python autoencode_torch.py validate ... --ckpt_path <run>/ckpt/last
+    python autoencode_torch.py test ... [--ckpt_path <run>/ckpt/last]
     python autoencode_torch.py predict ... [--ckpt_path <run>/ckpt/last]
 
 ``--model FILE`` merges the decoder subtree into ``model.init_args``;
 dotted overrides apply last; the resolved config is written to the run
 directory. ``fit`` writes ``metrics.jsonl`` and ``ckpt/{last,step=...}``
-there, ``validate`` prints the validation metrics as JSON, ``predict``
+there, ``validate`` prints the validation metrics as JSON, ``test`` the
+test split's ``avg_mss_loss`` and ``avg_mcd`` (MCD), ``predict``
 writes one wav per item to ``<run_dir>/predictions``. Without a
 checkpoint the weights are the seeded initialisation, with the encoder's
 running min/max set from the first training batch as ``golf_tpu``'s
@@ -38,7 +40,8 @@ from .ae import build_voice_autoencoder
 
 def _parse_args(argv: List[str]):
     p = argparse.ArgumentParser(description="golf_tpu_torch CLI")
-    p.add_argument("subcommand", choices=["fit", "validate", "predict"])
+    p.add_argument("subcommand",
+                   choices=["fit", "validate", "test", "predict"])
     p.add_argument("--config", action="append", default=[],
                    help="YAML config file(s), merged in order")
     p.add_argument("--model", default=None,
@@ -115,6 +118,9 @@ def run(argv: List[str]) -> int:
         trainer.restore(ckpt_path, params_only=True)
     if args.subcommand == "validate":
         print(json.dumps(trainer.validate(datamodule.val_dataloader())))
+        return 0
+    if args.subcommand == "test":
+        trainer.test(datamodule)
         return 0
 
     task.eval()

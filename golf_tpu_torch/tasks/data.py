@@ -1,5 +1,5 @@
 """Synthetic voice data (counterpart of ``golf_tpu.tasks.data``'s
-``SyntheticVoiceDataset`` and ``Synthetic`` module): train, valid and
+``SyntheticVoiceDataset`` and ``Synthetic`` module): train, valid, test and
 predict splits. Corpus loaders (VCTK and the rest) are not ported yet.
 Batches are numpy arrays."""
 
@@ -93,7 +93,7 @@ class Synthetic:
         self.sample_rate = sample_rate
         self.seed = seed
         self.train_dataset = self.valid_dataset = None
-        self.predict_dataset = None
+        self.test_dataset = self.predict_dataset = None
 
     def _make(self, split: str) -> SyntheticVoiceDataset:
         offs = {"train": 0, "valid": 1, "test": 2}[split]
@@ -106,6 +106,8 @@ class Synthetic:
             self.train_dataset = self._make("train")
         if stage in ("fit", "validate"):
             self.valid_dataset = self._make("valid")
+        if stage == "test":
+            self.test_dataset = self._make("test")
         if stage == "predict":
             self.predict_dataset = _WithRelPath(self._make("test"))
 
@@ -115,6 +117,9 @@ class Synthetic:
 
     def val_dataloader(self):
         return DataLoader(self.valid_dataset, self.batch_size)
+
+    def test_dataloader(self):
+        return DataLoader(self.test_dataset, self.batch_size)
 
     def predict_dataloader(self):
         return DataLoader(self.predict_dataset, 1)

@@ -191,6 +191,31 @@ class Trainer:
         self.task.train()
         return {("val_" + k): v / max(weight, 1) for k, v in totals.items()}
 
+    @torch.no_grad()
+    def test(self, datamodule) -> Dict[str, float]:
+        """``test_step`` over the test split: the N-weighted mean of each
+        metric as ``avg_<name>``, the MSS loss as ``avg_mss_loss``; printed
+        as JSON and logged at step -1."""
+        datamodule.setup("test")
+        self.task.eval()
+        gen = torch.Generator(self.device).manual_seed(self.seed + 12345)
+        totals: Dict[str, float] = {}
+        weight = 0.0
+        for batch in datamodule.test_dataloader():
+            x, f0 = _to_sigs(batch, self.device)
+            out = self.task.test_step(x, f0, generator=gen)
+            n = float(out.pop("N", x.shape[0]))
+            for k, v in out.items():
+                totals[k] = totals.get(k, 0.0) + float(v) * n
+            weight += n
+        result = {("avg_" + k): v / max(weight, 1)
+                  for k, v in totals.items()}
+        result["avg_mss_loss"] = result.pop("avg_loss", float("nan"))
+        self.task.train()
+        print(json.dumps(result))
+        self.logger.log(-1, result)
+        return result
+
     def fit(self, datamodule, ckpt_path: Optional[str] = None) -> int:
         datamodule.setup("fit")
         train_loader = datamodule.train_dataloader()

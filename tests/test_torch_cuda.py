@@ -283,3 +283,115 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
         tap.allpole_const_adjoint_cuda(x, x.double(), a)
     with pytest.raises(NotImplementedError):
         tap.allpole_const_cuda(x.requires_grad_(), a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,p", [(4, 2400, 22), (1, 2400, 22), (2, 300, 22),
+                                   (2, 700, 5), (3, 1500, 40)])
+def test_cuda_allpole_zi_entry(cuda_device, b, t, p):
+    """B4's forward entry from a random initial state, with one chunk of
+    the kernel (T <= CHUNK: no maps, the re-run starts from zi) and several:
+    against its plain version (golf_tpu's streaming form, 1e-4 of max|y|),
+    against a float64 scan from the same state (1e-5), and with a null
+    state bit for bit equal to a zero state."""
+    rng = np.random.default_rng(b * t + p)
+    x = torch.from_numpy(rng.standard_normal((b, t)).astype(np.float32))
+    a = rc2lpc(torch.tanh(torch.from_numpy(
+        0.2 * rng.standard_normal((b, t, p)).astype(np.float32))))
+    zi = torch.from_numpy(rng.standard_normal((b, p)).astype(np.float32))
+    x, a, zi = (v.contiguous().to(cuda_device) for v in (x, a, zi))
+    y = tap.allpole_cuda(x, a, zi)
+    torch.cuda.synchronize()
+    ref64 = tap.allpole_scan(x.double(), a.double(), zi.double())
+    scale = ref64.abs().max()
+    assert ((y.double() - ref64).abs().max() / scale).item() <= 1e-5
+    plain = tap.allpole_stream_plain(x, a, zi)
+    assert ((y - plain).abs().max() / plain.abs().max()).item() <= 1e-4
+    assert torch.equal(tap.allpole_cuda(x, a),
+                       tap.allpole_cuda(x, a, torch.zeros_like(zi)))
+    with pytest.raises(ValueError):
+        tap.allpole_cuda(x, a, zi[:, :-1].contiguous())
+
+
+@pytest.mark.cuda
+def test_cuda_stream_matches_cpu(cuda_device):
+    """One GOLFStream of a small GOLF-ss decoder (lpc 8, 128 table points,
+    room filter of 32, random weights) on the card against the same stream
+    on the CPU, same ctrl and noise: within 1e-4 of max|y| (B4 chunked in
+    float64 against the float32 blocked form; cuFFT against pocketfft).
+    The stream launches B1 and B4 once an emitted chunk."""
+    import copy
+
+    from golf_tpu_torch import kernels
+    from golf_tpu_torch.core.sig import Sig
+    from golf_tpu_torch.models.filters import (LTIAcousticFilter,
+                                               LTVMinimumPhaseFilterPrecise,
+                                               LTVZeroPhaseFIRFilter)
+    from golf_tpu_torch.models.noise import StandardNormalNoise
+    from golf_tpu_torch.models.sf import SourceFilterSynth
+    from golf_tpu_torch.models.synth import \
+        DownsampledIndexedGlottalFlowTable
+    from golf_tpu_torch.serve import GOLFStream, chunk_ctrl
+
+    torch.manual_seed(0)
+    dec = SourceFilterSynth(
+        harm_oscillator=DownsampledIndexedGlottalFlowTable(
+            hop_rate=10, in_channels=16, oversampling=4, equal_energy=True,
+            lf_v2=True, points=128, table_size=16),
+        noise_generator=StandardNormalNoise(),
+        noise_filter=LTVZeroPhaseFIRFilter(window="hanning", n_mag=33),
+        end_filter=LTVMinimumPhaseFilterPrecise(lpc_order=8),
+        room_filter=LTIAcousticFilter(length=32), subtract_harmonics=False)
+    with torch.no_grad():
+        dec.room_filter.kernel.normal_(0, 0.05)
+    chunk, n, b, hop = 2400, 6, 2, 240
+    rng = np.random.default_rng(0)
+    frames = n * chunk // hop
+
+    def t(shape, scale, shift=0.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale + shift)
+                                .astype(np.float32))
+    raw = {"harm_oscillator_params": (Sig(t((b, frames, 16), 0.1), hop),),
+           "noise_filter_params": (Sig(t((b, frames, 33), 0.1, -3.0), hop),),
+           "end_filter_params": (Sig(t((b, frames), 0.1), hop),
+                                 Sig(t((b, frames, 8), 0.3), hop))}
+    f0 = 150.0 + 60.0 * np.sin(np.linspace(0, 9.0, n * chunk))
+    phase = torch.from_numpy(np.tile(f0 / 24000.0, (b, 1)).astype(np.float32))
+    noise = t((b, n * chunk), 0.03)
+    with torch.no_grad():
+        ctrl = dec.apply_ctrl(raw)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        d = copy.deepcopy(dec).to(dev)
+        stream = GOLFStream(d, chunk=chunk)
+        kernels.LOOKUP.launches = kernels.ALLPOLE_TV.launches = 0
+        got = []
+        for c in range(n):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            out = stream.push(chunk_ctrl(ctrl, c, chunk), phase[:, sl],
+                              noise[:, sl])
+            if out is not None:
+                assert out.device.type == dev
+                got.append(out.cpu())
+        got.append(stream.flush(chunk_ctrl(ctrl, n, chunk, rest=True)).cpu())
+        outs[dev] = torch.cat(got, dim=1)
+        if dev == "cuda":
+            assert kernels.LOOKUP.launches == n
+            assert kernels.ALLPOLE_TV.launches == n
+    ref = outs["cpu"]
+    assert ((outs["cuda"] - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_wrapped_cumsum_error_does_not_grow(cuda_device):
+    """The oscillator's wrapped phase over 6 s at the 4x oversampled rate
+    (576 000 increments of 100-350 Hz at 96 kHz) on the card, against a
+    float64 cumsum mod 1: within 4e-6 cycles. With float32 block sums the
+    card's rounding entered every later block's offset (3.5e-5 cycles)."""
+    from golf_tpu_torch.ops.dsp import wrapped_cumsum
+    rng = np.random.default_rng(0)
+    inc = (rng.uniform(100, 350, (2, 576_000)) / 96_000).astype(np.float32)
+    got = wrapped_cumsum(torch.from_numpy(inc).to(cuda_device)).double().cpu()
+    ref = torch.remainder(torch.cumsum(torch.from_numpy(inc).double(), 1), 1)
+    d = (got - ref).abs()
+    assert torch.minimum(d, 1 - d).max().item() <= 4e-6
