@@ -55,9 +55,27 @@ Phases (any failure exits non-zero):
 8. test: ``test_step`` (MSS and MCD) on B = 4 x 2 s for each decoder, after
    one warm-up call, finite and within 1e-5 relative of the port's CPU
    run;
-9. summary: a ``kernels:`` line, the card, then one JSON line with the
-   kernel table;
-10. last line: ``{"ok": true, "device": {...}}``.
+9. disk: a miniature VCTK tree (24 kHz PCM16 wavs and 5 ms ``.pv`` tracks
+   of synthetic voices) under ``runs/``, and ``autoencode_torch.py fit
+   --config cfg/ae/vctk.yaml --model cfg/ae/decoder/golf.yaml`` on it for 3
+   steps at B = 64 x 2 s; the first batch on the card equal to the CPU
+   ``VCTK`` module's bit for bit; B3a, B3b, B2 and B2's adjoint entry once
+   a step;
+10. fs: GOLF-fs, that checkpoint params-only in the sample-wise filters of
+    ``convert2samplewise(golf.yaml)``: the CLI's ``test``, then
+    ``test_step`` on the 64-segment test split card vs CPU within 1e-5
+    relative, with its time and peak memory;
+11. finetune: the same checkpoint params-only in
+    ``golf-precise-stable.yaml``, 3 SGD steps at lr 1e-5 with
+    ``coef_smooth_weight`` 0.1 through the CLI's ``fit`` (B3a, B3b, B4 and
+    B4's adjoint entry once a step), and one B = 2 x 1 s SGD step card vs
+    CPU;
+12. summary: a ``kernels:`` line, the card, then one JSON line with the
+    kernel table; B1's and B3b's ``library_ms`` is ``F.grid_sample`` on the
+    table padded with its first column, and its backward with respect to
+    the table (B3a's is null: no one call returns its three outputs);
+13. last line: ``{"ok": true, "device": {...}}``.
+Each phase's seconds are printed as it ends.
 
 Needs one CUDA device, and exits non-zero without one. Imports torch and
 golf_tpu_torch only.
@@ -65,17 +83,24 @@ golf_tpu_torch only.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+from scipy.io import wavfile
 
 from golf_tpu_torch import kernels
+from golf_tpu_torch.config.registry import (convert2samplewise, instantiate,
+                                            load_config)
 from golf_tpu_torch.core.sig import Sig, linear_upsample
 from golf_tpu_torch.ops import lookup as lk
 from golf_tpu_torch.ops.allpole import (allpole, allpole_const,
@@ -95,9 +120,12 @@ from golf_tpu_torch.ops.allpole import (allpole, allpole_const,
 from golf_tpu_torch.ops import allpole as tap
 from golf_tpu_torch.ops.dsp import rc2lpc
 from golf_tpu_torch.serve import GOLFStream, StreamingEncoder, chunk_ctrl
+from golf_tpu_torch.tasks import cli
 from golf_tpu_torch.tasks.ae import VoiceAutoEncoder, build_voice_autoencoder
 from golf_tpu_torch.tasks.data import SyntheticVoiceDataset
-from golf_tpu_torch.train.loop import Trainer, trainable_parameters
+from golf_tpu_torch.train import checkpoint as ckpt_lib
+from golf_tpu_torch.train.loop import (ClippedOptimizer, Trainer,
+                                       trainable_parameters)
 
 SEED = 0
 SR = 24000
@@ -121,6 +149,16 @@ TEST_SECONDS = 2.0
 TEST_REL_TOL = 1e-5         # test_step's MSS loss and MCD, card vs CPU
 TRAIN_GRAD_TOL = 1e-3       # of each gradient's largest entry
 PYRAMID_GRAD_TOL = 2e-2     # the encoder's conv pyramid (phase_train_vs_cpu)
+STEP_WEIGHT_TOL = 1e-6      # weights after an optimizer step, of max|w|
+# the miniature VCTK tree of the disk, fs and finetune phases
+DISK_TRAIN_SPEAKERS = 16    # p300.. x 2 files x 6 s: 288 segments
+DISK_VALID = ("p225", "p226")
+DISK_TEST = ("p360", "p361", "p362", "p363")
+DISK_SECONDS = 6.0
+DISK_TEST_SECONDS = 5.5     # 8 segments a file: the test split is 64
+DISK_STEPS = 3
+FINETUNE_LR = 1e-5          # the SGD finetune's recipe (docs/BENCH.md)
+FINETUNE_SMOOTH = 0.1
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 and fp64
 # (outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -168,6 +206,11 @@ _END_FILTERS = {
                      "models.filters.LTVMinimumPhaseFilterPrecise",
                      "init_args": {"lpc_order": 22,
                                    "lpc_parameterisation": "rc2lpc"}},
+    "golf-precise-stable": {"class_path":
+                            "models.filters.LTVMinimumPhaseFilterPrecise",
+                            "init_args": {"lpc_order": 22,
+                                          "lpc_parameterisation": "rc2lpc",
+                                          "max_abs_value": 0.98}},
 }
 
 
@@ -374,6 +417,66 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
     return ((out - ref).abs().max() / ref.abs().max()).item()
 
 
+def grid_sample_operands(ph: torch.Tensor, tables: torch.Tensor, hop: int):
+    """B1's lookup as ``F.grid_sample``'s operands (bilinear,
+    align_corners): the tables padded with their first column, the wrap
+    of ``golf_tpu/ops/lookup_pallas.py`` ((B, 1, rows, S + 1)), and one
+    output row of blocks x hop points, x at column ph * S, y at row
+    k + i / hop ((B, 1, blocks * hop, 2))."""
+    b, blocks, _ = ph.shape
+    rows = tables.shape[1]
+    padded = torch.cat([tables, tables[..., :1]], dim=-1)[:, None]
+    y = (torch.arange(blocks, device=ph.device)[:, None]
+         + torch.arange(hop, device=ph.device) / hop)
+    gy = (2 * y / (rows - 1) - 1).expand(b, blocks, hop)
+    grid = torch.stack([2 * ph - 1, gy], dim=-1).reshape(b, 1, -1, 2)
+    return padded.contiguous(), grid.contiguous()
+
+
+def grid_sample_lookup(padded, grid):
+    return torch.nn.functional.grid_sample(
+        padded, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True)
+
+
+def grid_sample_dtab(g, padded, grid):
+    """The padded table's cotangent alone (``grid_sample``'s backward with
+    the grid's gradient masked off)."""
+    return torch.ops.aten.grid_sampler_2d_backward(
+        g.reshape(g.shape[0], 1, 1, -1), padded, grid, 0, 0, True,
+        [True, False])[0]
+
+
+def library_lookup_row(ph, tables, hop, label, dtab=False) -> dict:
+    """``grid_sample``'s time and error against the plain lookup (B1) and,
+    with ``dtab``, its backward's against the plain table cotangent (B3b,
+    the padded column folded back into column 0)."""
+    padded, grid = grid_sample_operands(ph, tables, hop)
+    out = grid_sample_lookup(padded, grid).reshape(ph.shape)
+    err = (out - lk.lookup_blocks_plain(ph, tables, hop)).abs().max().item()
+    row = {"library_ms": cuda_ms(lambda: grid_sample_lookup(padded, grid),
+                                 50),
+           "library_err": err}
+    print(f"[{label}] library yardstick F.grid_sample (bilinear, "
+          f"align_corners, table padded with its first column) "
+          f"{tuple(ph.shape)}: {row['library_ms'] * 1e3:.1f} us, max abs "
+          f"err against the plain lookup {err:.3e}")
+    if dtab:
+        g = torch.randn(ph.shape, generator=torch.Generator(
+            device="cuda").manual_seed(SEED + 21), device="cuda")
+        s = tables.shape[-1]
+        d = grid_sample_dtab(g, padded, grid)[:, 0]
+        d = torch.cat([d[..., :1] + d[..., s:], d[..., 1:s]], dim=-1)
+        rel = rel_err(d, lk.lookup_dtab_plain(ph, g, hop, tables.shape[1], s))
+        row.update(dtab_library_ms=cuda_ms(
+            lambda: grid_sample_dtab(g, padded, grid), 20),
+            dtab_library_err=rel)
+        print(f"[{label}] library yardstick grid_sample's backward, table "
+              f"only: {row['dtab_library_ms'] * 1e3:.1f} us, error of the "
+              f"folded cotangent against the plain B3b {rel:.3e} of max|ref|")
+    return row
+
+
 def phase_kernels(shapes: dict, which=("lookup", "allpole_const",
                                        "allpole_tv"), label="serve") -> dict:
     """Each kernel against its plain version on the same inputs, with its
@@ -396,7 +499,9 @@ def phase_kernels(shapes: dict, which=("lookup", "allpole_const",
                                                               hop), 100),
             plain_ms=cuda_ms(lambda: lk.lookup_blocks_plain(ph, tables, hop),
                              10),
-            bound=bound(4 * (2 * n_el + tables.numel()), 15 * n_el))
+            bound=bound(4 * (2 * n_el + tables.numel()), 15 * n_el),
+            **library_lookup_row(ph, tables, hop, label,
+                                 dtab="lookup_dtab" in which))
     if "lookup_res" in which:
         outs = lk.lookup_res_cuda(ph, tables, hop)
         refs = lk.lookup_res_plain(ph, tables, hop)
@@ -703,7 +808,8 @@ def phase_stream_kernels() -> dict:
                             200),
         plain_ms=cuda_ms(lambda: lk.lookup_blocks_plain(ph, tables, hop), 10),
         bound=bound(4 * (2 * n_el + tables.numel()), 15 * n_el),
-        shapes=[list(ph.shape), list(tables.shape)])
+        shapes=[list(ph.shape), list(tables.shape)],
+        **library_lookup_row(ph, tables, hop, "stream"))
     for name, r in rows.items():
         print(f"[stream] {name}: {r['ms'] * 1e3:.2f} us a launch, bound "
               f"{r['bound'][0] * 1e3:.3f} us ({r['bound'][1]}), plain "
@@ -977,10 +1083,12 @@ def phase_serve(decoder: str, expect: dict) -> dict:
     return counts
 
 
-def train_model_config(decoder: str, dropout: float = None) -> dict:
+def train_model_config(decoder: str, dropout: float = None,
+                       **model_args) -> dict:
     cfg = model_config(decoder)
     if dropout is not None:
         cfg["encoder_init_args"]["dropout"] = dropout
+    cfg.update(model_args)
     return cfg
 
 
@@ -1034,17 +1142,21 @@ def phase_train(decoder: str, expect: dict) -> dict:
     return counts
 
 
-def phase_train_vs_cpu(decoder: str) -> None:
+def phase_train_vs_cpu(decoder: str, state: dict = None,
+                       optimizer: dict = None, **model_args) -> None:
     """One training step at B = 2 x 1 s, full width, on the card and on the
-    CPU: same weights, noise and random f0, dropout 0, train mode (cuDNN
-    has no RNN backward in eval mode, and dropout draws differ by
-    device)."""
+    CPU: same weights (``seeded_model``'s, or ``state``), noise and random
+    f0, dropout 0, train mode (cuDNN has no RNN backward in eval mode, and
+    dropout draws differ by device). With ``optimizer`` (the
+    ``ClippedOptimizer`` arguments) the step is also applied on both and
+    the weights after it compared."""
     dev = torch.device("cuda")
     torch.manual_seed(SEED)
-    cpu_task = build_voice_autoencoder(train_model_config(decoder, 0.0),
-                                       device="cpu")
-    ref_task = seeded_model(decoder, "cpu")
-    cpu_task.load_state_dict(ref_task.state_dict())
+    cpu_task = build_voice_autoencoder(
+        train_model_config(decoder, 0.0, **model_args), device="cpu")
+    if state is None:
+        state = seeded_model(decoder, "cpu").state_dict()
+    cpu_task.load_state_dict(state)
     x, f0 = requests(TRAIN_CHECK_BATCH, TRAIN_CHECK_SECONDS)
     # white noise at -20 dB of full scale: without it most spectrogram bins
     # are near silent, and the encoder's log amplifies the two FFT
@@ -1055,8 +1167,8 @@ def phase_train_vs_cpu(decoder: str) -> None:
     noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(7))
     random_f0 = torch.tensor([[90.0], [310.0]])
     cpu_task.init_running_stats(Sig(x, 1), Sig(f0, 1))
-    gpu_task = build_voice_autoencoder(train_model_config(decoder, 0.0),
-                                       device="cpu")
+    gpu_task = build_voice_autoencoder(
+        train_model_config(decoder, 0.0, **model_args), device="cpu")
     gpu_task.load_state_dict(cpu_task.state_dict())
     gpu_task.to(dev)
     grads = []
@@ -1071,6 +1183,8 @@ def phase_train_vs_cpu(decoder: str) -> None:
         grads.append({n: p.grad.detach().cpu()
                       for n, p in task.named_parameters()
                       if p.requires_grad})
+        if optimizer is not None:
+            ClippedOptimizer(trainable_parameters(task), **optimizer).step()
     rel_loss = abs(losses[0] - losses[1]) / abs(losses[1])
     errs = {}
     for name, ref in grads[1].items():
@@ -1106,6 +1220,280 @@ def phase_train_vs_cpu(decoder: str) -> None:
           f"pocketfft and blocked forms)")
     check(rel_loss <= 1e-4, f"{decoder} train loss card vs CPU")
     check(worst <= TRAIN_GRAD_TOL, f"{decoder} train gradients card vs CPU")
+    if optimizer is not None:
+        after = {n: p.detach().cpu() for n, p in gpu_task.named_parameters()}
+        ref = dict(cpu_task.named_parameters())
+        scale = max(p.abs().max().item() for p in ref.values())
+        err = max((after[n] - p.detach()).abs().max().item()
+                  for n, p in ref.items())
+        print(f"train {decoder}: {optimizer} step card vs CPU: weights "
+              f"after it within {err / scale:.2e} of max|w| (tolerance "
+              f"{STEP_WEIGHT_TOL:g})")
+        check(err <= STEP_WEIGHT_TOL * scale,
+              f"{decoder} {optimizer['optimizer']} step card vs CPU")
+
+
+# ---------------------------------------------------------------------------
+# the Interspeech24 recipe from disk: fit, GOLF-fs, the SGD finetune
+# ---------------------------------------------------------------------------
+
+def write_vctk_tree(root: Path) -> dict:
+    """A miniature VCTK tree: 24 kHz PCM16 ``pNNN/pNNN_XXX_mic1.wav`` files
+    with their 5 ms ``.pv`` f0 tracks, each a ``SyntheticVoiceDataset``
+    item (its own seed). Train: DISK_TRAIN_SPEAKERS speakers x 2 files x
+    6 s (9 segments of 2 s at overlap 1.5 each); valid: DISK_VALID, one
+    file of 6 s each; test: DISK_TEST, 2 files x 5.5 s each (8 segments
+    each, 64 in all). Returns the segment counts."""
+    files = ([(f"p{300 + i}", k, DISK_SECONDS)
+              for i in range(DISK_TRAIN_SPEAKERS) for k in range(2)]
+             + [(spk, 0, DISK_SECONDS) for spk in DISK_VALID]
+             + [(spk, k, DISK_TEST_SECONDS) for spk in DISK_TEST
+                for k in range(2)])
+    hop = SR // 200
+    for j, (spk, k, seconds) in enumerate(files):
+        x, f0 = SyntheticVoiceDataset(1, seconds, SR, seed=SEED + 100 + j)[0]
+        d = root / spk
+        d.mkdir(parents=True, exist_ok=True)
+        path = d / f"{spk}_{k + 1:03d}_mic1.wav"
+        wavfile.write(str(path), SR,
+                      np.round(np.clip(x, -1, 1) * 32767).astype(np.int16))
+        frames = np.minimum(np.arange(len(x) // hop + 1) * hop, len(x) - 1)
+        np.savetxt(str(path.with_suffix(".pv")), f0[frames], fmt="%.4f")
+    seg = lambda secs: int((secs - 2.0) / 0.5) + 1  # noqa: E731
+    return {"train": 2 * DISK_TRAIN_SPEAKERS * seg(DISK_SECONDS),
+            "valid": len(DISK_VALID) * seg(DISK_SECONDS),
+            "test": 2 * len(DISK_TEST) * seg(DISK_TEST_SECONDS)}
+
+
+class StepProbe:
+    """Around ``Trainer.train_step`` while a CLI run is in progress: the
+    first step's batch as it reached the card, each step's loss, host time
+    (synchronised on both sides) and kernel launches."""
+
+    def __init__(self):
+        self.batch = None
+        self.losses, self.times, self.launches = [], [], []
+
+    def __enter__(self):
+        self._orig = Trainer.train_step
+        probe = self
+
+        def train_step(trainer, x, f0):
+            if probe.batch is None:
+                probe.batch = (x.data.cpu().numpy(), f0.data.cpu().numpy())
+            before = {k.name: k.launches for k in kernels.ALL}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = probe._orig(trainer, x, f0)
+            torch.cuda.synchronize()
+            probe.times.append(time.perf_counter() - t0)
+            probe.losses.append(out["loss"].item())
+            probe.launches.append({k.name: k.launches - before[k.name]
+                                   for k in kernels.ALL})
+            return out
+
+        Trainer.train_step = train_step
+        return self
+
+    def __exit__(self, *exc):
+        Trainer.train_step = self._orig
+
+    def check_steps(self, label: str, path) -> None:
+        print(f"{label}: {len(self.times)} steps, losses "
+              f"{', '.join(f'{v:.5f}' for v in self.losses)}; step wall time "
+              f"(host clock around synchronize) "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in self.times)} ms; "
+              f"launches a step {self.launches}")
+        check(len(self.times) == DISK_STEPS, f"{label} took {DISK_STEPS} "
+              f"steps")
+        check(all(np.isfinite(self.losses)), f"{label} losses finite")
+        for n, counts in enumerate(self.launches):
+            for name in path:
+                check(counts[name] == 1, f"{label} step {n + 1} launched "
+                      f"{name} once: {counts[name]}")
+
+
+def cli_run(argv) -> dict:
+    """``autoencode_torch.py``'s ``run`` in this process, with the
+    launches of every kernel from 0 over the run; returns them."""
+    print(f"$ autoencode_torch.py {' '.join(argv)}", flush=True)
+    for k in kernels.ALL:
+        k.launches = 0
+    check(cli.run(argv) == 0, f"CLI {argv[0]} returned 0")
+    return {k.name: k.launches for k in kernels.ALL}
+
+
+def disk_overrides(tree: Path) -> list:
+    return [f"data.init_args.wav_dir={tree}"]
+
+
+def disk_args(tree: Path, decoder_yaml: str, run_dir: Path) -> list:
+    return ["--config", "cfg/ae/vctk.yaml", "--model", decoder_yaml,
+            *disk_overrides(tree), "--run_dir", str(run_dir)]
+
+
+def phase_disk(tree: Path, out: Path) -> tuple:
+    """``fit --config cfg/ae/vctk.yaml --model cfg/ae/decoder/golf.yaml``
+    from the tree, DISK_STEPS steps at B = 64 x 2 s on the card; the first
+    step's batch must equal the CPU ``VCTK`` module's bit for bit (the
+    same config, the loader's second pass: the trainer's init reads the
+    first). Returns (launches, GOLF-ff checkpoint path, probe)."""
+    argv = ["fit", *disk_args(tree, "cfg/ae/decoder/golf.yaml", out / "ff"),
+            f"trainer.max_steps={DISK_STEPS}"]
+    with StepProbe() as probe:
+        counts = cli_run(argv)
+    probe.check_steps("disk fit GOLF-ff", ("lookup_res", "lookup_dtab",
+                                           "allpole_const",
+                                           "allpole_const_adjoint"))
+    cfg = load_config(["cfg/ae/vctk.yaml"], "cfg/ae/decoder/golf.yaml",
+                      disk_overrides(tree))
+    dm = instantiate(cfg["data"])
+    check(type(dm).__name__ == "VCTK", "vctk.yaml builds VCTK")
+    dm.setup("fit")
+    loader = dm.train_dataloader()
+    next(iter(loader))
+    x, f0 = next(iter(loader))
+    same = np.array_equal(probe.batch[0], x) and \
+        np.array_equal(probe.batch[1], f0)
+    print(f"disk fit: first batch {probe.batch[0].shape} on the card == the "
+          f"CPU VCTK module's: {same}; launches over the run {counts}")
+    check(same and x.shape == (TRAIN_BATCH, int(TRAIN_SECONDS * SR)),
+          "disk fit's first batch bit for bit")
+    ckpt = out / "ff" / "ckpt" / "last"
+    check(ckpt.exists(), "GOLF-ff checkpoint written")
+    return counts, ckpt, probe
+
+
+def golf_fs_yaml(path: Path) -> str:
+    """``cfg/ae/decoder/golf.yaml`` through ``convert2samplewise``."""
+    import yaml
+    with open(path, "w") as f:
+        yaml.safe_dump(convert2samplewise(
+            load_config(["cfg/ae/decoder/golf.yaml"])), f)
+    return str(path)
+
+
+def phase_fs(tree: Path, ckpt: Path, out: Path) -> tuple:
+    """GOLF-fs: the GOLF-ff checkpoint params-only in the model of
+    ``convert2samplewise(golf.yaml)``. The CLI's ``test`` on the card (its
+    MSS and MCD, time and peak memory); then ``test_step`` over the test
+    split (64 segments: one batch of 64) on the card, timed with its peak
+    memory, against the CPU on the same weights and noise, within
+    TEST_REL_TOL relative."""
+    fs_model = golf_fs_yaml(out / "golf-fs.yaml")
+    argv = ["test", *disk_args(tree, fs_model, out / "fs"), "--ckpt_path",
+            str(ckpt)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        counts = cli_run(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(text.getvalue(), end="")
+    result = json.loads(text.getvalue().strip().splitlines()[-1])
+    print(f"fs CLI test: {result}; {cli_s:.2f} s for the whole command "
+          f"(data, model, restore, test); peak memory {cli_peak:.2f} GiB; "
+          f"launches {counts}")
+    check(all(np.isfinite(v) for v in result.values()),
+          "GOLF-fs CLI test metrics finite")
+    check(counts["lookup"] >= 1 and counts["allpole_tv"] >= 1,
+          "GOLF-fs test launched B1 and B4")
+
+    cfg = load_config(["cfg/ae/vctk.yaml"], fs_model, disk_overrides(tree))
+    dm = instantiate(cfg["data"])
+    dm.setup("test")
+    (x, f0), = list(dm.test_dataloader())
+    check(x.shape[0] == TRAIN_BATCH, f"the test split is one batch of "
+          f"{TRAIN_BATCH}: {x.shape}")
+    tasks = {}
+    for dev in ("cuda", "cpu"):
+        tasks[dev] = build_voice_autoencoder(cfg["model"]["init_args"],
+                                             device=dev)
+        ckpt_lib.restore_params_into(str(ckpt), tasks[dev])
+        tasks[dev].eval()
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(9))
+    xs, f0s = torch.from_numpy(x), torch.from_numpy(f0)
+    args = (Sig(xs.cuda(), 1), Sig(f0s.cuda(), 1))
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        for k in kernels.ALL:
+            k.launches = 0
+        got, secs = timed(lambda: tasks["cuda"].test_step(
+            *args, noise=noise.cuda()))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_counts = {k.name: k.launches for k in kernels.ALL}
+        t0 = time.perf_counter()
+        ref = tasks["cpu"].test_step(Sig(xs, 1), Sig(f0s, 1), noise=noise)
+        cpu_s = time.perf_counter() - t0
+    errs = {k: abs(float(got[k]) - float(ref[k])) / abs(float(ref[k]))
+            for k in ("loss", "mcd")}
+    print(f"fs test_step: B={x.shape[0]} x {TRAIN_SECONDS:g} s (the test "
+          f"split), MSS loss {float(got['loss']):.5f} (CPU "
+          f"{float(ref['loss']):.5f}, rel {errs['loss']:.2e}), MCD "
+          f"{float(got['mcd']):.4f} dB (CPU {float(ref['mcd']):.4f}, rel "
+          f"{errs['mcd']:.2e}); tolerance {TEST_REL_TOL:g} relative; "
+          f"{secs * 1e3:.1f} ms on the card (after the CLI's run), CPU "
+          f"{cpu_s:.1f} s; peak memory {peak:.2f} GiB (weights and inputs "
+          f"{base:.2f}); launches {step_counts}")
+    check(all(np.isfinite(float(got[k])) for k in ("loss", "mcd")),
+          "GOLF-fs test_step finite")
+    check(max(errs.values()) <= TEST_REL_TOL, "GOLF-fs test_step card vs CPU")
+    check(step_counts["lookup"] == 1 and step_counts["allpole_tv"] == 1,
+          "GOLF-fs test_step launched B1 and B4 once")
+    return counts, {"cli_s": cli_s, "cli_peak_gib": cli_peak,
+                    "test_step_ms": secs * 1e3, "peak_gib": peak,
+                    "mss": float(got["loss"]), "mcd": float(got["mcd"]),
+                    "errs": errs}
+
+
+def phase_finetune(tree: Path, ckpt: Path, out: Path) -> tuple:
+    """The GOLF-ss finetune: the GOLF-ff checkpoint params-only in
+    ``golf-precise-stable.yaml`` (cap 0.98), DISK_STEPS SGD steps at lr 1e-5
+    with ``coef_smooth_weight`` 0.1 at B = 64 x 2 s through the CLI's
+    ``fit``; B3a, B3b, B4 and B4's adjoint entry once a step; the weights
+    moved from the checkpoint's by at most lr x clip a step. Then one such
+    step at B = 2 x 1 s card vs CPU from the same checkpoint."""
+    argv = ["fit", *disk_args(tree, "cfg/ae/decoder/golf-precise-stable.yaml",
+                              out / "ss"),
+            f"trainer.max_steps={DISK_STEPS}",
+            "optimizer.class_path=torch.optim.SGD",
+            f"optimizer.init_args.lr={FINETUNE_LR:.5f}",
+            f"model.init_args.coef_smooth_weight={FINETUNE_SMOOTH}",
+            "ckpt_params_only=true", f"ckpt_path={ckpt}"]
+    with StepProbe() as probe:
+        counts = cli_run(argv)
+    probe.check_steps("finetune GOLF-ss (SGD)",
+                      ("lookup_res", "lookup_dtab", "allpole_tv",
+                       "allpole_tv_adjoint"))
+    start = ckpt_lib.load(str(ckpt), map_location="cpu")["model"]
+    end = ckpt_lib.load(str(out / "ss" / "ckpt" / "last"),
+                        map_location="cpu")
+    # the weights, not the statistics a train-mode forward updates
+    cfg = load_config(["cfg/ae/vctk.yaml"],
+                      "cfg/ae/decoder/golf-precise-stable.yaml",
+                      disk_overrides(tree))
+    weights = {n for n, _ in build_voice_autoencoder(
+        cfg["model"]["init_args"], device="cpu").named_parameters()}
+    moved = max((end["model"][k] - start[k]).abs().max().item()
+                for k in weights)
+    bound = DISK_STEPS * FINETUNE_LR * 0.5
+    print(f"finetune: the optimizer state is {end['optimizer']['optimizer']}"
+          f"'s after {end['optimizer']['count']} updates; the weights moved "
+          f"at most {moved:.3e} from the GOLF-ff checkpoint (bound "
+          f"{bound:.1e}: {DISK_STEPS} steps of lr {FINETUNE_LR:g} under the "
+          f"0.5 clip); launches over the run {counts}")
+    check(end["optimizer"]["optimizer"] == "sgd", "finetune ran SGD")
+    check(0 < moved <= bound, "finetune started from the checkpoint")
+    phase_train_vs_cpu("golf-precise-stable", state=start,
+                       optimizer={"optimizer": "sgd", "lr": FINETUNE_LR,
+                                  "grad_clip": 0.5},
+                       coef_smooth_weight=FINETUNE_SMOOTH)
+    return counts, probe
 
 
 def main() -> int:
@@ -1113,8 +1501,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    phase_s = {}
+
+    def done(name: str, t0: float) -> float:
+        phase_s[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return time.perf_counter()
+
     card = phase_environment()
     phase_build()
+    t0 = done("build", t_start)
     serve_shapes = main_path_shapes(BATCH, int(SECONDS * SR))
     train_shapes = main_path_shapes(TRAIN_BATCH, int(TRAIN_SECONDS * SR))
     serve_rows = phase_kernels(serve_shapes)
@@ -1122,21 +1518,46 @@ def main() -> int:
                          label="train")
     phase_backward(train_shapes)
     phase_resonance()
+    t0 = done("kernels", t0)
     counts = {k.name: 0 for k in kernels.ALL}
+
+    def add(c: dict) -> dict:
+        for name, n in c.items():
+            counts[name] += n
+        return c
+
     for decoder in ("golf", "golf-precise"):
-        for name, c in phase_serve(decoder, serve_shapes).items():
-            counts[name] += c
+        add(phase_serve(decoder, serve_shapes))
+    t0 = done("serve", t0)
     for decoder in ("golf", "golf-precise"):
-        for name, c in phase_train(decoder, train_shapes).items():
-            counts[name] += c
+        add(phase_train(decoder, train_shapes))
         phase_train_vs_cpu(decoder)
+    t0 = done("train", t0)
     stream_rows = phase_stream_kernels()
-    stream_counts = phase_stream(stream_shapes(BATCH))
-    for name, c in stream_counts.items():
-        counts[name] += c
+    stream_counts = add(phase_stream(stream_shapes(BATCH)))
+    t0 = done("stream", t0)
     for decoder in ("golf", "golf-precise"):
-        for name, c in phase_test(decoder).items():
-            counts[name] += c
+        add(phase_test(decoder))
+    t0 = done("test", t0)
+    Path("runs").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir="runs") as tmp:
+        tree, out = Path(tmp) / "vctk", Path(tmp) / "runs"
+        sizes = write_vctk_tree(tree)
+        print(f"disk: a VCTK tree of {sizes} segments of 2 s at overlap 1.5")
+        disk_counts, ckpt, disk_probe = phase_disk(tree, out)
+        add(disk_counts)
+        t0 = done("disk", t0)
+        fs_counts, fs = phase_fs(tree, ckpt, out)
+        add(fs_counts)
+        t0 = done("fs", t0)
+        ft_counts, ft_probe = phase_finetune(tree, ckpt, out)
+        add(ft_counts)
+        t0 = done("finetune", t0)
+    print(json.dumps({"recipe": {
+        "disk_fit_step_ms": [t * 1e3 for t in disk_probe.times],
+        "golf_fs": fs,
+        "finetune_step_ms": [t * 1e3 for t in ft_probe.times],
+        "phase_s": phase_s}}))
 
     replaces = {"lookup": "golf_tpu/ops/lookup_pallas.py:107",
                 "lookup_res": "golf_tpu/ops/lookup_pallas.py:222",
@@ -1156,8 +1577,21 @@ def main() -> int:
             "replaces": replaces[k.name], "launches": counts[k.name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": None,
+            "library_ms": r.get("library_ms"),
             "shapes": [list(s) for s in train_shapes[k.name]]}
+        if k.name == "lookup_dtab":
+            entry["library_ms"] = rows["lookup"]["dtab_library_ms"]
+            entry["library"] = ("grid_sample's backward, table only "
+                                "(grid_sampler_2d_backward)")
+            entry["library_err"] = rows["lookup"]["dtab_library_err"]
+        elif k.name == "lookup":
+            entry["library"] = ("F.grid_sample, bilinear, align_corners, "
+                                "the table padded with its first column")
+            entry["library_err"] = r["library_err"]
+        elif k.name == "lookup_res":
+            entry["library_note"] = (
+                "null: no one PyTorch call returns the lookup with its two "
+                "corner differences")
         if k.name == "allpole_const_adjoint":
             entry["also_replaces"] = "golf_tpu/ops/allpole.py:403-404"
         for key in ("fp64_floor_ms", "composite_ms"):
@@ -1174,7 +1608,8 @@ def main() -> int:
                 "max_abs_err": stream_row["err"], "ms": stream_row["ms"],
                 "plain_ms": stream_row["plain_ms"],
                 "bound_ms": stream_row["bound"][0],
-                "bound_by": stream_row["bound"][1]}
+                "bound_by": stream_row["bound"][1],
+                "library_ms": stream_row.get("library_ms")}
             if k.name == "allpole_tv":
                 r1 = stream_rows["allpole_tv/1"]
                 entry["stream"]["b1"] = {
@@ -1186,14 +1621,18 @@ def main() -> int:
                 "shapes": [list(s) for s in serve_shapes[k.name]],
                 "max_abs_err": sr_["err"], "ms": sr_["ms"],
                 "plain_ms": sr_["plain_ms"], "bound_ms": sr_["bound"][0]}
-            for key in ("fp64_floor_ms", "composite_ms"):
+            for key in ("fp64_floor_ms", "composite_ms", "library_ms"):
                 if key in sr_:
                     entry["serve"][key] = sr_[key]
         table.append(entry)
+
     def composite_note(e):
-        if "composite_ms" not in e:
-            return ""
-        return f", composite {e['composite_ms'] * 1e3:.1f} us"
+        note = ""
+        if e.get("composite_ms") is not None:
+            note += f", composite {e['composite_ms'] * 1e3:.1f} us"
+        if e.get("library_ms") is not None:
+            note += f", library {e['library_ms'] * 1e3:.1f} us"
+        return note
 
     def serve_note(e):
         note = ""
@@ -1206,7 +1645,7 @@ def main() -> int:
             st = e["stream"]
             note += (f"; stream push {st['ms'] * 1e3:.2f} us, bound "
                      f"{st['bound_ms'] * 1e3:.3f} us, plain "
-                     f"{st['plain_ms'] * 1e3:.1f} us, "
+                     f"{st['plain_ms'] * 1e3:.1f} us{composite_note(st)}, "
                      f"{st['launches_per_push']:g} a push")
         return note
 

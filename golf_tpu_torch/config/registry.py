@@ -149,3 +149,38 @@ def load_config(paths: Sequence[str], model: Optional[str] = None,
     if overrides:
         cfg = apply_overrides(cfg, overrides)
     return resolve_interpolations(cfg)
+
+
+def convert2samplewise(config: dict) -> dict:
+    """Frame-wise -> sample-wise filters in a config tree, in place (the
+    GOLF-fs evaluation of a GOLF-ff model; ``golf_tpu``'s rewriter with
+    this package's class paths): the first frame-wise filter node met on a
+    walk of the tree takes its ``Precise`` twin and loses the options the
+    twin has not (``window``, ``window_length`` and ``centred``, or
+    ``conv_method``); a node holding a converted ``class_path`` is not
+    walked further."""
+    for key, value in config.items():
+        if key == "class_path":
+            path = config["class_path"]
+            if ".LTVMinimumPhaseFilter" in path and "Precise" not in path:
+                config["class_path"] = \
+                    f"{_PKG}.models.filters.LTVMinimumPhaseFilterPrecise"
+                ia = config.get("init_args", {})
+                ia.pop("window", None)
+                ia.pop("window_length", None)
+                ia.pop("centred", None)
+                return config
+            if ".LTVMinimumPhaseFIRFilter" in path and "Precise" not in path:
+                config["class_path"] = \
+                    f"{_PKG}.models.filters.LTVMinimumPhaseFIRFilterPrecise"
+                config.get("init_args", {}).pop("conv_method", None)
+                return config
+            if ".LTVZeroPhaseFIRFilter" in path and "Precise" not in path \
+                    and "AP" not in path:
+                config["class_path"] = \
+                    f"{_PKG}.models.filters.LTVZeroPhaseFIRFilterPrecise"
+                config.get("init_args", {}).pop("conv_method", None)
+                return config
+        elif isinstance(value, dict):
+            config[key] = convert2samplewise(value)
+    return config

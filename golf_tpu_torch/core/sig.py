@@ -23,6 +23,14 @@ INF_HOP = 1 << 62
 ArrayLike = Union[torch.Tensor, float, int]
 
 
+def true_divide(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` rounded once, on every device. On CUDA PyTorch computes
+    ``tensor / python_number`` as a product with the number's rounded
+    reciprocal (some results one ulp off the CPU's); a 0-dim divisor on
+    the tensor's device makes it a true division, as the CPU's is."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def linear_upsample(x: torch.Tensor, factor: int, axis: int = -1
                     ) -> torch.Tensor:
     """Linear interpolation to ``(n-1)*factor + 1`` points (align_corners):
@@ -33,7 +41,8 @@ def linear_upsample(x: torch.Tensor, factor: int, axis: int = -1
     n = x.shape[-1]
     left = x[..., :-1]
     right = x[..., 1:]
-    w = torch.arange(factor, dtype=x.dtype, device=x.device) / factor
+    w = true_divide(torch.arange(factor, dtype=x.dtype, device=x.device),
+                    factor)
     seg = left[..., None] * (1 - w) + right[..., None] * w
     out = seg.reshape(*x.shape[:-1], (n - 1) * factor)
     out = torch.cat([out, x[..., -1:]], dim=-1)

@@ -5,7 +5,8 @@ GOLF part of ``golf_tpu.models.filters``).
   all-pole filter over the whole clip (``ops.allpole.allpole``).
 * ``LTVMinimumPhaseFilter`` (GOLF-ff): constant-coefficient LPC per
   overlapping window (``ops.allpole.allpole_const``) + windowed overlap-add.
-* ``LTVZeroPhaseFIRFilter``: frame-wise zero-phase FIR noise shaping by FFT.
+* ``LTVZeroPhaseFIRFilter``: frame-wise zero-phase FIR noise shaping by FFT;
+  ``LTVZeroPhaseFIRFilterPrecise`` its sample-wise twin (GOLF-fs).
 * ``LTIAcousticFilter``: identity + strictly causal learned taps.
 """
 
@@ -141,15 +142,15 @@ class LTVMinimumPhaseFilter(LTVMinimumPhaseFilterPrecise):
         return Sig(y, 1)
 
 
-class LTVZeroPhaseFIRFilter(LTVFilterInterface):
-    """Frame-wise zero-phase FIR via FFT correlation; the noise filter of
-    every shipped GOLF config."""
+class LTVZeroPhaseFIRFilterPrecise(LTVFilterInterface):
+    """Sample-wise zero-phase FIR (GOLF-fs's noise filter): the windowed
+    kernel of every frame, linearly upsampled to every sample, applied to
+    the centred window of the excitation around that sample. Plain
+    PyTorch, as ``golf_tpu`` computes it outside any kernel; the windows are
+    a strided view, the upsampled kernels (B, T, K) a tensor."""
 
-    def __init__(self, window: str = "hanning", n_mag: Optional[int] = None,
-                 conv_method: str = "fft"):
+    def __init__(self, window: str = "hanning", n_mag: Optional[int] = None):
         super().__init__()
-        if conv_method != "fft":
-            raise NotImplementedError(f"conv_method {conv_method!r}")
         self.window = window
         self.n_mag = n_mag
 
@@ -160,13 +161,36 @@ class LTVZeroPhaseFIRFilter(LTVFilterInterface):
     def ctrl(self, x: Sig) -> Tuple[Sig, ...]:
         return (x,)
 
+    def _window_kernel(self, kernel: torch.Tensor) -> torch.Tensor:
+        w = get_window_fn(self.window)(kernel.shape[-1])
+        return kernel * torch.as_tensor(w, dtype=kernel.dtype,
+                                        device=kernel.device)
+
+    def forward(self, ex: Sig, log_mag: Sig) -> Sig:
+        kernel = self._window_kernel(zero_phase_fir(log_mag.data))
+        up = Sig(kernel, log_mag.hop).reduce_hop_length()
+        k = kernel.shape[-1]
+        pl = (k - 1) // 2
+        frames = unfold(F.pad(ex.data, (pl, k - 1 - pl)), k, 1)
+        t = min(frames.shape[1], up.steps)
+        return Sig(torch.einsum("btk,btk->bt", frames[:, :t],
+                                up.data[:, :t]), 1)
+
+
+class LTVZeroPhaseFIRFilter(LTVZeroPhaseFIRFilterPrecise):
+    """Frame-wise zero-phase FIR via FFT correlation; the noise filter of
+    every shipped GOLF config."""
+
+    def __init__(self, window: str = "hanning", n_mag: Optional[int] = None,
+                 conv_method: str = "fft"):
+        super().__init__(window, n_mag)
+        if conv_method != "fft":
+            raise NotImplementedError(f"conv_method {conv_method!r}")
+
     def forward(self, ex: Sig, log_mag: Sig) -> Sig:
         hop = log_mag.hop
-        kernel = zero_phase_fir(log_mag.data)
+        kernel = self._window_kernel(zero_phase_fir(log_mag.data))
         k = kernel.shape[-1]
-        kernel = kernel * torch.as_tensor(get_window_fn(self.window)(k),
-                                          dtype=kernel.dtype,
-                                          device=kernel.device)
         padding = (k - 1) // 2
         frames = unfold(F.pad(ex.data, (padding, padding)), k + hop - 1, hop)
         f = min(frames.shape[1], kernel.shape[1])

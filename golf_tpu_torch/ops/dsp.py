@@ -52,8 +52,15 @@ class _WrappedCumsum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return torch.flip(torch.cumsum(torch.flip(g, (1,)), dim=1), (1,)), \
-            None
+        return reversed_cumsum(g), None
+
+
+def reversed_cumsum(g: torch.Tensor) -> torch.Tensor:
+    """``out_s = sum_{t >= s} g_t`` along dim 1, accumulated in float64 and
+    rounded once a sample: what PyTorch's float32 cumsum does on the CPU
+    (bit for bit), where on CUDA it accumulates in float32."""
+    return torch.flip(torch.cumsum(torch.flip(g, (1,)).double(), dim=1),
+                      (1,)).to(g.dtype)
 
 
 def wrapped_cumsum(x: torch.Tensor, block: int = PHASE_BLOCK

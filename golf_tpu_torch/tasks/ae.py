@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from ..core.sig import Sig, sig_where
+from ..core.sig import Sig, sig_where, true_divide
 from ..models.ctrl import Synth
 from ..models.enc import VocoderParameterEncoderInterface, full_layout
 from ..ops.cepstrum import mcep
@@ -86,7 +86,7 @@ class VoiceAutoEncoder(nn.Module):
             enc_params = self.encoder(x, f0=f0, train=train)
             params.update(enc_params)
             if "phase" not in params:
-                params["phase"] = params["f0"] / self.sample_rate
+                params["phase"] = self.cycles(params["f0"])
             params.pop("f0", None)
             voicing_logits = params.pop("voicing_logits", None)
             if voicing_logits is not None:
@@ -94,9 +94,15 @@ class VoiceAutoEncoder(nn.Module):
                                         voicing_logits.hop)
         return self._decode(params, generator, noise), enc_params
 
+    def cycles(self, f0_in_hz: Sig) -> Sig:
+        """The phase increment a sample, f0 / sample_rate, divided on the
+        card as on the CPU."""
+        return Sig(true_divide(f0_in_hz.data, self.sample_rate),
+                   f0_in_hz.hop)
+
     def phase_from_f0(self, f0_in_hz: Sig) -> Sig:
-        return sig_where(Sig(f0_in_hz.data == 0, f0_in_hz.hop), 150.0,
-                         f0_in_hz) / self.sample_rate
+        return self.cycles(sig_where(Sig(f0_in_hz.data == 0, f0_in_hz.hop),
+                                     150.0, f0_in_hz))
 
     def predict_step(self, x: Sig, f0_in_hz: Sig,
                      generator: Optional[torch.Generator] = None,
@@ -124,15 +130,15 @@ class VoiceAutoEncoder(nn.Module):
                 random_f0 = 50.0 + 450.0 * torch.rand(
                     (f0_in_hz.shape[0], 1), generator=generator,
                     device=f0_in_hz.data.device)
-            phase = sig_where(
+            phase = self.cycles(sig_where(
                 Sig(f0_in_hz.data == 0, f0_in_hz.hop),
                 Sig(random_f0.to(f0_in_hz.data).expand(f0_in_hz.shape),
                     f0_in_hz.hop),
-                f0_in_hz) / self.sample_rate
+                f0_in_hz))
         elif self.detach_f0:
-            phase = Sig(f0_hat.data.detach(), f0_hat.hop) / self.sample_rate
+            phase = self.cycles(Sig(f0_hat.data.detach(), f0_hat.hop))
         else:
-            phase = f0_hat / self.sample_rate
+            phase = self.cycles(f0_hat)
         params["phase"] = phase
 
         voicing_logits = params.pop("voicing_logits", None)

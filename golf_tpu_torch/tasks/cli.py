@@ -58,16 +58,20 @@ def _parse_args(argv: List[str]):
 
 def trainer_kwargs(cfg: Dict) -> Dict:
     """The Trainer's arguments from a resolved config (``golf_tpu``'s
-    ``build_from_config``): Adam only, no learning-rate decay."""
+    ``build_from_config``): the optimizer's class name, lowercased, picks
+    adam, adamw or sgd (any other name adam), ``amsgrad: true`` among its
+    init_args amsgrad; ``lr_scheduler.decay`` is the learning-rate
+    decay."""
     trainer_cfg = cfg.get("trainer", {}) or {}
     opt_cfg = cfg.get("optimizer", {}) or {}
-    opt_name = opt_cfg.get("class_path", "torch.optim.Adam")
     opt_init = opt_cfg.get("init_args", {}) or {}
-    if opt_name.rsplit(".", 1)[-1].lower() != "adam" or \
-            opt_init.get("amsgrad") or cfg.get("lr_scheduler"):
-        raise NotImplementedError(
-            f"optimizer {opt_name} {opt_init} with lr_scheduler "
-            f"{cfg.get('lr_scheduler')} is not ported; Adam is")
+    opt_name = opt_cfg.get("class_path", "torch.optim.Adam")
+    opt_name = opt_name.rsplit(".", 1)[-1].lower()
+    if opt_name not in ("adam", "adamw", "sgd"):
+        opt_name = "adam"
+    if opt_init.get("amsgrad"):
+        opt_name = "amsgrad"
+    scheduler = cfg.get("lr_scheduler")
     patience, check_finite = None, True
     for cb in trainer_cfg.get("callbacks", []) or []:
         if str(cb.get("class_path", "")).endswith("EarlyStopping"):
@@ -80,6 +84,9 @@ def trainer_kwargs(cfg: Dict) -> Dict:
         restore_params_only=bool(cfg.get("ckpt_params_only", False)),
         lr=opt_init.get("lr", 1e-4),
         grad_clip=trainer_cfg.get("gradient_clip_val", 0.5),
+        optimizer=opt_name,
+        lr_decay=scheduler.get("decay") if isinstance(scheduler, dict)
+        else None,
         seed=cfg.get("seed_everything", 2434) or 2434,
         early_stop_patience=patience, check_finite=check_finite)
 

@@ -2,8 +2,9 @@
 val_loss and ``last``, each one ``torch.save`` file holding the model's
 state_dict (parameters, the batch norms' statistics, the running min/max),
 the optimizer's state and the step. Names follow ``golf_tpu``:
-``ckpt/last`` and ``ckpt/step=<n>-val_loss=<v>``. Converting an orbax
-checkpoint of ``golf_tpu`` is not ported yet.
+``ckpt/last`` and ``ckpt/step=<n>-val_loss=<v>``. An orbax checkpoint of
+``golf_tpu`` converts to this layout without the optimizer's state
+(``tools/orbax_to_torch.py``), which restores params-only.
 """
 
 from __future__ import annotations
@@ -68,6 +69,9 @@ class CheckpointManager:
 def restore_into(path: str, task: torch.nn.Module, optimizer) -> int:
     """Model, optimizer state and step; returns the step."""
     state = load(path, map_location=next(task.parameters()).device)
+    if "optimizer" not in state:
+        raise ValueError(f"{path} holds no optimizer state: restore it "
+                         f"params-only (ckpt_params_only=true)")
     task.load_state_dict(state["model"])
     optimizer.load_state_dict(state["optimizer"])
     return int(state["step"])
@@ -75,6 +79,8 @@ def restore_into(path: str, task: torch.nn.Module, optimizer) -> int:
 
 def restore_params_into(path: str, task: torch.nn.Module) -> None:
     """The model's state only (fresh optimizer and step): for evaluation,
-    and for finetuning under another optimizer."""
+    and for finetuning under another optimizer or with the sample-wise
+    filters (GOLF-ff and GOLF-ss share one layout). Strict: a key that
+    differs raises."""
     state = load(path, map_location=next(task.parameters()).device)
     task.load_state_dict(state["model"])

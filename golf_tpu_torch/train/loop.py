@@ -1,7 +1,8 @@
 """Training loop on one device (counterpart of ``golf_tpu.train.loop``).
 
-``ClippedAdam`` is ``golf_tpu``'s ``make_optimizer``:
-``apply_if_finite(chain(clip_by_global_norm(0.5), adam(lr)), 100)``.
+``ClippedOptimizer`` is ``golf_tpu``'s ``make_optimizer``: adam, adamw, sgd
+or amsgrad, with an optional learning-rate decay, under
+``apply_if_finite(chain(clip_by_global_norm(0.5), ...), 100)``.
 ``Trainer`` runs ``VoiceAutoEncoder.training_step`` for ``max_steps``,
 validates every ``val_every_steps`` and at the end, keeps the top-k
 checkpoints by val_loss and ``last``, logs JSONL metrics, aborts on a
@@ -36,37 +37,99 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t)) for t in tensors))
 
 
-class ClippedAdam:
-    """Adam with a global-norm clip that skips non-finite updates.
+OPTIMIZERS = ("adam", "adamw", "sgd", "amsgrad")
 
-    * Adam: ``torch.optim.Adam`` (betas 0.9/0.999, eps 1e-8), whose update
-      equals optax's ``adam`` at ``eps_root = 0``.
+
+class ClippedOptimizer:
+    """``golf_tpu``'s ``make_optimizer``: ``apply_if_finite(chain(
+    clip_by_global_norm(grad_clip), <optax optimizer>(schedule)), 100)``,
+    written out so that the update is optax's, not ``torch.optim``'s.
+
+    * ``adam``: moments with b1 0.9 and b2 0.999, the direction
+      ``mu_hat / (sqrt(nu_hat) + 1e-8)``, bias-corrected at the count of
+      updates applied.
+    * ``adamw``: adam's direction plus 1e-4 times the parameter (optax's
+      default decay, which ``golf_tpu`` keeps; ``torch.optim.AdamW``'s is
+      1e-2), scaled by the learning rate with it.
+    * ``amsgrad``: divides by the running max of the bias-corrected second
+      moment (``torch.optim.Adam(amsgrad=True)`` keeps the max of the raw
+      moment and corrects that).
+    * ``sgd``: the gradient itself; optax's sgd has no momentum.
+    * The learning rate is ``lr``, or with ``lr_decay`` the schedule
+      ``lr / (1 + lr_decay * count)``, ``count`` the updates applied before
+      this one (0 at the first).
     * Clip: when the global norm g of the gradients is at least
       ``grad_clip``, each gradient becomes ``t / g * grad_clip``
       (``optax.clip_by_global_norm``; ``clip_grad_norm_`` would add 1e-6).
-    * Non-finite gradients: the step is skipped and the optimizer's state
-      kept, as ``optax.apply_if_finite`` does; after more than
-      ``MAX_CONSECUTIVE_ERRORS`` (100) skips in a row the step is applied.
+    * Non-finite gradients: the step is skipped and the state kept, the
+      schedule's count included, as ``optax.apply_if_finite`` does; after
+      more than ``MAX_CONSECUTIVE_ERRORS`` (100) skips in a row the step is
+      applied.
+
+    A parameter without a gradient takes a zero one, as in optax.
     """
 
     MAX_CONSECUTIVE_ERRORS = 100
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+    WEIGHT_DECAY = 1e-4
+    _MOMENTS = {"adam": ("mu", "nu"), "adamw": ("mu", "nu"),
+                "amsgrad": ("mu", "nu", "nu_max"), "sgd": ()}
 
     def __init__(self, params: Iterable[nn.Parameter], lr: float = 1e-4,
-                 grad_clip: float = 0.5):
+                 grad_clip: float = 0.5, optimizer: str = "adam",
+                 lr_decay: Optional[float] = None):
+        if optimizer not in OPTIMIZERS:
+            raise ValueError(f"optimizer {optimizer!r} is not one of "
+                             f"{OPTIMIZERS}")
         self.params = list(params)
-        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999),
-                                     eps=1e-8)
+        self.lr = lr
         self.grad_clip = grad_clip
+        self.optimizer = optimizer
+        self.lr_decay = lr_decay
+        self.count = 0
         self.notfinite_count = 0
+        self.moments = {name: [torch.zeros_like(p) for p in self.params]
+                        for name in self._MOMENTS[optimizer]}
 
     def zero_grad(self) -> None:
-        self.adam.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
+
+    def learning_rate(self) -> float:
+        if self.lr_decay:
+            return self.lr / (1.0 + self.lr_decay * self.count)
+        return self.lr
+
+    def _direction(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The update before the learning rate scales it."""
+        if self.optimizer == "sgd":
+            return grads
+        mu, nu = self.moments["mu"], self.moments["nu"]
+        b1, b2 = self.B1, self.B2
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+        n = self.count + 1
+        mu_hat = torch._foreach_div(mu, 1 - b1 ** n)
+        nu_hat = torch._foreach_div(nu, 1 - b2 ** n)
+        if self.optimizer == "amsgrad":
+            torch._foreach_maximum_(self.moments["nu_max"], nu_hat)
+            nu_hat = self.moments["nu_max"]
+        denom = torch._foreach_sqrt(nu_hat)
+        torch._foreach_add_(denom, self.EPS)
+        direction = torch._foreach_div(mu_hat, denom)
+        if self.optimizer == "adamw":
+            torch._foreach_add_(direction, [p.detach() for p in self.params],
+                                alpha=self.WEIGHT_DECAY)
+        return direction
 
     @torch.no_grad()
     def step(self) -> Dict[str, torch.Tensor]:
         """Clip and apply the gradients in ``.grad``; returns the raw
         gradients' global norm and whether the step was applied."""
-        grads = [p.grad for p in self.params if p.grad is not None]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in self.params]
         g_norm = global_norm(grads)
         finite = bool(torch.stack([torch.isfinite(g).all()
                                    for g in grads]).all())
@@ -76,19 +139,29 @@ class ClippedAdam:
         if applied:
             if self.grad_clip and self.grad_clip > 0:
                 keep = g_norm < self.grad_clip
-                for g in grads:
-                    g.copy_(torch.where(keep, g,
-                                        g / g_norm * self.grad_clip))
-            self.adam.step()
+                grads = [torch.where(keep, g, g / g_norm * self.grad_clip)
+                         for g in grads]
+            torch._foreach_add_([p.detach() for p in self.params],
+                                self._direction(grads),
+                                alpha=-self.learning_rate())
+            self.count += 1
         return {"grad_norm": g_norm,
                 "update_applied": torch.tensor(float(applied))}
 
     def state_dict(self) -> Dict:
-        return {"adam": self.adam.state_dict(),
-                "notfinite_count": self.notfinite_count}
+        return {"optimizer": self.optimizer, "count": self.count,
+                "notfinite_count": self.notfinite_count,
+                "moments": self.moments}
 
     def load_state_dict(self, state: Dict) -> None:
-        self.adam.load_state_dict(state["adam"])
+        if state["optimizer"] != self.optimizer:
+            raise ValueError(
+                f"the checkpoint's optimizer state is {state['optimizer']}'s,"
+                f" not {self.optimizer}'s: restore it params-only")
+        for name, tensors in state["moments"].items():
+            for own, saved in zip(self.moments[name], tensors):
+                own.copy_(saved)
+        self.count = int(state["count"])
         self.notfinite_count = int(state["notfinite_count"])
 
 
@@ -119,7 +192,8 @@ class Trainer:
                  log_every_steps: int = 50, seed: int = 2434,
                  save_top_k: int = 3, check_finite: bool = True,
                  early_stop_patience: Optional[int] = None,
-                 restore_params_only: bool = False):
+                 restore_params_only: bool = False,
+                 optimizer: str = "adam", lr_decay: Optional[float] = None):
         self.task = task
         self.device = next(task.parameters()).device
         self.run_dir = run_dir
@@ -134,8 +208,8 @@ class Trainer:
         self.early_stop_patience = early_stop_patience
         self._best_train_loss = float("inf")
         self._steps_since_best = 0
-        self.optimizer = ClippedAdam(trainable_parameters(task), lr,
-                                     grad_clip)
+        self.optimizer = ClippedOptimizer(trainable_parameters(task), lr,
+                                          grad_clip, optimizer, lr_decay)
         self.step = 0
         # the random f0 of unvoiced frames and the noise of training steps
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
@@ -162,7 +236,8 @@ class Trainer:
 
     # -- steps ------------------------------------------------------------
     def train_step(self, x: Sig, f0: Sig) -> Dict[str, torch.Tensor]:
-        """One Adam step; returns the step's metrics (device tensors)."""
+        """One optimizer step; returns the step's metrics (device
+        tensors)."""
         self.task.train()
         self.optimizer.zero_grad()
         loss, metrics = self.task.training_step(x, f0, train=True,

@@ -395,3 +395,93 @@ def test_cuda_wrapped_cumsum_error_does_not_grow(cuda_device):
     ref = torch.remainder(torch.cumsum(torch.from_numpy(inc).double(), 1), 1)
     d = (got - ref).abs()
     assert torch.minimum(d, 1 - d).max().item() <= 4e-6
+
+
+@pytest.mark.cuda
+def test_cuda_phase_increments_equal_the_cpus(cuda_device):
+    """f0 / sample_rate on the card, as ``phase_from_f0`` and the training
+    step's ``prepare_training`` form it, and the oscillator's 4x oversampled
+    increments, equal the CPU's bit for bit at (4, 144 000): a true
+    division on both devices (a product with float32's 1/24000 gave 12% of
+    the oversampled increments another value)."""
+    from golf_tpu_torch.config.registry import load_config
+    from golf_tpu_torch.core.sig import Sig
+    from golf_tpu_torch.tasks.ae import build_voice_autoencoder
+
+    cfg = load_config(["cfg/ae/synthetic.yaml"], "cfg/ae/decoder/golf.yaml")
+    torch.manual_seed(0)
+    cpu_task = build_voice_autoencoder(cfg["model"]["init_args"],
+                                       device="cpu")
+    card_task = build_voice_autoencoder(cfg["model"]["init_args"],
+                                        device="cpu")
+    card_task.load_state_dict(cpu_task.state_dict())
+    card_task.to(cuda_device)
+    rng = np.random.default_rng(0)
+    f0 = rng.uniform(60.0, 500.0, (4, 144_000)).astype(np.float32)
+    f0[:, 1000:3000] = 0.0
+    x = (0.1 * rng.standard_normal((4, 144_000))).astype(np.float32)
+    random_f0 = torch.tensor([[90.0], [310.0], [55.5], [499.0]])
+    phases = {}
+    for dev, task in (("cpu", cpu_task), ("cuda", card_task)):
+        xs = Sig(torch.from_numpy(x).to(dev), 1)
+        f0s = Sig(torch.from_numpy(f0).to(dev), 1)
+        task.eval()
+        with torch.no_grad():
+            served = task.phase_from_f0(f0s).data
+            task.train()
+            params, _, _ = task.prepare_training(
+                xs, f0s, random_f0=random_f0.to(dev))
+        up = Sig(served / 4, 4).reduce_hop_length().data
+        phases[dev] = [t.cpu() for t in (served, params["phase"].data, up)]
+    for got, ref in zip(phases["cuda"], phases["cpu"]):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapped_cumsum_cotangent_within_the_cpus_error(cuda_device):
+    """``wrapped_cumsum``'s cotangent, the reversed cumsum of g, at the
+    training step's oversampled length (64, 192 000): on the card no
+    further from a float64 reversed cumsum than the CPU's (both accumulate
+    in float64 and round once a sample; a float32 accumulation on the card
+    drifted by orders of magnitude more)."""
+    from golf_tpu_torch.ops.dsp import wrapped_cumsum
+    rng = np.random.default_rng(2)
+    g = torch.from_numpy(rng.standard_normal((64, 192_000))
+                         .astype(np.float32))
+    x = torch.from_numpy(rng.uniform(0.001, 0.005, (64, 192_000))
+                         .astype(np.float32))
+    ref = torch.flip(torch.cumsum(torch.flip(g, (1,)).double(), 1), (1,))
+    errs = {}
+    for dev in ("cpu", cuda_device):
+        xd = x.to(dev).requires_grad_()
+        (dx,) = torch.autograd.grad(wrapped_cumsum(xd), xd, g.to(dev))
+        errs[str(dev)] = (dx.cpu().double() - ref).abs().max().item()
+    assert errs["cuda"] <= errs["cpu"] * (1 + 1e-6), errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["sgd", "amsgrad"])
+def test_cuda_optimizer_step_equals_the_cpus(cuda_device, optimizer):
+    """Two steps of ``ClippedOptimizer`` (the first clipped) on the card
+    against the CPU: within 1e-6 of max|param| (foreach kernels in fp32,
+    the same operations)."""
+    from golf_tpu_torch.train.loop import ClippedOptimizer
+    rng = np.random.default_rng(3)
+    shapes = [(64, 33), (7,)]
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) * scale
+              for s in shapes] for scale in (2.0, 0.01)]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = [torch.nn.Parameter(torch.from_numpy(p.copy()).to(dev))
+                  for p in p0]
+        opt = ClippedOptimizer(params, lr=0.01, grad_clip=0.5,
+                               optimizer=optimizer, lr_decay=0.5)
+        for g in grads:
+            for p, a in zip(params, g):
+                p.grad = torch.from_numpy(a.copy()).to(dev)
+            opt.step()
+        out[str(dev)] = [p.detach().cpu() for p in params]
+    scale = max(p.abs().max().item() for p in out["cpu"])
+    for got, ref in zip(out["cuda"], out["cpu"]):
+        assert (got - ref).abs().max().item() <= 1e-6 * scale

@@ -93,6 +93,37 @@ def test_wrapped_cumsum_matches_over_long_signal():
     assert out.min() >= 0 and out.max() < 1
 
 
+def test_wrapped_cumsum_cotangent_on_the_cpu_is_unchanged():
+    """The cotangent accumulates in float64 and rounds once a sample on
+    every device; on the CPU that is what the float32 reversed cumsum it
+    replaces did, bit for bit."""
+    r = _rng(7)
+    g = r.standard_normal((3, 50_000)).astype(np.float32)
+    x = torch.from_numpy(r.uniform(1e-3, 5e-3, (3, 50_000))
+                         .astype(np.float32)).requires_grad_()
+    (dx,) = torch.autograd.grad(tdsp.wrapped_cumsum(x), x, _t(g))
+    old = torch.flip(torch.cumsum(torch.flip(_t(g), (1,)), dim=1), (1,))
+    assert dx.dtype == torch.float32 and torch.equal(dx, old)
+    assert torch.equal(tdsp.reversed_cumsum(_t(g)), old)
+
+
+@pytest.mark.parametrize("d", [24000, 240, 4, 3])
+def test_true_divide_is_the_cpus_division(d):
+    """``true_divide`` (the phase increment f0 / sample_rate, and
+    ``linear_upsample``'s weights) gives on the CPU the bits of ``x / d``,
+    the form it replaces, and golf_tpu's: a correctly rounded float32
+    division."""
+    r = _rng(d)
+    x = r.uniform(0.0, 1000.0, (4, 9_000)).astype(np.float32)
+    out = tsig.true_divide(_t(x), d)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, _t(x) / d)
+    np.testing.assert_array_equal(out.numpy(),
+                                  np.asarray(_j(x) / d))
+    w = tsig.true_divide(torch.arange(d, dtype=torch.float32), d)
+    assert torch.equal(w, torch.arange(d, dtype=torch.float32) / d)
+
+
 @pytest.mark.parametrize("t,q", [(4801, 4), (1000, 2), (999, 3)])
 def test_decimate_matches(t, q):
     x = _rng(t).standard_normal((2, t)).astype(np.float32)

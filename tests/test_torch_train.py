@@ -10,7 +10,7 @@
 * three Adam steps with the clip against golf_tpu's ``make_optimizer``;
 * the three repairs of the encoder (the LSTM's second bias, BatchNorm's
   running variance, the ``train`` flag against the module's mode);
-* ``ClippedAdam`` against optax on toy tensors, checkpoints and the
+* ``ClippedOptimizer`` against optax on toy tensors, checkpoints and the
   ``fit``/``validate`` CLI, and the port's import rule.
 """
 
@@ -35,7 +35,7 @@ from golf_tpu_torch.bridge import flax_to_state_dict, load_flax_variables
 from golf_tpu_torch.config.registry import load_config as t_load_config
 from golf_tpu_torch.core.sig import Sig as TSig
 from golf_tpu_torch.tasks.ae import build_voice_autoencoder as t_build
-from golf_tpu_torch.train.loop import (ClippedAdam, global_norm,
+from golf_tpu_torch.train.loop import (ClippedOptimizer, global_norm,
                                        trainable_parameters)
 
 torch.set_num_threads(1)
@@ -221,7 +221,7 @@ def check_adam_trajectory(jax_step):
                                                    updates)}
 
     task = _port_task(jax_step)
-    opt = ClippedAdam(trainable_parameters(task), lr=LR, grad_clip=0.5)
+    opt = ClippedOptimizer(trainable_parameters(task), lr=LR, grad_clip=0.5)
     losses_t = []
     for _ in range(3):
         opt.zero_grad()
@@ -338,7 +338,7 @@ def test_clipped_adam_matches_optax():
     params_j = [jnp.asarray(p) for p in p0]
     state = tx.init(params_j)
     params_t = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
-    opt = ClippedAdam(params_t, lr=0.01, grad_clip=0.5)
+    opt = ClippedOptimizer(params_t, lr=0.01, grad_clip=0.5)
     for g in grads:
         upd, state = tx.update([jnp.asarray(a) for a in g], state, params_j)
         params_j = optax.apply_updates(params_j, upd)
@@ -353,7 +353,7 @@ def test_clipped_adam_matches_optax():
 
 def test_clipped_adam_applies_after_100_skips():
     p = torch.nn.Parameter(torch.ones(2))
-    opt = ClippedAdam([p], lr=0.1, grad_clip=0.5)
+    opt = ClippedOptimizer([p], lr=0.1, grad_clip=0.5)
     for i in range(100):
         p.grad = torch.full((2,), float("nan"))
         assert not bool(opt.step()["update_applied"])

@@ -20,7 +20,10 @@ synthetic items of 2 s:
 * the optimizer step (clip + Adam), by events around it;
 * a ``torch.profiler`` window over 3 steps: the device's busy time (the
   union of its kernel intervals) over the window's wall time, and the
-  kernels that take the most device time (written in full to ``--out``).
+  kernels that take the most device time (written in full to ``--out``);
+* the step's time with ``wrapped_cumsum``'s cotangent accumulated in
+  float32 (the port's form before) and in float64 (as shipped), in turns
+  float32, float64, float64, float32 (median of ``--steps`` each).
 
 TF32 is off, as in ``chip_smoke.py``. Needs a CUDA device.
 """
@@ -41,6 +44,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import chip_smoke  # noqa: E402
 from golf_tpu_torch import kernels  # noqa: E402
 from golf_tpu_torch.core.sig import Sig  # noqa: E402
+from golf_tpu_torch.ops import dsp  # noqa: E402
 from golf_tpu_torch.train.loop import Trainer  # noqa: E402
 from profile_torch_serve import busy_share  # noqa: E402
 
@@ -136,6 +140,27 @@ class StepTimer:
         return out
 
 
+def cotangent_forms(timer: "StepTimer", trainer, xs, f0s, steps: int
+                    ) -> None:
+    """The step's median time under each form of ``wrapped_cumsum``'s
+    cotangent, in turns."""
+    shipped = dsp.reversed_cumsum
+    forms = {"float32": lambda g: torch.flip(torch.cumsum(
+        torch.flip(g, (1,)), dim=1), (1,)), "float64": shipped}
+    out = []
+    try:
+        for label in ("float32", "float64", "float64", "float32"):
+            dsp.reversed_cumsum = forms[label]
+            reps = [timer.step(trainer, xs, f0s)["step"]
+                    for _ in range(steps)]
+            out.append(f"{label} {statistics.median(reps):.2f}")
+    finally:
+        dsp.reversed_cumsum = shipped
+    print(f"profile_train {trainer.task.decoder.end_filter.__class__.__name__}"
+          f": step ms (median of {steps}) with the cotangent of "
+          f"wrapped_cumsum accumulated in " + ", ".join(out))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/profile_train")
@@ -162,6 +187,7 @@ def main() -> int:
         torch.cuda.synchronize()
         timer = StepTimer(task)
         reps = [timer.step(trainer, xs, f0s) for _ in range(args.steps)]
+        cotangent_forms(timer, trainer, xs, f0s, args.steps)
         timer.remove()
         stages = {k: statistics.median(r.get(k, 0.0) for r in reps)
                   for k in reps[0]}

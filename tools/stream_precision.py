@@ -19,14 +19,18 @@ through ``wrapped_cumsum`` on the CPU (float32 block offsets and mod-1
 scan), which shares the offline decoder's phase rounding.
 
 Then the served audio's card-vs-CPU error (``chip_smoke.py``'s serve
-check: one 2 s request, same weights and noise) for each decoder, with
-the wrapped phase's block sums accumulated in float32 on the card
-(``wrapped_cumsum`` before its float64 block sums) and in float64 (as
-shipped), split into the encoder's ctrl rows, the wrapped phase, the
-harmonic source and the decoder alone on the CPU's ctrl, and the wrapped
-phase's difference split into the summation's and the increments'. Last,
-``wrapped_cumsum``'s forward time at the training shape with either
-block sum.
+check: one 2 s request, same weights and noise) for each decoder, with the
+phase increment f0 / sample_rate (and ``linear_upsample``'s weights) formed
+on the card as a product with the divisor's rounded reciprocal (PyTorch's
+``tensor / python_number`` on CUDA; the port's form before
+``core.sig.true_divide``) and as a true division (as shipped), split into
+the encoder's ctrl rows, the wrapped phase, the harmonic source and the
+decoder alone on the CPU's ctrl, and the wrapped phase's difference split
+into the summation's and the increments'. Last, ``wrapped_cumsum``'s
+cotangent (the reversed cumsum) at the training shape: its error against
+a float64 reversed cumsum on the card accumulated in float32 (the port's
+form before) and in float64 (as shipped), beside the CPU's, and the two
+forms' times on the card.
 
 TF32 is off. Needs a CUDA device.
 """
@@ -40,30 +44,29 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
-import torch.nn.functional as F  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from golf_tpu_torch import kernels  # noqa: E402
+from golf_tpu_torch.core import sig  # noqa: E402
 from golf_tpu_torch.core.sig import Sig  # noqa: E402
 from golf_tpu_torch.models import synth  # noqa: E402
+from golf_tpu_torch.tasks import ae  # noqa: E402
 from golf_tpu_torch.ops import dsp  # noqa: E402
 from golf_tpu_torch.serve import GOLFStream, chunk_ctrl  # noqa: E402
 
 
-def wrapped_cumsum_f32_blocks(x: torch.Tensor, block: int = dsp.PHASE_BLOCK
-                              ) -> torch.Tensor:
-    """``dsp.wrapped_cumsum``'s forward with each block's running sum in
-    the input's dtype: on CUDA a float32 accumulation, the port's form
-    before its block sums were accumulated in float64."""
-    b, t = x.shape
-    nb = -(-t // block)
-    local = torch.cumsum(F.pad(x, (0, nb * block - t)).reshape(b, nb, block),
-                         dim=-1)
-    off = dsp._mod1_scan(torch.remainder(local[..., -1], 1))
-    off_excl = torch.cat([torch.zeros_like(off[:, :1]), off[:, :-1]], dim=1)
-    out = torch.remainder(torch.remainder(local, 1) + off_excl[..., None], 1)
-    return out.reshape(b, nb * block)[:, :t]
+def product_divide(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` with ``d`` a Python number: on CUDA a product with the
+    rounded reciprocal of ``d``."""
+    return x / d
+
+
+def reversed_cumsum_f32(g: torch.Tensor) -> torch.Tensor:
+    """The cotangent in the input's dtype: on CUDA a float32
+    accumulation."""
+    return torch.flip(torch.cumsum(torch.flip(g, (1,)), dim=1), (1,))
 
 
 def rel(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -73,7 +76,7 @@ def rel(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 def served_vs_cpu(decoder: str, dev: torch.device) -> None:
     """``chip_smoke.phase_serve``'s card-vs-CPU check, split by stage, for
-    the card's block sums in float32 and in float64."""
+    the card's phase increments as a product and as a true division."""
     task = chip_smoke.seeded_model(decoder, dev)
     x, f0 = chip_smoke.requests(chip_smoke.BATCH, chip_smoke.SECONDS)
     task.init_running_stats(Sig(x.to(dev), 1), Sig(f0.to(dev), 1))
@@ -113,11 +116,11 @@ def served_vs_cpu(decoder: str, dev: torch.device) -> None:
             cpu_task, Sig(xc, 1), Sig(f0c, 1), noise)
         ctrl_on_card = {k_: tuple(Sig(s.data.to(dev), s.hop) for s in v)
                         for k_, v in ctrl_c.items() if isinstance(v, tuple)}
-        shipped = synth.wrapped_cumsum
+        shipped = sig.true_divide
         try:
-            for label, fn in (("float32", wrapped_cumsum_f32_blocks),
-                              ("float64", shipped)):
-                synth.wrapped_cumsum = fn
+            for label, fn in (("reciprocal product", product_divide),
+                              ("true division", shipped)):
+                sig.true_divide = ae.true_divide = fn
                 y_g, ctrl_g, up_g, w_g, harm_g, dec_g = parts(
                     task, Sig(xc.to(dev), 1), Sig(f0c.to(dev), 1),
                     noise.to(dev), ctrl_on_card)
@@ -126,7 +129,7 @@ def served_vs_cpu(decoder: str, dev: torch.device) -> None:
                                                                tuple)
                                for a, b in zip(ctrl_g[key], ctrl_c[key]))
                 print(f"served {decoder}, {chip_smoke.CHECK_SECONDS:g} s, card "
-                      f"({label} block sums) vs "
+                      f"({label}) vs "
                       f"CPU: audio {rel(y_g, y_c):.3e} of max|y|; its "
                       f"ctrl rows {ctrl_err:.3e} of each leaf's max-abs; "
                       f"wrapped phase {cycles(w_g, w_c):.3e} cycles; on the "
@@ -138,9 +141,9 @@ def served_vs_cpu(decoder: str, dev: torch.device) -> None:
                 # increments (the summation alone), and the increments'
                 # own difference, as a relative bias and as the float64
                 # running sum of their difference (the drift, in cycles)
-                own = cycles(w_g, shipped(up_g.cpu()))
+                own = cycles(w_g, synth.wrapped_cumsum(up_g.cpu()))
                 d_inc = up_g.double().cpu() - up_c.double()
-                print(f"  wrapped phase, card ({label} block sums) vs the "
+                print(f"  wrapped phase, card ({label}) vs the "
                       f"CPU's on the card's increments: {own:.3e} cycles; "
                       f"increments card vs CPU: mean relative difference "
                       f"{(d_inc / up_c.double()).mean().item():.3e}, "
@@ -149,20 +152,30 @@ def served_vs_cpu(decoder: str, dev: torch.device) -> None:
                       f"{torch.cumsum(d_inc, 1).abs().max().item():.3e} "
                       f"cycles")
         finally:
-            synth.wrapped_cumsum = shipped
+            sig.true_divide = ae.true_divide = shipped
 
 
-def cumsum_cost(dev: torch.device) -> None:
-    """``wrapped_cumsum``'s forward at the training step's oversampled phase
-    (B = 64 x 2 s at 96 kHz), float32 against float64 block sums: CUDA
-    event times with the stream held busy (``chip_smoke.cuda_ms``)."""
-    gen = torch.Generator(dev).manual_seed(5)
-    inc = 0.002 + 0.003 * torch.rand((64, 192000), generator=gen,
-                                      device=dev)
-    with torch.inference_mode():
-        t32 = chip_smoke.cuda_ms(lambda: wrapped_cumsum_f32_blocks(inc), 20)
-        t64 = chip_smoke.cuda_ms(lambda: dsp.wrapped_cumsum(inc), 20)
-    print(f"wrapped_cumsum forward at (64, 192000): float32 block sums "
+def cumsum_backward(dev: torch.device) -> None:
+    """``wrapped_cumsum``'s cotangent at the training step's oversampled
+    length (B = 64 x 2 s at 96 kHz) on a seeded normal g: each form's
+    largest error against a float64 reversed cumsum, absolute and of the
+    reference's max-abs, on the card and on the CPU; the card's times
+    (CUDA events with the stream held busy, ``chip_smoke.cuda_ms``)."""
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (64, 192000)).astype(np.float32))
+    ref = torch.flip(torch.cumsum(torch.flip(g, (1,)).double(), 1), (1,))
+    scale = ref.abs().max().item()
+    gd = g.to(dev)
+    for label, fn, x in (("card float32", reversed_cumsum_f32, gd),
+                         ("card float64", dsp.reversed_cumsum, gd),
+                         ("CPU float32 cumsum", reversed_cumsum_f32, g),
+                         ("CPU float64", dsp.reversed_cumsum, g)):
+        err = (fn(x).double().cpu() - ref).abs().max().item()
+        print(f"wrapped_cumsum cotangent at (64, 192000), {label}: max err "
+              f"{err:.3e}, {err / scale:.3e} of max|ref| ({scale:.1f})")
+    t32 = chip_smoke.cuda_ms(lambda: reversed_cumsum_f32(gd), 20)
+    t64 = chip_smoke.cuda_ms(lambda: dsp.reversed_cumsum(gd), 20)
+    print(f"wrapped_cumsum cotangent at (64, 192000) on the card: float32 "
           f"{t32:.4f} ms, float64 {t64:.4f} ms (CUDA events)")
 
 
@@ -286,7 +299,7 @@ def main() -> int:
                ctrl["harm_oscillator_params"][0], dec.room_filter, y_off)
     for decoder in ("golf", "golf-precise"):
         served_vs_cpu(decoder, dev)
-    cumsum_cost(dev)
+    cumsum_backward(dev)
     print(f"card: {card}")
     return 0
 
