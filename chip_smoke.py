@@ -8,18 +8,24 @@ Phases (any failure exits non-zero):
    every phase, the train phase's step times included);
 2. build: the seven CUDA kernel entry points of the serving and training
    paths (four sources, one ``nvcc`` each, started together), from
-   ``golf_tpu_torch/kernels/csrc``, with ``ptxas``'s registers and spills;
+   ``golf_tpu_torch/kernels/csrc``, and ``tools/lookup_unsplit.cu`` beside
+   them, with ``ptxas``'s registers and spills;
 3. kernels vs their plain PyTorch versions, on the card, at the shapes the
    serving path (B1, B2 and its adjoint entry, B4 and its adjoint entry)
    and the training path (all seven) give them, with each one's time, its
-   plain version's time and its roofline bound; B2 and its adjoint entry
-   also against their float64 mirrors (``allpole_const_scan64``,
-   ``allpole_const_adjoint_scan64``), and the adjoint entry beside the
-   composite it replaces (``golf_tpu``'s flips and shifted dots around B2,
-   ``composite_ms``); B4 and its adjoint entry also against
-   ``allpole_chunked_plain`` (the same chunked float64 algorithm in plain
-   PyTorch) and the adjoint entry bit for bit against the forward entry on
-   the materialised flipped, column-shifted operands; then each autograd
+   plain version's time and its roofline bound; B1 also at a push's window,
+   each of its three shapes with ``F.grid_sample``'s time, the floor of a
+   back-to-back launch (a one-element ``zero_()``), the split of its grid
+   (``ops.lookup.plan_split``) and the time of B1 before the split (one
+   CTA a block, ``tools/lookup_unsplit.cu``, built with the kernels);
+   B2 and its adjoint entry also against their float64 mirrors
+   (``allpole_const_scan64``, ``allpole_const_adjoint_scan64``), and the
+   adjoint entry beside the composite it replaces (``golf_tpu``'s flips
+   and shifted dots around B2, ``composite_ms``); B4 and its adjoint
+   entry also against ``allpole_chunked_plain`` (the same chunked float64
+   algorithm in plain PyTorch) and the adjoint entry bit for bit against
+   the forward entry on the materialised flipped, column-shifted operands;
+   then each autograd
    Function's backward through the kernels against the same Function on the
    plain versions, on the same cotangent;
    resonance: on resonant filters (capped at 0.95 and uncapped) B4's error
@@ -33,10 +39,14 @@ Phases (any failure exits non-zero):
    must move; one 2 s request is held against the port's own CPU run;
 5. train: the same two models take 3 Adam steps each through the port's
    ``Trainer`` on B = 64 synthetic items of 2 s; every loss must be finite
-   and B3a, B3b, B2 and B2's adjoint entry (GOLF-ff) or B3a, B3b, B4 and
-   B4's adjoint entry (GOLF-ss) must launch once each a step; one step at
-   B = 2 x 1 s (dropout 0, train mode) is held against the port's CPU run,
-   loss and every gradient;
+   and B1, B3b, B2 and B2's adjoint entry (GOLF-ff) or B1, B3b, B4 and
+   B4's adjoint entry (GOLF-ss) must launch once each a step, B3a never
+   (the phase of the true f0 needs no gradient); one step at B = 2 x 1 s
+   (dropout 0, train mode) is held against the port's CPU run, loss and
+   every gradient; then (phase train_f0) GOLF-ff with the phase from the
+   encoder's own f0 (``learn_f0``, no f0 conditioning,
+   ``train_with_true_f0`` false, not detached) takes 2 Adam steps: B3a and
+   B3b once each a step, B1 never;
 6. stream_kernels: B4's initial-state entry (``zi``, streaming) at
    (4, 2400, 22) and (1, 2400, 22) against its plain version (golf_tpu's
    streaming form), a float64 scan from the same state, with a null state
@@ -59,21 +69,24 @@ Phases (any failure exits non-zero):
    of synthetic voices) under ``runs/``, and ``autoencode_torch.py fit
    --config cfg/ae/vctk.yaml --model cfg/ae/decoder/golf.yaml`` on it for 3
    steps at B = 64 x 2 s; the first batch on the card equal to the CPU
-   ``VCTK`` module's bit for bit; B3a, B3b, B2 and B2's adjoint entry once
-   a step;
+   ``VCTK`` module's bit for bit; B1, B3b, B2 and B2's adjoint entry once
+   a step, B3a never;
 10. fs: GOLF-fs, that checkpoint params-only in the sample-wise filters of
     ``convert2samplewise(golf.yaml)``: the CLI's ``test``, then
     ``test_step`` on the 64-segment test split card vs CPU within 1e-5
     relative, with its time and peak memory;
 11. finetune: the same checkpoint params-only in
     ``golf-precise-stable.yaml``, 3 SGD steps at lr 1e-5 with
-    ``coef_smooth_weight`` 0.1 through the CLI's ``fit`` (B3a, B3b, B4 and
-    B4's adjoint entry once a step), and one B = 2 x 1 s SGD step card vs
-    CPU;
+    ``coef_smooth_weight`` 0.1 through the CLI's ``fit`` (B1, B3b, B4 and
+    B4's adjoint entry once a step, B3a never), and one B = 2 x 1 s SGD
+    step card vs CPU;
 12. summary: a ``kernels:`` line, the card, then one JSON line with the
     kernel table; B1's and B3b's ``library_ms`` is ``F.grid_sample`` on the
     table padded with its first column, and its backward with respect to
-    the table (B3a's is null: no one call returns its three outputs);
+    the table (B3a's is null: no one call returns its three outputs); B1's
+    and B3a's rows carry their split, the launch floor and, under
+    ``earlier_ms``, the times of ``tools/lookup_unsplit.cu`` (before the
+    split) on the same inputs in this run;
 13. last line: ``{"ok": true, "device": {...}}``.
 Each phase's seconds are printed as it ends.
 
@@ -85,6 +98,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import io
 import json
 import re
@@ -159,6 +173,19 @@ DISK_TEST_SECONDS = 5.5     # 8 segments a file: the test split is 64
 DISK_STEPS = 3
 FINETUNE_LR = 1e-5          # the SGD finetune's recipe (docs/BENCH.md)
 FINETUNE_SMOOTH = 0.1
+# B1 and B3a before their grid was split (one CTA a (batch, block)), built
+# from tools/lookup_unsplit.cu with the kernels and timed beside B1 and B3a
+# as ``earlier_ms``; they are on no path of the port
+_UNSPLIT_SOURCE = str(Path(__file__).resolve().parent / "tools"
+                      / "lookup_unsplit.cu")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+UNSPLIT = kernels.CudaKernel(
+    "lookup_unsplit", _UNSPLIT_SOURCE, "golf_lookup_unsplit_fwd",
+    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], extra_flags=("--fmad=false",))
+UNSPLIT_RES = kernels.CudaKernel(
+    "lookup_unsplit_res", _UNSPLIT_SOURCE, "golf_lookup_unsplit_fwd_res",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    extra_flags=("--fmad=false",))
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 and fp64
 # (outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -291,29 +318,44 @@ def _sleep_cycles_per_ms() -> float:
     return cycles / start.elapsed_time(stop)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 2, strict: bool = True) -> float:
     """Mean device milliseconds per call, by CUDA events around ``reps``
     calls. A short kernel launches faster on the device than the host can
     issue it, so the stream is first held busy (``torch.cuda._sleep``) for
     longer than the host takes to enqueue the ``reps`` calls: the events
-    then time the device's back-to-back work, not the host's launch rate."""
+    then time the device's back-to-back work, not the host's launch rate.
+    If the device reached the start event before the host had enqueued the
+    last call (the hold ran out: the SM clock rose after the sleep's
+    calibration, or the host ran slower than when it was timed), a
+    ``strict`` timing (a kernel's, or one library call's) is repeated with
+    twice the hold, up to three times, and then raises rather than report
+    the host's rate. A plain version of many launches a call
+    (``strict=False``) can fill the device's launch queue, and the host then
+    waits for the device whatever the hold: its time is the device's for
+    work fed as fast as the host can, that version's own cost."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
+    hold_ms = 2 * (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2 * host_ms * _sleep_cycles_per_ms()) + 1000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    for _ in range(4):
+        torch.cuda._sleep(int(hold_ms * _sleep_cycles_per_ms()) + 1000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held or not strict:
+            return start.elapsed_time(stop) / reps
+        hold_ms *= 2
+    raise RuntimeError("cuda_ms: the device reached the start event before "
+                       "the host had enqueued the timed calls, four times")
 
 
 def bound(nbytes: float, flops: float, fp64: bool = False):
@@ -377,9 +419,10 @@ def entry_name(mangled: str) -> str:
 
 def phase_build() -> None:
     log: dict = {}
-    seconds = kernels.build(kernels.ALL, log)
+    seconds = kernels.build(kernels.ALL + (UNSPLIT, UNSPLIT_RES), log)
     print(f"build: {seconds:.1f} s for {len(kernels.ALL)} kernels "
-          f"({', '.join(k.source for k in kernels.ALL)})")
+          f"({', '.join(k.source for k in kernels.ALL)}) and B1 and B3a "
+          f"before the split (tools/lookup_unsplit.cu)")
     for name, out in log.items():
         entry = "?"
         for ln in out.splitlines():
@@ -388,7 +431,7 @@ def phase_build() -> None:
                 entry = entry_name(m.group(1))
             elif "registers" in ln or "spill" in ln:
                 ln = ln.replace("ptxas info    :", "").strip()
-                print(f"  ptxas[{name}] {entry}: {ln}")
+                print(f"  ptxas[{Path(name).name}] {entry}: {ln}")
 
 
 def lookup_inputs(gen, shapes):
@@ -477,6 +520,81 @@ def library_lookup_row(ph, tables, hop, label, dtab=False) -> dict:
     return row
 
 
+def launch_floor_ms() -> float:
+    """The floor of a back-to-back launch: a one-element ``zero_()``, timed
+    as the kernels are."""
+    z = torch.zeros(1, device="cuda")
+    return cuda_ms(z.zero_, 500)
+
+
+def split_of(ph, tables) -> dict:
+    """The split B1 and B3a launch with (``ops.lookup.plan_split``)."""
+    plan = lk.cuda_plan(ph, tables)
+    return {"splits": plan.splits, "piece": plan.piece,
+            "ctas": ph.shape[0] * ph.shape[1] * plan.splits}
+
+
+def unsplit_fwd(ph, tables, hop):
+    """B1 before the split (tools/lookup_unsplit.cu)."""
+    out = torch.empty_like(ph)
+    UNSPLIT.launch(ph.data_ptr(), tables.data_ptr(), out.data_ptr(),
+                   *ph.shape, *tables.shape[1:], ph.device.index,
+                   torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def unsplit_res(ph, tables, hop):
+    """B3a before the split: (out, d_top, d_bot)."""
+    outs = [torch.empty_like(ph) for _ in range(3)]
+    UNSPLIT_RES.launch(ph.data_ptr(), tables.data_ptr(),
+                       *(o.data_ptr() for o in outs), *ph.shape,
+                       *tables.shape[1:], ph.device.index,
+                       torch.cuda.current_stream().cuda_stream)
+    return outs
+
+
+def lookup_row(ph, tables, hop, label, reps, dtab=False) -> dict:
+    """B1 against its plain version (2e-6 absolute), with its time, its
+    plain version's, its byte bound, ``F.grid_sample``'s time (and, with
+    ``dtab``, its backward's), the launch floor, the split and the time of
+    B1 before the split (held to the same tolerance)."""
+    ref = lk.lookup_blocks_plain(ph, tables, hop)
+    err = (lk.lookup_blocks_cuda(ph, tables, hop) - ref).abs().max().item()
+    old_err = (unsplit_fwd(ph, tables, hop) - ref).abs().max().item()
+    split = split_of(ph, tables)
+    print(f"[{label}] lookup (B1) {tuple(ph.shape)} x "
+          f"{tuple(tables.shape)}: max abs err {err:.3e} (tolerance 2e-6; "
+          f"before the split {old_err:.3e}); split {split}")
+    check(err <= 2e-6, f"lookup vs plain ({label})")
+    check(old_err <= 2e-6, f"lookup before the split vs plain ({label})")
+    n_el = ph.numel()
+    return dict(
+        err=err,
+        ms=cuda_ms(lambda: lk.lookup_blocks_cuda(ph, tables, hop), reps),
+        earlier_ms=cuda_ms(lambda: unsplit_fwd(ph, tables, hop), reps),
+        plain_ms=cuda_ms(lambda: lk.lookup_blocks_plain(ph, tables, hop), 10,
+                         strict=False),
+        bound=bound(4 * (2 * n_el + tables.numel()), 15 * n_el),
+        floor_ms=launch_floor_ms(), split=split,
+        shapes=[list(ph.shape), list(tables.shape)],
+        **library_lookup_row(ph, tables, hop, label, dtab=dtab))
+
+
+def print_lookup_summary(rows: dict) -> None:
+    """B1 at each shape (``rows``: label -> lookup_row) beside its bound,
+    grid_sample, the launch floor and its time before the split."""
+    for label, r in rows.items():
+        sp = r["split"]
+        print(f"B1 at {label} {tuple(r['shapes'][0])}: "
+              f"{r['ms'] * 1e3:.2f} us (before the split "
+              f"{r['earlier_ms'] * 1e3:.2f}), bound "
+              f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][0] / r['ms']:.0%}"
+              f" of it reached), F.grid_sample "
+              f"{r['library_ms'] * 1e3:.2f} us, launch floor "
+              f"{r['floor_ms'] * 1e3:.2f} us; {sp['splits']} pieces of "
+              f"{sp['piece']} samples a block, {sp['ctas']} CTAs")
+
+
 def phase_kernels(shapes: dict, which=("lookup", "allpole_const",
                                        "allpole_tv"), label="serve") -> dict:
     """Each kernel against its plain version on the same inputs, with its
@@ -487,21 +605,9 @@ def phase_kernels(shapes: dict, which=("lookup", "allpole_const",
     ph, tables, hop = lookup_inputs(gen, shapes)
     n_el = ph.numel()
     if "lookup" in which:
-        out = lk.lookup_blocks_cuda(ph, tables, hop)
-        err = (out - lk.lookup_blocks_plain(ph, tables, hop)).abs().max()
-        err = err.item()
-        print(f"[{label}] lookup (B1) {tuple(ph.shape)} x "
-              f"{tuple(tables.shape)}: max abs err {err:.3e} "
-              f"(tolerance 2e-6)")
-        check(err <= 2e-6, "lookup vs plain")
-        rows["lookup"] = dict(
-            err=err, ms=cuda_ms(lambda: lk.lookup_blocks_cuda(ph, tables,
-                                                              hop), 100),
-            plain_ms=cuda_ms(lambda: lk.lookup_blocks_plain(ph, tables, hop),
-                             10),
-            bound=bound(4 * (2 * n_el + tables.numel()), 15 * n_el),
-            **library_lookup_row(ph, tables, hop, label,
-                                 dtab="lookup_dtab" in which))
+        rows["lookup"] = lookup_row(ph, tables, hop, label,
+                                    200 if label == "push" else 100,
+                                    dtab="lookup_dtab" in which)
     if "lookup_res" in which:
         outs = lk.lookup_res_cuda(ph, tables, hop)
         refs = lk.lookup_res_plain(ph, tables, hop)
@@ -513,12 +619,22 @@ def phase_kernels(shapes: dict, which=("lookup", "allpole_const",
               f"gathered values)")
         check(errs[0] <= 2e-6 and errs[1] == 0 and errs[2] == 0,
               "lookup_res vs plain")
+        olds = unsplit_res(ph, tables, hop)
+        check(all(torch.equal(o, n) for o, n in zip(olds[1:], outs[1:]))
+              and (olds[0] - refs[0]).abs().max().item() <= 2e-6,
+              "lookup_res before the split vs plain")
         rows["lookup_res"] = dict(
             err=max(errs),
             ms=cuda_ms(lambda: lk.lookup_res_cuda(ph, tables, hop), 50),
+            earlier_ms=cuda_ms(lambda: unsplit_res(ph, tables, hop), 50),
             plain_ms=cuda_ms(lambda: lk.lookup_res_plain(ph, tables, hop),
-                             5),
-            bound=bound(4 * (4 * n_el + tables.numel()), 17 * n_el))
+                             5, strict=False),
+            bound=bound(4 * (4 * n_el + tables.numel()), 17 * n_el),
+            split=split_of(ph, tables))
+        r = rows["lookup_res"]
+        print(f"B3a at {label} {tuple(ph.shape)}: {r['ms'] * 1e3:.2f} us "
+              f"(before the split {r['earlier_ms'] * 1e3:.2f}), bound "
+              f"{r['bound'][0] * 1e3:.2f} us; split {r['split']}")
     if "lookup_dtab" in which:
         g = torch.randn(ph.shape, generator=gen, device="cuda")
         frames, s = tables.shape[1], tables.shape[2]
@@ -537,7 +653,8 @@ def phase_kernels(shapes: dict, which=("lookup", "allpole_const",
             ms=cuda_ms(lambda: lk.lookup_dtab_cuda(ph, g, hop, frames, s),
                        50),
             plain_ms=cuda_ms(lambda: lk.lookup_dtab_plain(ph, g, hop, frames,
-                                                          s), 5),
+                                                          s), 5,
+                             strict=False),
             bound=bound(4 * (2 * n_el + out.numel()), 20 * n_el))
 
     if "allpole_const" in which:
@@ -562,7 +679,8 @@ def phase_kernels(shapes: dict, which=("lookup", "allpole_const",
         p = a.shape[1]
         rows["allpole_const"] = dict(
             err=err, ms=cuda_ms(lambda: allpole_const_cuda(x, a), 50),
-            plain_ms=cuda_ms(lambda: allpole_const_plain(x, a), 3),
+            plain_ms=cuda_ms(lambda: allpole_const_plain(x, a), 3,
+                             strict=False),
             bound=bound(4 * (2 * n * t + n * p), 2 * p * n * t, fp64=True))
 
         dx, da = allpole_const_adjoint_cuda(g, out, a)
@@ -583,9 +701,9 @@ def phase_kernels(shapes: dict, which=("lookup", "allpole_const",
                     (da - dap).abs().max().item()),
             ms=cuda_ms(lambda: allpole_const_adjoint_cuda(g, out, a), 50),
             plain_ms=cuda_ms(lambda: allpole_const_adjoint_plain(g, out, a),
-                             3),
+                             3, strict=False),
             composite_ms=cuda_ms(lambda: tap._const_adjoint_composite(
-                allpole_const_cuda, g, out, a), 10),
+                allpole_const_cuda, g, out, a), 10, strict=False),
             bound=bound(4 * (3 * n * t + 2 * n * p), 4 * p * n * t,
                         fp64=True))
 
@@ -626,14 +744,15 @@ def phase_kernels(shapes: dict, which=("lookup", "allpole_const",
         rows["allpole_tv"] = dict(
             err=(out - ref).abs().max().item(),
             ms=cuda_ms(lambda: allpole_cuda(x, a), 20),
-            plain_ms=cuda_ms(lambda: allpole_plain(x, a), 1, warmup=1),
+            plain_ms=cuda_ms(lambda: allpole_plain(x, a), 1, warmup=1,
+                             strict=False),
             bound=bound(nbytes, 2 * a.numel()), fp64_floor_ms=floor_ms)
         dref = allpole_adjoint_plain(g, a)
         rows["allpole_tv_adjoint"] = dict(
             err=(dx - dref).abs().max().item(),
             ms=cuda_ms(lambda: allpole_adjoint_cuda(g, a), 20),
             plain_ms=cuda_ms(lambda: allpole_adjoint_plain(g, a), 1,
-                             warmup=1),
+                             warmup=1, strict=False),
             bound=bound(nbytes, 2 * a.numel()), fp64_floor_ms=floor_ms)
         rel = rel_err(dx, dref)
         print(f"[{label}] allpole_tv_adjoint {tuple(g.shape)}: / max|ref| "
@@ -792,28 +911,21 @@ def phase_stream_kernels() -> dict:
         rows[f"allpole_tv/{b}"] = dict(
             err=(y - plain).abs().max().item(),
             ms=cuda_ms(lambda: allpole_cuda(x, a, zi), 200),
-            plain_ms=cuda_ms(lambda: allpole_stream_plain(x, a, zi), 3),
+            plain_ms=cuda_ms(lambda: allpole_stream_plain(x, a, zi), 3,
+                             strict=False),
             bound=bound(4 * (2 * x.numel() + a.numel() + 2 * zi.numel()),
                         2 * a.numel()),
             shapes=[list(x.shape), list(a.shape), list(zi.shape)])
     ph, tables, hop = lookup_inputs(gen, stream_shapes(BATCH))
-    out = lk.lookup_blocks_cuda(ph, tables, hop)
-    err = (out - lk.lookup_blocks_plain(ph, tables, hop)).abs().max().item()
-    print(f"[stream] lookup (B1) {tuple(ph.shape)} x {tuple(tables.shape)}: "
-          f"max abs err {err:.3e} (tolerance 2e-6)")
-    check(err <= 2e-6, "lookup vs plain at the stream window")
-    n_el = ph.numel()
-    rows["lookup"] = dict(
-        err=err, ms=cuda_ms(lambda: lk.lookup_blocks_cuda(ph, tables, hop),
-                            200),
-        plain_ms=cuda_ms(lambda: lk.lookup_blocks_plain(ph, tables, hop), 10),
-        bound=bound(4 * (2 * n_el + tables.numel()), 15 * n_el),
-        shapes=[list(ph.shape), list(tables.shape)],
-        **library_lookup_row(ph, tables, hop, "stream"))
+    rows["lookup"] = lookup_row(ph, tables, hop, "stream", 200)
     for name, r in rows.items():
+        extra = "" if "floor_ms" not in r else (
+            f", F.grid_sample {r['library_ms'] * 1e3:.2f} us, launch floor "
+            f"{r['floor_ms'] * 1e3:.2f} us, split {r['split']}, before the "
+            f"split {r['earlier_ms'] * 1e3:.2f} us")
         print(f"[stream] {name}: {r['ms'] * 1e3:.2f} us a launch, bound "
               f"{r['bound'][0] * 1e3:.3f} us ({r['bound'][1]}), plain "
-              f"{r['plain_ms'] * 1e3:.1f} us")
+              f"{r['plain_ms'] * 1e3:.1f} us{extra}")
     return rows
 
 
@@ -1104,9 +1216,10 @@ def phase_train(decoder: str, expect: dict) -> dict:
     trainer = Trainer(task, run_dir="chiprun_out/chip_smoke_train",
                       max_steps=TRAIN_STEPS, seed=SEED)
     task.init_running_stats(xs, f0s)
-    path = {"golf": ("lookup_res", "lookup_dtab", "allpole_const",
+    # the phase of the true f0 needs no gradient: B1, not B3a
+    path = {"golf": ("lookup", "lookup_dtab", "allpole_const",
                      "allpole_const_adjoint"),
-            "golf-precise": ("lookup_res", "lookup_dtab", "allpole_tv",
+            "golf-precise": ("lookup", "lookup_dtab", "allpole_tv",
                              "allpole_tv_adjoint")}[decoder]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1130,15 +1243,62 @@ def phase_train(decoder: str, expect: dict) -> dict:
           f"{metrics['grad_norm'].item():.4g}; peak memory "
           f"{peak:.2f} GiB; launches {counts}")
     check(all(np.isfinite(losses)), f"{decoder} train losses finite")
-    per_step = {"lookup_res": 1, "lookup_dtab": 1, "allpole_const": 1,
-                "allpole_const_adjoint": 1, "allpole_tv": 1,
-                "allpole_tv_adjoint": 1}
+    check_train_launches(decoder, counts, path, TRAIN_STEPS, expect)
+    return counts
+
+
+def check_train_launches(label: str, counts: dict, path, steps: int,
+                         expect: dict = None) -> None:
+    """Each kernel of ``path`` launched once a step (at the shapes of
+    ``expect``, where given); the lookup's other forward (B3a for B1, B1
+    for B3a) never."""
     for name in path:
-        check(counts[name] == per_step[name] * TRAIN_STEPS,
-              f"{decoder} train launched {name} {counts[name]} times")
-        k = next(k for k in kernels.ALL if k.name == name)
-        check(k.last_shapes == expect[name],
-              f"{name} shapes {k.last_shapes} == {expect[name]}")
+        check(counts[name] == steps,
+              f"{label} train launched {name} {counts[name]} times")
+        if expect is not None:
+            k = next(k for k in kernels.ALL if k.name == name)
+            check(k.last_shapes == expect[name],
+                  f"{name} shapes {k.last_shapes} == {expect[name]}")
+    other = "lookup_res" if "lookup" in path else "lookup"
+    check(counts[other] == 0,
+          f"{label} train launched {other} {counts[other]} times")
+
+
+def phase_train_f0() -> dict:
+    """GOLF-ff with the phase from the encoder's own f0 (``learn_f0``, no
+    f0 conditioning, ``train_with_true_f0`` false, ``detach_f0`` false):
+    the phase needs a gradient, so the lookup's forward is B3a. 2 Adam
+    steps at B = 64 x 2 s; losses finite; B3a and B3b once a step (the
+    phase follows the spectrogram's frames, one more than the f0 track's,
+    so the lookup has 21 blocks here)."""
+    dev = torch.device("cuda")
+    torch.manual_seed(SEED)
+    cfg = train_model_config("golf", train_with_true_f0=False,
+                             detach_f0=False)
+    cfg["encoder_init_args"].update(learn_f0=True, f0_conditioning=False)
+    task = build_voice_autoencoder(cfg, device="cpu").to(dev)
+    x, f0 = requests(TRAIN_BATCH, TRAIN_SECONDS)
+    xs, f0s = Sig(x.to(dev), 1), Sig(f0.to(dev), 1)
+    trainer = Trainer(task, run_dir="chiprun_out/chip_smoke_train_f0",
+                      max_steps=2, seed=SEED)
+    task.init_running_stats(xs, f0s)
+    for k in kernels.ALL:
+        k.launches = 0
+    losses = []
+    for _ in range(2):
+        metrics = trainer.train_step(xs, f0s)
+        losses.append(metrics["loss"].item())
+        trainer.step += 1
+    counts = {k.name: k.launches for k in kernels.ALL}
+    print(f"train_f0 golf (phase from the encoder's f0): B={TRAIN_BATCH} x "
+          f"{TRAIN_SECONDS:.0f} s, losses "
+          f"{', '.join(f'{v:.5f}' for v in losses)}, f0 loss "
+          f"{metrics['f0_loss'].item():.5f}; launches {counts}; lookup "
+          f"shapes {kernels.LOOKUP_RES.last_shapes}")
+    check(all(np.isfinite(losses)), "train_f0 losses finite")
+    check_train_launches("golf f0", counts,
+                         ("lookup_res", "lookup_dtab", "allpole_const",
+                          "allpole_const_adjoint"), 2)
     return counts
 
 
@@ -1298,7 +1458,7 @@ class StepProbe:
     def __exit__(self, *exc):
         Trainer.train_step = self._orig
 
-    def check_steps(self, label: str, path) -> None:
+    def check_steps(self, label: str, path, absent=()) -> None:
         print(f"{label}: {len(self.times)} steps, losses "
               f"{', '.join(f'{v:.5f}' for v in self.losses)}; step wall time "
               f"(host clock around synchronize) "
@@ -1311,6 +1471,9 @@ class StepProbe:
             for name in path:
                 check(counts[name] == 1, f"{label} step {n + 1} launched "
                       f"{name} once: {counts[name]}")
+            for name in absent:
+                check(counts[name] == 0, f"{label} step {n + 1} launched "
+                      f"{name}: {counts[name]}")
 
 
 def cli_run(argv) -> dict:
@@ -1342,9 +1505,10 @@ def phase_disk(tree: Path, out: Path) -> tuple:
             f"trainer.max_steps={DISK_STEPS}"]
     with StepProbe() as probe:
         counts = cli_run(argv)
-    probe.check_steps("disk fit GOLF-ff", ("lookup_res", "lookup_dtab",
+    probe.check_steps("disk fit GOLF-ff", ("lookup", "lookup_dtab",
                                            "allpole_const",
-                                           "allpole_const_adjoint"))
+                                           "allpole_const_adjoint"),
+                      absent=("lookup_res",))
     cfg = load_config(["cfg/ae/vctk.yaml"], "cfg/ae/decoder/golf.yaml",
                       disk_overrides(tree))
     dm = instantiate(cfg["data"])
@@ -1468,8 +1632,8 @@ def phase_finetune(tree: Path, ckpt: Path, out: Path) -> tuple:
     with StepProbe() as probe:
         counts = cli_run(argv)
     probe.check_steps("finetune GOLF-ss (SGD)",
-                      ("lookup_res", "lookup_dtab", "allpole_tv",
-                       "allpole_tv_adjoint"))
+                      ("lookup", "lookup_dtab", "allpole_tv",
+                       "allpole_tv_adjoint"), absent=("lookup_res",))
     start = ckpt_lib.load(str(ckpt), map_location="cpu")["model"]
     end = ckpt_lib.load(str(out / "ss" / "ckpt" / "last"),
                         map_location="cpu")
@@ -1516,6 +1680,11 @@ def main() -> int:
     serve_rows = phase_kernels(serve_shapes)
     rows = phase_kernels(train_shapes, [k.name for k in kernels.ALL],
                          label="train")
+    push_rows = phase_kernels(stream_shapes(BATCH), ("lookup",),
+                              label="push")
+    print_lookup_summary({"push": push_rows["lookup"],
+                          "serve": serve_rows["lookup"],
+                          "train": rows["lookup"]})
     phase_backward(train_shapes)
     phase_resonance()
     t0 = done("kernels", t0)
@@ -1533,6 +1702,8 @@ def main() -> int:
         add(phase_train(decoder, train_shapes))
         phase_train_vs_cpu(decoder)
     t0 = done("train", t0)
+    add(phase_train_f0())
+    t0 = done("train_f0", t0)
     stream_rows = phase_stream_kernels()
     stream_counts = add(phase_stream(stream_shapes(BATCH)))
     t0 = done("stream", t0)
@@ -1594,6 +1765,13 @@ def main() -> int:
                 "corner differences")
         if k.name == "allpole_const_adjoint":
             entry["also_replaces"] = "golf_tpu/ops/allpole.py:403-404"
+        if k.name in ("lookup", "lookup_res"):
+            entry["split"] = r["split"]
+            entry["earlier_ms"] = r["earlier_ms"]
+            entry["earlier"] = ("one CTA a (batch, block), "
+                                "tools/lookup_unsplit.cu, timed in this run")
+        if "floor_ms" in r:
+            entry["floor_ms"] = r["floor_ms"]
         for key in ("fp64_floor_ms", "composite_ms"):
             if key in r:
                 entry[key] = r[key]
@@ -1610,6 +1788,9 @@ def main() -> int:
                 "bound_ms": stream_row["bound"][0],
                 "bound_by": stream_row["bound"][1],
                 "library_ms": stream_row.get("library_ms")}
+            for key in ("split", "floor_ms", "earlier_ms"):
+                if key in stream_row:
+                    entry["stream"][key] = stream_row[key]
             if k.name == "allpole_tv":
                 r1 = stream_rows["allpole_tv/1"]
                 entry["stream"]["b1"] = {
@@ -1621,7 +1802,8 @@ def main() -> int:
                 "shapes": [list(s) for s in serve_shapes[k.name]],
                 "max_abs_err": sr_["err"], "ms": sr_["ms"],
                 "plain_ms": sr_["plain_ms"], "bound_ms": sr_["bound"][0]}
-            for key in ("fp64_floor_ms", "composite_ms", "library_ms"):
+            for key in ("fp64_floor_ms", "composite_ms", "library_ms",
+                        "split", "floor_ms", "earlier_ms"):
                 if key in sr_:
                     entry["serve"][key] = sr_[key]
         table.append(entry)

@@ -136,12 +136,15 @@ def build(kernels: Iterable[CudaKernel], log: Optional[Dict] = None
 # order of the atomic sums (B3b)
 _NO_FMA = ("--fmad=false",)
 
+# the lookup's two entries also take the split planned by
+# ops/lookup.py::plan_split (splits, piece)
 LOOKUP = CudaKernel(
     "lookup", "lookup.cu", "golf_lookup_fwd",
-    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], extra_flags=_NO_FMA)
+    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], extra_flags=_NO_FMA)
 LOOKUP_RES = CudaKernel(
     "lookup_res", "lookup.cu", "golf_lookup_fwd_res",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], extra_flags=_NO_FMA)
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    extra_flags=_NO_FMA)
 LOOKUP_DTAB = CudaKernel(
     "lookup_dtab", "lookup_dtab.cu", "golf_lookup_dtab",
     [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], extra_flags=_NO_FMA)

@@ -18,13 +18,19 @@ plain version):
   the kernel; ``fold_rows`` in the plain version).
 
 ``lookup_blocks`` runs B1 when nothing needs a gradient, else the
-``torch.autograd.Function`` whose forward runs B3a and whose backward is
-``golf_tpu``'s custom VJP: ``dph_from_res`` and B3b.
+``torch.autograd.Function`` whose backward is ``golf_tpu``'s custom VJP:
+its forward runs B3a and saves the residuals when the phase needs a
+gradient (the backward then adds ``dph_from_res``), and B1 when only the
+tables do; the table cotangent is B3b's in both.
+
+B1 and B3a split each (batch, block) over several CTAs; ``plan_split``
+chooses the split from the shape and the card's SM count.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+import functools
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -120,6 +126,74 @@ def dph_from_res(g: torch.Tensor, d_top: torch.Tensor, d_bot: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The grid of B1 and B3a
+# ---------------------------------------------------------------------------
+
+MAX_GRID_X = 2 ** 31 - 1    # CUDA's limits on gridDim.x and gridDim.y
+MAX_GRID_Y = 65535
+
+
+class LookupPlan(NamedTuple):
+    """``splits`` CTAs a (batch, block), each taking ``piece`` contiguous
+    samples of the block (the last one the rest)."""
+    splits: int
+    piece: int
+
+    def pieces(self, hop: int) -> List[Tuple[int, int]]:
+        """Each CTA's [start, stop) within a block of ``hop`` samples."""
+        return [(k * self.piece, min((k + 1) * self.piece, hop))
+                for k in range(self.splits)]
+
+
+@functools.lru_cache(maxsize=256)
+def plan_split(batch: int, blocks: int, hop: int, s: int,
+               n_sm: int) -> LookupPlan:
+    """The split of B1's and B3a's grid for ph (batch, blocks, hop) and
+    tables of width ``s`` on a card of ``n_sm`` SMs.
+
+    The rule: at least one CTA for every SM (as far as the shape has
+    pieces of one unit), otherwise ``ceil(hop / s)`` pieces a block, of
+    about ``s`` samples or fewer; pieces are whole 16-byte units (4
+    samples) where ``hop % 4 == 0``.
+    ``tools/lookup_split_sweep.py`` chose it on an H100 (132 SMs, S =
+    2048): 11 pieces of 876 samples at a push (4, 3, 9600) were the
+    fastest of 1 to 48 pieces, and 5 pieces of 1920 at serving (4, 60,
+    9600) and training (64, 20, 9600) the fastest of 1 to 24 (PERF.md,
+    section 6)."""
+    cells = batch * blocks
+    unit = 4 if hop % 4 == 0 else 1
+    units = -(-hop // unit)
+    target = min(n_sm, cells * units)
+    want = max(-(-hop // s), -(-n_sm // cells))
+    while True:
+        piece = unit * -(-units // min(want, units))
+        plan = LookupPlan(-(-hop // piece), piece)
+        if cells * plan.splits >= target:
+            return plan
+        want += 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def check_grid(name: str, batch: int, blocks: int, plan: LookupPlan) -> None:
+    """B1's and B3a's grid is (splits x blocks, batch)."""
+    if batch > MAX_GRID_Y or plan.splits * blocks > MAX_GRID_X:
+        raise ValueError(f"{name}: the grid ({plan.splits} x {blocks}, "
+                         f"{batch}) exceeds CUDA's limits ({MAX_GRID_X}, "
+                         f"{MAX_GRID_Y})")
+
+
+def cuda_plan(ph: torch.Tensor, tables: torch.Tensor) -> LookupPlan:
+    """The split B1 and B3a launch with for these operands."""
+    b, blocks, hop = ph.shape
+    return plan_split(b, blocks, hop, tables.shape[2],
+                      sm_count(ph.device.index))
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -155,9 +229,11 @@ def lookup_blocks_cuda(ph: torch.Tensor, tables: torch.Tensor,
     b, blocks, _ = ph.shape
     out = torch.empty_like(ph)
     if ph.numel():
+        plan = cuda_plan(ph, tables)
+        check_grid("lookup", b, blocks, plan)
         LOOKUP.launch(ph.data_ptr(), tables.data_ptr(), out.data_ptr(), b,
                       blocks, hop, tables.shape[1], tables.shape[2],
-                      ph.device.index, _stream(ph),
+                      plan.splits, plan.piece, ph.device.index, _stream(ph),
                       shapes=(tuple(ph.shape), tuple(tables.shape)))
     return out
 
@@ -169,10 +245,12 @@ def lookup_res_cuda(ph: torch.Tensor, tables: torch.Tensor, hop: int
     b, blocks, _ = ph.shape
     out, d_top, d_bot = (torch.empty_like(ph) for _ in range(3))
     if ph.numel():
+        plan = cuda_plan(ph, tables)
+        check_grid("lookup_res", b, blocks, plan)
         LOOKUP_RES.launch(ph.data_ptr(), tables.data_ptr(), out.data_ptr(),
                           d_top.data_ptr(), d_bot.data_ptr(), b, blocks, hop,
-                          tables.shape[1], tables.shape[2], ph.device.index,
-                          _stream(ph),
+                          tables.shape[1], tables.shape[2], plan.splits,
+                          plan.piece, ph.device.index, _stream(ph),
                           shapes=(tuple(ph.shape), tuple(tables.shape)))
     return out, d_top, d_bot
 
@@ -217,24 +295,30 @@ PLAIN_OPS = LookupOps(lookup_blocks_plain, lookup_res_plain,
 
 class _LookupBlocks(torch.autograd.Function):
     """``golf_tpu``'s ``_lookup_blocks`` custom VJP (models/synth.py:
-    118-153): the forward saves the corner differences, the backward is
-    ``dph_from_res`` and the table cotangent."""
+    118-153): when the phase needs a gradient the forward saves the corner
+    differences (B3a) and the backward adds ``dph_from_res``; else the
+    forward is B1 and only the phase is saved. The table cotangent is
+    B3b's either way."""
 
     @staticmethod
     def forward(ctx, ph, tables, hop, ops):
-        out, d_top, d_bot = ops.res(ph, tables, hop)
-        ctx.save_for_backward(ph, d_top, d_bot)
+        if ctx.needs_input_grad[0]:
+            out, d_top, d_bot = ops.res(ph, tables, hop)
+            ctx.save_for_backward(ph, d_top, d_bot)
+        else:
+            out = ops.fwd(ph, tables, hop)
+            ctx.save_for_backward(ph)
         ctx.hop, ctx.ops = hop, ops
         ctx.frames, ctx.s = tables.shape[1], tables.shape[2]
         return out
 
     @staticmethod
     def backward(ctx, g):
-        ph, d_top, d_bot = ctx.saved_tensors
+        ph, *res = ctx.saved_tensors
         g = g.contiguous()
         d_ph = d_tab = None
         if ctx.needs_input_grad[0]:
-            d_ph = dph_from_res(g, d_top, d_bot, ctx.s, ctx.hop)
+            d_ph = dph_from_res(g, *res, ctx.s, ctx.hop)
         if ctx.needs_input_grad[1]:
             d_tab = ctx.ops.dtab(ph, g, ctx.hop, ctx.frames, ctx.s)
         return d_ph, d_tab, None, None
@@ -243,10 +327,11 @@ class _LookupBlocks(torch.autograd.Function):
 def lookup_blocks(ph: torch.Tensor, tables: torch.Tensor, hop: int,
                   ops: Optional[LookupOps] = None) -> torch.Tensor:
     """The lookup on the route of the tensors' device (``ops`` names a
-    route explicitly, for comparisons on the card). Differentiable: when a
-    gradient is needed the forward runs B3a and saves its residuals, as
-    ``golf_tpu`` does; the residuals are computed even when only the table
-    needs a gradient."""
+    route explicitly, for comparisons on the card). Differentiable: when
+    the phase needs a gradient the forward runs B3a and saves its
+    residuals, as ``golf_tpu`` does; when only the tables need one (the
+    phase of the true f0, as on the Interspeech24 path) it runs B1 and
+    saves the phase alone."""
     if ops is None:
         ops = CUDA_OPS if ph.is_cuda else PLAIN_OPS
     if torch.is_grad_enabled() and (ph.requires_grad or tables.requires_grad):

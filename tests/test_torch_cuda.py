@@ -35,9 +35,16 @@ def _lpc(rng, shape, scale):
     return rc2lpc(torch.tanh(torch.from_numpy(logits))).contiguous()
 
 
+# B1's and B3a's shapes: (B, blocks, hop, S). A push (4, 3, 9600, 2048); a
+# hop not divisible by 4 (the scalar path); a hop shorter than a CTA's
+# piece; S = 8192, two rows of 64 KB (dynamic shared memory above 48 KB)
+LOOKUP_CUDA_SHAPES = [(3, 7, 1000, 1000), (2, 5, 9600, 2048),
+                      (4, 3, 9600, 2048), (3, 7, 999, 1000), (2, 5, 7, 64),
+                      (2, 3, 2400, 8192)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,blocks,hop,s", [(3, 7, 1000, 1000),
-                                            (2, 5, 9600, 2048)])
+@pytest.mark.parametrize("b,blocks,hop,s", LOOKUP_CUDA_SHAPES)
 def test_cuda_lookup_matches_plain(cuda_device, b, blocks, hop, s):
     r = np.random.default_rng(0)
     ph = r.random((b, blocks, hop), np.float32)
@@ -52,8 +59,7 @@ def test_cuda_lookup_matches_plain(cuda_device, b, blocks, hop, s):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,blocks,hop,s", [(3, 7, 1000, 1000),
-                                            (2, 5, 9600, 2048)])
+@pytest.mark.parametrize("b,blocks,hop,s", LOOKUP_CUDA_SHAPES)
 def test_cuda_lookup_res_and_dtab_match_plain(cuda_device, b, blocks, hop,
                                               s):
     r = np.random.default_rng(1)
@@ -73,6 +79,32 @@ def test_cuda_lookup_res_and_dtab_match_plain(cuda_device, b, blocks, hop,
     ref = tlk.lookup_dtab_plain(ph, g, hop, tabs.shape[1], s)
     assert d.shape == tabs.shape
     assert ((d - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,blocks,hop,s", [(2, 5, 9600, 2048),
+                                            (3, 7, 999, 1000),
+                                            (4, 3, 9600, 2048),
+                                            (2, 5, 7, 64)])
+def test_cuda_lookup_row_weight_across_pieces(cuda_device, b, blocks, hop,
+                                              s):
+    """Row f + 1 is row f plus 1 and every row is constant, so out - row f
+    is the row weight i / hop of each sample, i its index within its
+    block, also where one CTA's piece ends and the next one's begins."""
+    plan = tlk.plan_split(b, blocks, hop, s,
+                          tlk.sm_count(cuda_device.index or 0))
+    assert plan.splits > 1
+    r = np.random.default_rng(4)
+    rows = np.arange(blocks + 1, dtype=np.float32)
+    tabs = np.broadcast_to(rows[None, :, None], (b, blocks + 1, s)).copy()
+    ph = torch.from_numpy(r.random((b, blocks, hop), np.float32)).cuda()
+    tabs = torch.from_numpy(tabs).cuda()
+    out = lookup_blocks_cuda(ph, tabs, hop)
+    assert (out - lookup_blocks_plain(ph, tabs, hop)).abs().max() <= 2e-6
+    rw = (out - torch.arange(blocks, device="cuda")[None, :, None]).double()
+    want = torch.arange(hop, device="cuda", dtype=torch.float64) / hop
+    # the blends of values up to 8 round within a few of their ulps (5e-7)
+    assert (rw - want).abs().max().item() <= 4e-6
 
 
 @pytest.mark.cuda

@@ -114,17 +114,19 @@ def test_lookup_function_matches_jax_vjp(b, blocks, hop, s):
 
 
 def test_lookup_function_runs_the_residual_forward():
-    """With a gradient the forward is B3a's function and the backward
-    B3b's and dph_from_res; without one the forward is B1's."""
+    """With a phase gradient the forward is B3a's function and the
+    backward B3b's and dph_from_res; without any gradient the forward is
+    B1's (a tables-only gradient: tests/test_torch_lookup_grad_route.py)."""
     ph, tabs, g = _lookup_inputs(1, 3, 64, 128, seed=5)
     calls = []
     ops = tlk.LookupOps(
         *(lambda *a, _f=f, _n=n: (calls.append(_n), _f(*a))[1]
           for f, n in zip(tlk.PLAIN_OPS, ("fwd", "res", "dtab"))))
     tab_t = torch.from_numpy(tabs).requires_grad_()
-    out = tlk.lookup_blocks(torch.from_numpy(ph), tab_t, 64, ops)
+    ph_t = torch.from_numpy(ph).requires_grad_()
+    out = tlk.lookup_blocks(ph_t, tab_t, 64, ops)
     out.backward(torch.from_numpy(g))
-    assert calls == ["res", "dtab"]
+    assert calls == ["res", "dtab"] and ph_t.grad is not None
     with torch.no_grad():
         tlk.lookup_blocks(torch.from_numpy(ph), tab_t, 64, ops)
     assert calls[-1] == "fwd"
