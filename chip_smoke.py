@@ -25,7 +25,8 @@ Phases (any failure exits non-zero):
    entry also against ``allpole_chunked_plain`` (the same chunked float64
    algorithm in plain PyTorch) and the adjoint entry bit for bit against
    the forward entry on the materialised flipped, column-shifted operands;
-   then each autograd
+   B1 and B2 (and its adjoint entry) also at the vocoder's serving shapes
+   (``vocoder_shapes``: 601 mel frames a 6 s request); then each autograd
    Function's backward through the kernels against the same Function on the
    plain versions, on the same cotangent;
    resonance: on resonant filters (capped at 0.95 and uncapped) B4's error
@@ -80,14 +81,34 @@ Phases (any failure exits non-zero):
     ``coef_smooth_weight`` 0.1 through the CLI's ``fit`` (B1, B3b, B4 and
     B4's adjoint entry once a step, B3a never), and one B = 2 x 1 s SGD
     step card vs CPU;
-12. summary: a ``kernels:`` line, the card, then one JSON line with the
+12. vocoder: the ISMIR23 mel vocoder (``main_torch.py``, ``cfg/vocoder.yaml``,
+    full width: 80 mels, Mel2Control 128 x 3) from a miniature MPop600 tree
+    it writes (flat ``f1_NNN.wav`` and ``.pv``: 001-003 test, 004-006 valid,
+    six train files of 10 s, 102 segments of 2 s at overlap 1.5): ``fit``
+    with ``golf-v1.yaml``, 3 Adam steps at B = 64 x 2 s (B3a, B3b, B2 and
+    B2's adjoint entry once a step, B1 never: the voicing's gradient reaches
+    the phase; the first batch bit for bit the CPU ``MPop600`` module's),
+    ``test`` of that checkpoint (finite MSS and f0 cents, its time);
+    ``predict_step`` on B = 4 x 6 s (B1 and B2 once a call, at the vocoder's
+    shapes), a 14 s request through ``chunked_ola_predict`` (three chunks in
+    one call, its real-time factor), ``predict`` through the CLI on
+    Synthetic data (one wav an item), a 2 s request card vs CPU (1e-3 of
+    max|y|); one recipe training step at B = 2 x 1 s card vs CPU (loss 1e-4
+    relative; each gradient within 1e-3 of the CPU's, or within 1e-3 or twice
+    the CPU's float32 distance of a float64 CPU run); 3 Adam steps each of
+    golf-v1 and ``ddsp.yaml`` (155 harmonics, no kernel) through the
+    Trainer, with step times and peak memory; a ``vocoder`` JSON line;
+13. summary: a ``kernels:`` line, the card, then one JSON line with the
     kernel table; B1's and B3b's ``library_ms`` is ``F.grid_sample`` on the
     table padded with its first column, and its backward with respect to
     the table (B3a's is null: no one call returns its three outputs); B1's
     and B3a's rows carry their split, the launch floor and, under
     ``earlier_ms``, the times of ``tools/lookup_unsplit.cu`` (before the
-    split) on the same inputs in this run;
-13. last line: ``{"ok": true, "device": {...}}``.
+    split) on the same inputs in this run; B1's, B2's and its adjoint's
+    rows carry ``vocoder_serve`` (the vocoder's serving shapes and the
+    vocoder phase's launches); ``launches`` counts every phase, the
+    vocoder's included;
+14. last line: ``{"ok": true, "device": {...}}``.
 Each phase's seconds are printed as it ends.
 
 Needs one CUDA device, and exits non-zero without one. Imports torch and
@@ -137,6 +158,8 @@ from golf_tpu_torch.serve import GOLFStream, StreamingEncoder, chunk_ctrl
 from golf_tpu_torch.tasks import cli
 from golf_tpu_torch.tasks.ae import VoiceAutoEncoder, build_voice_autoencoder
 from golf_tpu_torch.tasks.data import SyntheticVoiceDataset
+from golf_tpu_torch.tasks.vocoder import (DDSPVocoder, build_ddsp_vocoder,
+                                          chunked_ola_predict)
 from golf_tpu_torch.train import checkpoint as ckpt_lib
 from golf_tpu_torch.train.loop import (ClippedOptimizer, Trainer,
                                        trainable_parameters)
@@ -173,6 +196,7 @@ DISK_TEST_SECONDS = 5.5     # 8 segments a file: the test split is 64
 DISK_STEPS = 3
 FINETUNE_LR = 1e-5          # the SGD finetune's recipe (docs/BENCH.md)
 FINETUNE_SMOOTH = 0.1
+VOCODER_CONFIG = "cfg/vocoder.yaml"     # main_torch.py's default
 # B1 and B3a before their grid was split (one CTA a (batch, block)), built
 # from tools/lookup_unsplit.cu with the kernels and timed beside B1 and B3a
 # as ``earlier_ms``; they are on no path of the port
@@ -1476,13 +1500,16 @@ class StepProbe:
                       f"{name}: {counts[name]}")
 
 
-def cli_run(argv) -> dict:
-    """``autoencode_torch.py``'s ``run`` in this process, with the
-    launches of every kernel from 0 over the run; returns them."""
-    print(f"$ autoencode_torch.py {' '.join(argv)}", flush=True)
+def cli_run(argv, default_config: str = None) -> dict:
+    """``autoencode_torch.py``'s ``run`` (``main_torch.py``'s, given its
+    ``default_config``) in this process, with the launches of every kernel
+    from 0 over the run; returns them."""
+    entry = "main_torch.py" if default_config else "autoencode_torch.py"
+    print(f"$ {entry} {' '.join(argv)}", flush=True)
     for k in kernels.ALL:
         k.launches = 0
-    check(cli.run(argv) == 0, f"CLI {argv[0]} returned 0")
+    check(cli.run(argv, default_config=default_config) == 0,
+          f"{entry} {argv[0]} returned 0")
     return {k.name: k.launches for k in kernels.ALL}
 
 
@@ -1660,6 +1687,387 @@ def phase_finetune(tree: Path, ckpt: Path, out: Path) -> tuple:
     return counts, probe
 
 
+# ---------------------------------------------------------------------------
+# the ISMIR23 mel vocoder (main_torch.py, cfg/vocoder.yaml)
+# ---------------------------------------------------------------------------
+
+def vocoder_cfg(decoder: str) -> dict:
+    """model.init_args of ``cfg/vocoder.yaml`` with
+    ``cfg/ae/decoder/<decoder>.yaml``."""
+    return load_config([VOCODER_CONFIG],
+                       f"cfg/ae/decoder/{decoder}.yaml")["model"]["init_args"]
+
+
+def vocoder_model(decoder: str, device) -> DDSPVocoder:
+    """The full-width vocoder with seeded weights; the zero-initialised head
+    and acoustic filter get small random values so the parameters are off
+    the DSP prior."""
+    torch.manual_seed(SEED)
+    task = build_ddsp_vocoder(vocoder_cfg(decoder), device="cpu")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    with torch.no_grad():
+        head = task.encoder.backbone.out_linear
+        head.weight.copy_(0.004 * torch.randn(head.weight.shape,
+                                              generator=gen))
+        head.bias.copy_(0.05 * torch.randn(head.bias.shape, generator=gen))
+        end = task.decoder.end_filter.kernel
+        end.copy_(0.01 * torch.randn(end.shape, generator=gen))
+    return task.to(device)
+
+
+def vocoder_shapes(batch: int, t: int, train: bool) -> dict:
+    """Operand shapes B1 (serving) or B3a and B3b (training), and B2, get
+    from the vocoder for ``batch`` clips of ``t`` samples: mel frames
+    t // 240 + 1 (centred), cut to the f0 track's t // 240 in training;
+    the 4x oversampled phase in blocks of 9600 with the table rows of the
+    downsampler (hop 10 frames, padded to blocks + 1); the LPC on every
+    960-sample window of the frames."""
+    mel = t // 240 + 1
+    frames = t // 240 if train else mel
+    blocks = -(-((frames - 1) * 960 + 1) // 9600)
+    rows = max((mel + 2 * 5 - 10) // 10 + 1, blocks + 1)
+    lookup = ((batch, blocks, 9600), (batch, rows, 2048))
+    n_ff = batch * frames
+    shapes = {"allpole_const": ((n_ff, 960), (n_ff, 22))}
+    if train:
+        shapes.update(lookup_res=lookup, lookup_dtab=lookup,
+                      allpole_const_adjoint=shapes["allpole_const"])
+    else:
+        shapes["lookup"] = lookup
+    return shapes
+
+
+def check_shapes(label: str, expect: dict) -> None:
+    for name, shapes in expect.items():
+        k = next(k for k in kernels.ALL if k.name == name)
+        check(k.last_shapes == shapes,
+              f"{label}: {name} shapes {k.last_shapes} == {shapes}")
+
+
+def write_mpop_tree(root: Path) -> dict:
+    """A miniature MPop600 singer tree: flat 24 kHz PCM16 ``f1_NNN.wav``
+    files with their 5 ms ``.pv`` f0 tracks, synthetic voices (one seed a
+    file). 001-003 are the test split (4 s each), 004-006 the valid split
+    (2.5 s each), 007-012 the train split (10 s each: 17 segments of 2 s at
+    overlap 1.5 a file). Returns the segment counts."""
+    seconds = {**{i: 4.0 for i in range(1, 4)},
+               **{i: 2.5 for i in range(4, 7)},
+               **{i: 10.0 for i in range(7, 13)}}
+    hop = SR // 200
+    root.mkdir(parents=True, exist_ok=True)
+    for i, secs in seconds.items():
+        x, f0 = SyntheticVoiceDataset(1, secs, SR, seed=SEED + 300 + i)[0]
+        path = root / f"f1_{i:03d}.wav"
+        wavfile.write(str(path), SR,
+                      np.round(np.clip(x, -1, 1) * 32767).astype(np.int16))
+        frames = np.minimum(np.arange(len(x) // hop + 1) * hop, len(x) - 1)
+        np.savetxt(str(path.with_suffix(".pv")), f0[frames], fmt="%.4f")
+    seg = lambda secs: int((secs - 2.0) / 0.5) + 1  # noqa: E731
+    return {split: sum(seg(seconds[i]) for i in ids) for split, ids in
+            (("train", range(7, 13)), ("valid", range(4, 7)),
+             ("test", range(1, 4)))}
+
+
+def phase_vocoder_fit(tree: Path, out: Path) -> tuple:
+    """``main_torch.py fit --model cfg/ae/decoder/golf-v1.yaml`` from the
+    MPop600 tree, DISK_STEPS Adam steps at B = 64 x 2 s: B3a, B3b, B2 and
+    B2's adjoint entry once a step, B1 never (the voicing's gradient reaches
+    the phase); the first batch equal to the CPU ``MPop600`` module's bit
+    for bit. Returns (launches, checkpoint, probe)."""
+    over = [f"data.init_args.wav_dir={tree}"]
+    argv = ["fit", "--model", "cfg/ae/decoder/golf-v1.yaml", *over,
+            "--run_dir", str(out / "v1"), f"trainer.max_steps={DISK_STEPS}"]
+    with StepProbe() as probe:
+        counts = cli_run(argv, VOCODER_CONFIG)
+    probe.check_steps("vocoder fit golf-v1", ("lookup_res", "lookup_dtab",
+                                              "allpole_const",
+                                              "allpole_const_adjoint"),
+                      absent=("lookup",))
+    cfg = load_config([VOCODER_CONFIG], "cfg/ae/decoder/golf-v1.yaml", over)
+    dm = instantiate(cfg["data"])
+    check(type(dm).__name__ == "MPop600", "vocoder.yaml builds MPop600")
+    dm.setup("fit")
+    loader = dm.train_dataloader()
+    next(iter(loader))
+    x, f0 = next(iter(loader))
+    same = np.array_equal(probe.batch[0], x) and \
+        np.array_equal(probe.batch[1], f0)
+    print(f"vocoder fit: first batch {probe.batch[0].shape} on the card == "
+          f"the CPU MPop600 module's: {same}; launches over the run {counts}")
+    check(same and x.shape == (TRAIN_BATCH, int(TRAIN_SECONDS * SR)),
+          "vocoder fit's first batch bit for bit")
+    ckpt = out / "v1" / "ckpt" / "last"
+    check(ckpt.exists(), "vocoder checkpoint written")
+    return counts, ckpt, probe
+
+
+def phase_vocoder_test(tree: Path, ckpt: Path, out: Path) -> tuple:
+    """``main_torch.py test`` of the checkpoint on the tree's test split:
+    finite ``avg_mss_loss`` and ``avg_f0_loss`` (cents), with the command's
+    time and peak memory."""
+    argv = ["test", "--model", "cfg/ae/decoder/golf-v1.yaml",
+            f"data.init_args.wav_dir={tree}", "--run_dir", str(out / "t"),
+            "--ckpt_path", str(ckpt)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        counts = cli_run(argv, VOCODER_CONFIG)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(text.getvalue(), end="")
+    result = json.loads(text.getvalue().strip().splitlines()[-1])
+    print(f"vocoder test: {result}; {secs:.2f} s for the whole command "
+          f"(data, model, restore, resynthesis, DIO on the host); peak "
+          f"memory {peak:.2f} GiB; launches {counts}")
+    check(set(result) == {"avg_mss_loss", "avg_f0_loss"} and
+          all(np.isfinite(v) for v in result.values()),
+          "vocoder test metrics finite")
+    check(counts["lookup"] >= 1 and counts["allpole_const"] >= 1,
+          "vocoder test launched B1 and B2")
+    return counts, {"test_s": secs, "test_peak_gib": peak, **result}
+
+
+def capture_noise(task) -> list:
+    """The noise fields the decoder's generator draws, as they are drawn."""
+    seen = []
+    task.decoder.noise_generator.register_forward_hook(
+        lambda m, i, o: seen.append(o.data.detach()))
+    return seen
+
+
+def phase_vocoder_serve(out: Path) -> tuple:
+    """The vocoder serves: ``predict_step`` on B = 4 x 6 s synthetic
+    requests (B1 and B2 once each a predict, at the vocoder's shapes),
+    one 14 s request through ``chunked_ola_predict`` (three chunks, the
+    output as long as the input), ``main_torch.py predict`` on Synthetic
+    data (one wav an item), and one 2 s request card vs the port's CPU run
+    on the same weights and noise within 1e-3 of max|y|."""
+    dev = torch.device("cuda")
+    task = vocoder_model("golf-v1", dev)
+    x, f0 = requests(BATCH, SECONDS)
+    xs = Sig(x.to(dev), 1)
+    task.init_running_stats(xs, Sig(f0.to(dev), 1))
+    task.eval()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for k in kernels.ALL:
+        k.launches = 0
+    latencies = []
+    with torch.inference_mode():
+        for _ in range(3):
+            y, secs = timed(lambda: task.predict_step(xs, generator=gen)[0])
+            latencies.append(secs)
+    counts = {k.name: k.launches for k in kernels.ALL}
+    print(f"vocoder serve: out {tuple(y.shape)}, latency per predict (B="
+          f"{BATCH} x {SECONDS:.0f} s, batched) first "
+          f"{latencies[0] * 1e3:.1f} ms, then "
+          f"{', '.join(f'{s * 1e3:.1f}' for s in latencies[1:])} ms; "
+          f"launches {counts}")
+    check(torch.isfinite(y.data).all().item(), "vocoder output finite")
+    check(y.shape[0] == BATCH and y.shape[1] > 0.99 * SECONDS * SR,
+          f"vocoder output shape {y.shape}")
+    check(counts["lookup"] == 3 and counts["allpole_const"] == 3,
+          "vocoder predict launched B1 and B2 once each a call")
+    check(sum(counts.values()) == 6, "vocoder predict launched B1 and B2 "
+          "only")
+    check_shapes("vocoder serve", vocoder_shapes(BATCH, int(SECONDS * SR),
+                                                 train=False))
+
+    # one 14 s request in 6 s chunks crossfaded over 0.3 s
+    xl, _ = requests(1, 14.0)
+
+    def resynth(frames: np.ndarray) -> np.ndarray:
+        yc, _ = task.predict_step(Sig(torch.from_numpy(frames).to(dev), 1),
+                                  generator=gen)
+        return yc.data.cpu().numpy()
+
+    with torch.inference_mode():
+        chunked_ola_predict(resynth, xl.numpy(), SR)      # warm-up
+        for k in kernels.ALL:
+            k.launches = 0
+        t0 = time.perf_counter()
+        ola = chunked_ola_predict(resynth, xl.numpy(), SR)
+        ola_s = time.perf_counter() - t0
+    ola_counts = {k.name: k.launches for k in kernels.ALL}
+    rtf = xl.shape[1] / SR / ola_s
+    print(f"vocoder OLA: a 14 s request in 3 chunks of 6 s: out "
+          f"{ola.shape}, {ola_s * 1e3:.1f} ms host time with the copies "
+          f"(real-time factor {rtf:.1f}); launches {ola_counts}")
+    check(ola.shape == (xl.shape[1],) and np.isfinite(ola).all(),
+          "OLA output as long as its input")
+    check(ola_counts["lookup"] == 1 and ola_counts["allpole_const"] == 1,
+          "OLA ran its chunks as one batch")
+
+    # the CLI's predict on Synthetic data
+    pred_dir = out / "predict"
+    cli_counts = cli_run(
+        ["predict", "--model", "cfg/ae/decoder/golf-v1.yaml",
+         "data.class_path=ltng.data.Synthetic", "data.init_args.n_items=64",
+         "--run_dir", str(pred_dir)], VOCODER_CONFIG)
+    wavs = sorted((pred_dir / "predictions").glob("*.wav"))
+    print(f"vocoder predict CLI: {len(wavs)} wavs; launches {cli_counts}")
+    check(len(wavs) == 8, "predict wrote one wav per Synthetic test item")
+
+    # one 2 s request, card vs CPU, the same weights and noise
+    n = int(CHECK_SECONDS * SR)
+    cpu_task = vocoder_model("golf-v1", "cpu")
+    cpu_task.load_state_dict({k: v.cpu() for k, v in
+                              task.state_dict().items()})
+    cpu_task.eval()
+    noise = capture_noise(cpu_task)
+    with torch.inference_mode():
+        y_cpu, _ = cpu_task.predict_step(
+            Sig(x[:1, :n], 1), generator=torch.Generator().manual_seed(7))
+        y_gpu, _ = task.predict_step(Sig(x[:1, :n].to(dev), 1),
+                                     noise=noise[0].to(dev))
+    rel = ((y_gpu.data.cpu() - y_cpu.data).abs().max()
+           / y_cpu.data.abs().max()).item()
+    print(f"vocoder serve: 2 s request, card vs CPU: max err / max|y| "
+          f"{rel:.3e} (tolerance 1e-3)")
+    check(rel <= 1e-3, "vocoder served audio card vs CPU")
+    total = {name: counts[name] + ola_counts[name] + cli_counts[name]
+             for name in counts}
+    return total, {"predict_ms": [s * 1e3 for s in latencies],
+                   "ola_ms": ola_s * 1e3, "ola_rtf": rtf,
+                   "card_vs_cpu": rel}
+
+
+def phase_vocoder_train_vs_cpu() -> dict:
+    """One recipe training step (golf-v1, the voicing not detached) at B =
+    2 x 1 s, card against CPU, same weights and noise, train mode: the loss
+    within 1e-4 relative; every gradient within 1e-3 of its max-abs of the
+    CPU's, or, where the CPU's float32 gradient itself strays further than
+    that from a float64 CPU run (the voicing's gradient through the
+    wavetable's phase sums long, nearly cancelling terms), within 1e-3 of
+    the float64 gradient or twice the CPU's distance from it (two float32
+    evaluations of the same sum in other orders)."""
+    dev = torch.device("cuda")
+    cpu_task = vocoder_model("golf-v1", "cpu")
+    x, f0 = requests(TRAIN_CHECK_BATCH, TRAIN_CHECK_SECONDS)
+    # white noise at -20 dB of full scale keeps the mel bins off the floor
+    x = x + 0.1 * torch.randn(x.shape,
+                              generator=torch.Generator().manual_seed(8))
+    cpu_task.init_running_stats(Sig(x, 1), Sig(f0, 1))
+    state = cpu_task.state_dict()
+    noise = capture_noise(cpu_task)
+    grads, losses = {}, {}
+    for label, task, d, dtype in (
+            ("cpu", cpu_task, torch.device("cpu"), torch.float32),
+            ("card", vocoder_model("golf-v1", "cpu").to(dev), dev,
+             torch.float32),
+            ("cpu64", vocoder_model("golf-v1", "cpu").double(),
+             torch.device("cpu"), torch.float64)):
+        task.load_state_dict(state)
+        task.train()
+        kw = {"generator": torch.Generator().manual_seed(7)} \
+            if label == "cpu" else {"noise": noise[0].to(d, dtype)}
+        loss, _ = task.training_step(Sig(x.to(d, dtype), 1),
+                                     Sig(f0.to(d, dtype), 1), **kw)
+        loss.backward()
+        losses[label] = loss.item()
+        grads[label] = {n: p.grad.detach().cpu().double()
+                        for n, p in task.named_parameters()
+                        if p.requires_grad}
+    rel_loss = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    errs, failed = {}, []
+    for name, ref in grads["cpu"].items():
+        got, exact = grads["card"][name], grads["cpu64"][name]
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        scale = exact.abs().max()
+        card64 = ((got - exact).abs().max() / scale).item()
+        cpu64 = ((ref - exact).abs().max() / scale).item()
+        errs[name] = (err, card64, cpu64)
+        if err > TRAIN_GRAD_TOL and card64 > max(TRAIN_GRAD_TOL,
+                                                 2 * cpu64):
+            failed.append(name)
+    ranked = sorted(errs, key=lambda n: errs[n][0], reverse=True)
+    print(f"vocoder train golf-v1: B={TRAIN_CHECK_BATCH} x "
+          f"{TRAIN_CHECK_SECONDS:.0f} s, card vs CPU: loss "
+          f"{losses['card']:.6f} vs {losses['cpu']:.6f} (rel {rel_loss:.2e}, tolerance 1e-4; "
+          f"float64 {losses['cpu64']:.6f}); largest gradient errors (card "
+          f"vs CPU, card vs float64, CPU vs float64, of max-abs): " +
+          ", ".join(f"{n} {e[0]:.2e}/{e[1]:.2e}/{e[2]:.2e}" for n, e in
+                    ((n, errs[n]) for n in ranked[:4])))
+    check(rel_loss <= 1e-4, "vocoder train loss card vs CPU")
+    check(not failed, f"vocoder train gradients card vs CPU: {failed}")
+    return {"loss_rel": rel_loss,
+            "worst_grad": {n: errs[n] for n in ranked[:3]}}
+
+
+def phase_vocoder_steps(decoder: str, expect: dict) -> tuple:
+    """DISK_STEPS Adam steps of the full-width vocoder with ``decoder`` at
+    B = 64 x 2 s through the Trainer on synthetic items: losses finite,
+    ``expect``'s kernels once a step (none for ddsp), the step's host time
+    and peak memory."""
+    dev = torch.device("cuda")
+    task = vocoder_model(decoder, dev)
+    x, f0 = requests(TRAIN_BATCH, TRAIN_SECONDS)
+    xs, f0s = Sig(x.to(dev), 1), Sig(f0.to(dev), 1)
+    trainer = Trainer(task, run_dir=f"chiprun_out/chip_smoke_{decoder}",
+                      max_steps=DISK_STEPS, seed=SEED)
+    task.init_running_stats(xs, f0s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.ALL:
+        k.launches = 0
+    losses, times = [], []
+    for _ in range(DISK_STEPS):
+        metrics, secs = timed(lambda: trainer.train_step(xs, f0s))
+        losses.append(metrics["loss"].item())
+        times.append(secs)
+        trainer.step += 1
+    counts = {k.name: k.launches for k in kernels.ALL}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"vocoder train {decoder}: B={TRAIN_BATCH} x {TRAIN_SECONDS:.0f} s, "
+          f"losses {', '.join(f'{v:.5f}' for v in losses)}; step wall time "
+          f"(host clock around synchronize, TF32 off) "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; peak memory "
+          f"{peak:.2f} GiB; launches {counts}")
+    check(all(np.isfinite(losses)), f"vocoder {decoder} losses finite")
+    for name in counts:
+        want = DISK_STEPS if name in expect else 0
+        check(counts[name] == want, f"vocoder {decoder} launched {name} "
+              f"{counts[name]} times, not {want}")
+    check_shapes(f"vocoder train {decoder}", expect)
+    return counts, {"step_ms": [t * 1e3 for t in times], "peak_gib": peak}
+
+
+def phase_vocoder() -> tuple:
+    """The ISMIR23 vocoder end to end: the recipe from a miniature MPop600
+    tree (fit, test), serving, a training step card vs CPU, and ddsp.yaml
+    (155 harmonics, no kernel) at full width. Returns (launches, the
+    summary for the ``vocoder`` line)."""
+    counts = {k.name: 0 for k in kernels.ALL}
+
+    def add(c: dict) -> None:
+        for name, n in c.items():
+            counts[name] += n
+
+    summary = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_voc_",
+                                     dir="runs") as tmp:
+        tree, out = Path(tmp) / "mpop600", Path(tmp) / "runs"
+        sizes = write_mpop_tree(tree)
+        print(f"vocoder: an MPop600 tree of {sizes} segments of 2 s at "
+              f"overlap 1.5")
+        check(sizes["train"] >= TRAIN_BATCH, "a full training batch")
+        fit_counts, ckpt, probe = phase_vocoder_fit(tree, out)
+        add(fit_counts)
+        summary["fit_step_ms"] = [t * 1e3 for t in probe.times]
+        test_counts, summary["test"] = phase_vocoder_test(tree, ckpt, out)
+        add(test_counts)
+        serve_counts, summary["serve"] = phase_vocoder_serve(out)
+        add(serve_counts)
+    summary["train_vs_cpu"] = phase_vocoder_train_vs_cpu()
+    train = vocoder_shapes(TRAIN_BATCH, int(TRAIN_SECONDS * SR), train=True)
+    for decoder, expect in (("golf-v1", train), ("ddsp", {})):
+        c, summary[decoder] = phase_vocoder_steps(decoder, expect)
+        add(c)
+    return counts, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1682,6 +2090,9 @@ def main() -> int:
                          label="train")
     push_rows = phase_kernels(stream_shapes(BATCH), ("lookup",),
                               label="push")
+    voc_shapes = vocoder_shapes(BATCH, int(SECONDS * SR), train=False)
+    voc_rows = phase_kernels(voc_shapes, ("lookup", "allpole_const"),
+                             label="vocoder serve")
     print_lookup_summary({"push": push_rows["lookup"],
                           "serve": serve_rows["lookup"],
                           "train": rows["lookup"]})
@@ -1724,11 +2135,15 @@ def main() -> int:
         ft_counts, ft_probe = phase_finetune(tree, ckpt, out)
         add(ft_counts)
         t0 = done("finetune", t0)
+    voc_counts, vocoder = phase_vocoder()
+    add(voc_counts)
+    t0 = done("vocoder", t0)
     print(json.dumps({"recipe": {
         "disk_fit_step_ms": [t * 1e3 for t in disk_probe.times],
         "golf_fs": fs,
         "finetune_step_ms": [t * 1e3 for t in ft_probe.times],
         "phase_s": phase_s}}))
+    print(json.dumps({"vocoder": {**vocoder, "launches": voc_counts}}))
 
     replaces = {"lookup": "golf_tpu/ops/lookup_pallas.py:107",
                 "lookup_res": "golf_tpu/ops/lookup_pallas.py:222",
@@ -1796,6 +2211,16 @@ def main() -> int:
                 entry["stream"]["b1"] = {
                     "shapes": r1["shapes"], "ms": r1["ms"],
                     "plain_ms": r1["plain_ms"], "bound_ms": r1["bound"][0]}
+        voc_name = "allpole_const" if k.name == "allpole_const_adjoint" \
+            else k.name
+        if voc_name in voc_shapes:
+            vr = voc_rows[k.name]
+            entry["vocoder_serve"] = {
+                "shapes": [list(s) for s in voc_shapes[voc_name]],
+                "launches": voc_counts[k.name], "max_abs_err": vr["err"],
+                "ms": vr["ms"], "plain_ms": vr["plain_ms"],
+                "bound_ms": vr["bound"][0],
+                "library_ms": vr.get("library_ms")}
         if k.name in serve_rows:
             sr_ = serve_rows[k.name]
             entry["serve"] = {

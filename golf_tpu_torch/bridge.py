@@ -3,13 +3,16 @@
 Input: the JAX task's variables as nested dicts of numpy arrays, with the
 collections ``params``, ``stats`` and ``batch_stats`` (as
 ``jax.tree_util.tree_map(np.asarray, variables)`` gives them). Output: a
-``state_dict`` for ``golf_tpu_torch.tasks.ae.VoiceAutoEncoder``.
+``state_dict`` for ``golf_tpu_torch.tasks.ae.VoiceAutoEncoder`` or
+``golf_tpu_torch.tasks.vocoder.DDSPVocoder``.
 
 Conversions:
-* Conv: flax ``(kh, kw, in, out)`` -> torch ``(out, in, kh, kw)``.
+* Conv: flax ``(kh, kw, in, out)`` -> torch ``(out, in, kh, kw)``, and
+  ``(k, in, out)`` -> ``Conv1d``'s ``(out, in, k)``.
 * BatchNorm: scale/bias/mean/var -> weight/bias/running_mean/running_var
   (eps is 1e-5 in both).
-* LayerNorm: scale/bias -> weight/bias (the port sets flax's eps, 1e-6).
+* LayerNorm, GroupNorm: scale/bias -> weight/bias (the port sets flax's
+  eps, 1e-6).
 * Dense: ``(in, out)`` -> ``Linear.weight (out, in)``.
 * LSTM: flax keeps per-gate input kernels ``i{i,f,g,o}`` without bias and
   recurrent kernels ``h{i,f,g,o}`` with bias; torch takes
@@ -17,8 +20,9 @@ Conversions:
   i, f, g, o, ``bias_hh = cat(h*.bias)`` and ``bias_ih = 0``.
   ``OptimizedLSTMCell_{2l}`` is layer l, ``_{2l+1}`` its reverse.
 * State: the acoustic filter's kernel, the running min/max
-  (``stats/log_spec_{min,max}``) and the glottal table
-  (``batch_stats/glottal_table``).
+  (``stats/log_spec_{min,max}``, the vocoder's ``stats/feature_trsfm/
+  log_mel_{min,max}``) and the glottal table (``batch_stats/
+  glottal_table``).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from torch import nn
 
 _GATES = ("i", "f", "g", "o")
 _SCOPES = {"ConvPyramid_0": "pyramid", "LayerNorm_0": "norm",
-           "BiLSTM_0": "lstm.lstm"}
+           "GroupNorm_0": "group_norm", "BiLSTM_0": "lstm.lstm"}
 _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
          "var": "running_var"}
 
@@ -81,8 +85,10 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         owner = path[-2] if len(path) >= 2 else ""
         if owner.startswith("Conv_"):
             key = ".".join(scope[:-1] + ["convs", owner[5:]])
-            sd[f"{key}.{'weight' if leaf == 'kernel' else leaf}"] = _t(
-                arr.transpose(3, 2, 0, 1) if leaf == "kernel" else arr)
+            if leaf == "kernel":
+                arr = arr.transpose((3, 2, 0, 1) if arr.ndim == 4
+                                    else (2, 1, 0))
+            sd[f"{key}.{'weight' if leaf == 'kernel' else leaf}"] = _t(arr)
         elif owner.startswith("BatchNorm_"):
             key = ".".join(scope[:-1] + ["norms", owner[10:]])
             sd[f"{key}.{_LEAF[leaf]}"] = _t(arr)
@@ -92,11 +98,11 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
             key = ".".join(scope[:-1] + [name])
             sd[f"{key}.{'weight' if leaf == 'kernel' else leaf}"] = _t(
                 arr.T if leaf == "kernel" else arr)
-        elif owner == "LayerNorm_0":
+        elif owner in ("LayerNorm_0", "GroupNorm_0"):
             sd[f"{'.'.join(scope)}.{_LEAF[leaf]}"] = _t(arr)
         elif leaf == "glottal_table":
             sd[".".join(scope + ["table"])] = _t(arr)
-        else:                  # room_filter/kernel, log_spec_{min,max}
+        else:                  # acoustic filter kernels, running min/max
             sd[".".join(scope + [leaf])] = _t(arr)
     for prefix, by_index in cells.items():
         for idx, cell in by_index.items():

@@ -24,8 +24,11 @@ _ALIASES = {
     "models.ctrl": f"{_PKG}.models.ctrl",
     "models.enc": f"{_PKG}.models.enc",
     "models.unet": f"{_PKG}.models.unet",
+    "models.hpn": f"{_PKG}.models.hpn",
+    "models.mel": f"{_PKG}.models.mel",
     "loss.spec": f"{_PKG}.loss.spec",
     "ltng.ae": f"{_PKG}.tasks.ae",
+    "ltng.vocoder": f"{_PKG}.tasks.vocoder",
     "ltng.data": f"{_PKG}.tasks.data",
 }
 

@@ -27,6 +27,13 @@ class Controllable(nn.Module):
         return ()
 
 
+class PassThrough(Controllable):
+    """Identity stage (``harm_filter`` of ``ddsp.yaml``)."""
+
+    def forward(self, x: Sig, *args, **kwargs) -> Sig:
+        return x
+
+
 class Synth(nn.Module):
     """Composite synthesizer base; ``ctrl_names`` lists the controllable
     children in order."""

@@ -1,12 +1,16 @@
-"""Glottal-flow wavetable sources (counterpart of ``golf_tpu.models.synth``).
+"""Harmonic sources (counterpart of ``golf_tpu.models.synth``): the
+glottal-flow wavetables and the additive sine banks.
 
-The oscillator integrates a normalized-frequency phase (f0/sr) in fp32 with
-the wrapped cumsum, optionally at an oversampled rate, looks the wrapped
-phase up in a per-frame blend of LF glottal-pulse tables, and decimates.
+The wavetable oscillator integrates a normalized-frequency phase (f0/sr) in
+the phase's dtype (fp32 on every path; a test runs fp64) with the wrapped
+cumsum, optionally at an oversampled rate, looks the wrapped phase up in a
+per-frame blend of LF glottal-pulse tables, and decimates. The sine banks
+take harmonic k's phase as k times one wrapped cumsum of the base phase.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -104,7 +108,7 @@ class IndexedGlottalFlowTable(GlottalFlowTable):
             interp = Sig(interp.data, interp.hop * k)
             phase = Sig(phase.data / k, phase.hop * k)
         up_phase = phase.reduce_hop_length()
-        wrapped = wrapped_cumsum(up_phase.data.float())
+        wrapped = wrapped_cumsum(up_phase.data)
         if phase_offset is not None:
             wrapped = torch.remainder(wrapped + phase_offset.data, 1)
         y = self.generate(Sig(wrapped, 1), interp)
@@ -152,3 +156,72 @@ class DownsampledIndexedGlottalFlowTable(IndexedGlottalFlowTable):
     def ctrl(self, h: Sig) -> Tuple[Sig, ...]:
         out = self.model(h.data)[..., 0]
         return (Sig(torch.sigmoid(out), h.hop * self.hop_rate),)
+
+
+class HarmonicOscillator(OscillatorInterface):
+    """Additive sine bank with hard anti-aliasing: harmonic k of the phase
+    is k times one wrapped cumsum of the base phase (exact mod 1 for an
+    integer k), and its amplitude is zero where k times the phase
+    increment reaches 0.5 cycles a sample. Plain PyTorch, as ``golf_tpu``
+    computes it outside any kernel."""
+
+    def forward(self, phase: Sig, amplitudes: Sig) -> Sig:
+        n_harm = amplitudes.shape[-1]
+        up_phase = phase.reduce_hop_length()
+        base = wrapped_cumsum(up_phase.data)
+        harm_series = torch.arange(1, n_harm + 1, dtype=base.dtype,
+                                   device=base.device)
+        inst = base[..., None] * harm_series
+        harm_freq = up_phase.data[..., None] * harm_series
+        amp = amplitudes.reduce_hop_length().truncate(base.shape[1])
+        t = min(amp.steps, base.shape[1])
+        amp_d = torch.where(harm_freq[:, :t] >= 0.5, 0.0, amp.data[:, :t])
+        return Sig(torch.einsum("btn,btn->bt",
+                                torch.sin(inst[:, :t] * (2 * math.pi)),
+                                amp_d), 1)
+
+
+class AdditiveSynthesizer(HarmonicOscillator):
+    """DDSP's additive bank: amplitudes exp(log_gain) * sigmoid(logits),
+    scaled by 1/sqrt(0.5 / phase), the count of harmonics below
+    Nyquist."""
+
+    def __init__(self, num_harmonics: int = 150):
+        super().__init__()
+        self.num_harmonics = num_harmonics
+
+    @property
+    def split_sizes(self) -> Tuple[int, ...]:
+        return (1, self.num_harmonics)
+
+    def ctrl(self, log_gain: Sig, amp_logits: Sig) -> Tuple[Sig, ...]:
+        amp = torch.exp(log_gain.data)[..., None] * \
+            torch.sigmoid(amp_logits.data)
+        return (Sig(amp, amp_logits.hop),)
+
+    def forward(self, phase: Sig, amplitudes: Sig) -> Sig:
+        # 0.5 / phase as a true division on every device (PyTorch's
+        # ``0.5 / tensor`` is the reciprocal times 0.5)
+        d = phase.data
+        num_freq_bins = torch.full((), 0.5, dtype=d.dtype, device=d.device) / d
+        amplitudes = amplitudes * Sig(torch.rsqrt(num_freq_bins), phase.hop)
+        return super().forward(phase, amplitudes)
+
+
+class V1AdditiveSynthesizer(HarmonicOscillator):
+    """The ISMIR23 variant: sigmoid amplitudes normalised to sum 1, times
+    exp(log_gain)."""
+
+    def __init__(self, num_harmonics: int = 150):
+        super().__init__()
+        self.num_harmonics = num_harmonics
+
+    @property
+    def split_sizes(self) -> Tuple[int, ...]:
+        return (1, self.num_harmonics)
+
+    def ctrl(self, log_gain: Sig, amp_logits: Sig) -> Tuple[Sig, ...]:
+        s = torch.sigmoid(amp_logits.data)
+        s = s / torch.sum(s, dim=-1, keepdim=True)
+        return (Sig(torch.exp(log_gain.data)[..., None] * s,
+                    amp_logits.hop),)

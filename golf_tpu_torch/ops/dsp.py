@@ -119,3 +119,8 @@ def zero_phase_fir(log_mag: torch.Tensor) -> torch.Tensor:
     fftshift."""
     fir = torch.fft.irfft(torch.exp(log_mag), dim=-1)
     return torch.fft.fftshift(fir, dim=-1)
+
+
+def freq2cent(f0):
+    """Hz -> cents above A4 (host numpy, as ``golf_tpu``'s)."""
+    return 1200 * np.log2(f0 / 440)

@@ -1,9 +1,11 @@
-"""STFT and spectrogram (counterpart of ``golf_tpu.ops.stft``):
-torchaudio ``Spectrogram`` semantics, center=True with reflect padding,
-win_length = n_fft unless given, not normalized."""
+"""STFT, spectrogram and mel spectrogram (counterpart of
+``golf_tpu.ops.stft``): torchaudio ``Spectrogram`` semantics, center=True
+with reflect padding, win_length = n_fft unless given, not normalized; the
+mel filterbank is host numpy, copied from ``golf_tpu``."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -50,3 +52,67 @@ def spectrogram(x: torch.Tensor, n_fft: int, hop_length: int,
     if power == 1.0:
         return mag
     return mag ** power
+
+
+def hz_to_mel(f, mel_scale: str = "htk"):
+    if mel_scale == "htk":
+        return 2595.0 * np.log10(1.0 + f / 700.0)
+    # slaney
+    f = np.asarray(f, dtype=np.float64)
+    f_min, f_sp = 0.0, 200.0 / 3
+    mels = (f - f_min) / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = math.log(6.4) / 27.0
+    return np.where(f >= min_log_hz,
+                    min_log_mel + np.log(f / min_log_hz) / logstep, mels)
+
+
+def mel_to_hz(m, mel_scale: str = "htk"):
+    if mel_scale == "htk":
+        return 700.0 * (10.0 ** (m / 2595.0) - 1.0)
+    m = np.asarray(m, dtype=np.float64)
+    f_min, f_sp = 0.0, 200.0 / 3
+    freqs = f_min + f_sp * m
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = math.log(6.4) / 27.0
+    return np.where(m >= min_log_mel,
+                    min_log_hz * np.exp(logstep * (m - min_log_mel)), freqs)
+
+
+def melscale_fbanks(n_freqs: int, f_min: float, f_max: float, n_mels: int,
+                    sample_rate: int, norm: Optional[str] = None,
+                    mel_scale: str = "htk") -> np.ndarray:
+    """torchaudio.functional.melscale_fbanks equivalent: (n_freqs, n_mels),
+    float64 inside, float32 out (host numpy, as in ``golf_tpu``)."""
+    all_freqs = np.linspace(0, sample_rate // 2, n_freqs)
+    m_min = hz_to_mel(f_min, mel_scale)
+    m_max = hz_to_mel(f_max, mel_scale)
+    m_pts = np.linspace(m_min, m_max, n_mels + 2)
+    f_pts = mel_to_hz(m_pts, mel_scale)
+    f_diff = f_pts[1:] - f_pts[:-1]
+    slopes = f_pts[None, :] - all_freqs[:, None]
+    down = -slopes[:, :-2] / f_diff[:-1]
+    up = slopes[:, 2:] / f_diff[1:]
+    fb = np.maximum(0.0, np.minimum(down, up))
+    if norm == "slaney":
+        enorm = 2.0 / (f_pts[2:n_mels + 2] - f_pts[:n_mels])
+        fb *= enorm[None, :]
+    return fb.astype(np.float32)
+
+
+def melspectrogram(x: torch.Tensor, sample_rate: int, n_fft: int,
+                   hop_length: int, n_mels: int,
+                   win_length: Optional[int] = None, window: str = "hann",
+                   f_min: float = 0.0, f_max: Optional[float] = None,
+                   power: float = 2.0, center: bool = True,
+                   mel_scale: str = "htk") -> torch.Tensor:
+    """torchaudio MelSpectrogram equivalent: (..., n_mels, F)."""
+    f_max = f_max or sample_rate / 2
+    spec = spectrogram(x, n_fft, hop_length, win_length, window, power,
+                       center)
+    fb = torch.from_numpy(melscale_fbanks(
+        n_fft // 2 + 1, f_min, f_max, n_mels, sample_rate,
+        mel_scale=mel_scale)).to(spec)
+    return torch.matmul(spec.transpose(-1, -2), fb).transpose(-1, -2)

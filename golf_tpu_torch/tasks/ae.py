@@ -44,6 +44,19 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor
                       + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
+def decode(decoder: Synth, params: Dict[str, Any],
+           generator: Optional[torch.Generator] = None,
+           noise: Optional[torch.Tensor] = None):
+    """The decoder's ctrl transforms on the raw ``*_params`` groups, then the
+    synthesizer on them and the other entries (phase, voicing); returns
+    (signal, ctrl parameters)."""
+    ctrl = decoder.apply_ctrl(
+        {k: v for k, v in params.items() if k.endswith("_params")})
+    merged = ctrl | {k: v for k, v in params.items()
+                     if not k.endswith("_params")}
+    return decoder(**merged, generator=generator, noise=noise), ctrl
+
+
 class VoiceAutoEncoder(nn.Module):
     def __init__(self, decoder: Synth,
                  encoder: VocoderParameterEncoderInterface,
@@ -69,11 +82,7 @@ class VoiceAutoEncoder(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None,
                 return_ctrl: bool = False):
-        ctrl = self.decoder.apply_ctrl(
-            {k: v for k, v in params.items() if k.endswith("_params")})
-        merged = ctrl | {k: v for k, v in params.items()
-                         if not k.endswith("_params")}
-        y = self.decoder(**merged, generator=generator, noise=noise)
+        y, ctrl = decode(self.decoder, params, generator, noise)
         return (y, ctrl) if return_ctrl else y
 
     def forward(self, x: Optional[Sig] = None, f0: Optional[Sig] = None,

@@ -1,9 +1,11 @@
 """CLI runner for the port: the ``fit``, ``validate``, ``test`` and
-``predict`` subcommands of the voice autoencoder (counterpart of
-``golf_tpu.tasks.cli``)::
+``predict`` subcommands of the voice autoencoder and the mel vocoder
+(counterpart of ``golf_tpu.tasks.cli``)::
 
     python autoencode_torch.py fit --config cfg/ae/vctk.yaml \\
         --model cfg/ae/decoder/golf.yaml data.class_path=ltng.data.Synthetic
+    python main_torch.py fit --model cfg/ae/decoder/golf-v1.yaml \\
+        data.init_args.wav_dir=<MPop600 tree>
     python autoencode_torch.py validate ... --ckpt_path <run>/ckpt/last
     python autoencode_torch.py test ... [--ckpt_path <run>/ckpt/last]
     python autoencode_torch.py predict ... [--ckpt_path <run>/ckpt/last]
@@ -12,11 +14,13 @@
 dotted overrides apply last; the resolved config is written to the run
 directory. ``fit`` writes ``metrics.jsonl`` and ``ckpt/{last,step=...}``
 there, ``validate`` prints the validation metrics as JSON, ``test`` the
-test split's ``avg_mss_loss`` and ``avg_mcd`` (MCD), ``predict``
-writes one wav per item to ``<run_dir>/predictions``. Without a
-checkpoint the weights are the seeded initialisation, with the encoder's
-running min/max set from the first training batch as ``golf_tpu``'s
-trainer init does. Runs on CUDA unless ``--device cpu``.
+test split's ``avg_mss_loss`` and ``avg_mcd`` (MCD; the vocoder's
+``avg_mss_loss`` and ``avg_f0_loss``, the f0 error in cents), ``predict``
+writes one wav per item to ``<run_dir>/predictions`` (the vocoder's in
+6 s chunks crossfaded over 0.3 s). Without a checkpoint the weights are
+the seeded initialisation, with the running min/max set from the first
+training batch as ``golf_tpu``'s trainer init does. Runs on CUDA unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import argparse
 import json
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -36,6 +40,8 @@ from ..core.sig import Sig
 from ..train.loop import Trainer
 from ..utils.wav import write_wav
 from .ae import build_voice_autoencoder
+from .vocoder import (DDSPVocoder, build_ddsp_vocoder, chunked_ola_predict,
+                      run_vocoder_test)
 
 
 def _parse_args(argv: List[str]):
@@ -91,11 +97,14 @@ def trainer_kwargs(cfg: Dict) -> Dict:
         early_stop_patience=patience, check_finite=check_finite)
 
 
-def run(argv: List[str]) -> int:
+def run(argv: List[str], default_config: Optional[str] = None) -> int:
+    """Run one subcommand; ``default_config`` is read when no ``--config``
+    is given."""
     import yaml
 
     args = _parse_args(argv)
-    cfg = load_config(args.config, args.model, args.overrides)
+    configs = args.config or ([default_config] if default_config else [])
+    cfg = load_config(configs, args.model, args.overrides)
     device = resolve_device(args.device)
     run_dir = args.run_dir or cfg.get("run_dir") or os.path.join(
         "runs", time.strftime("%Y%m%d-%H%M%S"))
@@ -104,12 +113,15 @@ def run(argv: List[str]) -> int:
         yaml.safe_dump(cfg, f, sort_keys=False)
 
     model_node = cfg["model"]
-    if not model_node.get("class_path", "").endswith("VoiceAutoEncoder"):
-        raise ValueError(f"task {model_node.get('class_path')!r} is not "
-                         f"ported")
+    class_path = model_node.get("class_path", "")
+    build_fns = {"VoiceAutoEncoder": build_voice_autoencoder,
+                 "DDSPVocoder": build_ddsp_vocoder}
+    build = build_fns.get(class_path.rpartition(".")[2])
+    if build is None:
+        raise ValueError(f"task {class_path!r} is not ported")
     init_args = model_node.get("init_args", model_node)
     torch.manual_seed(cfg.get("seed_everything") or 2434)
-    task = build_voice_autoencoder(init_args, device=device)
+    task = build(init_args, device=device)
     datamodule = instantiate(cfg["data"])
     ckpt_path = args.ckpt_path or cfg.get("ckpt_path")
 
@@ -126,21 +138,35 @@ def run(argv: List[str]) -> int:
     if args.subcommand == "validate":
         print(json.dumps(trainer.validate(datamodule.val_dataloader())))
         return 0
+    vocoder = isinstance(task, DDSPVocoder)
     if args.subcommand == "test":
-        trainer.test(datamodule)
+        if vocoder:
+            print(json.dumps(run_vocoder_test(task, datamodule)))
+        else:
+            trainer.test(datamodule)
         return 0
 
     task.eval()
     sr = init_args.get("sample_rate", 24000)
     out_dir = os.path.join(run_dir, "predictions")
     generator = torch.Generator(device=device).manual_seed(0)
+
+    def resynth(frames: np.ndarray) -> np.ndarray:
+        y, _ = task.predict_step(Sig(torch.from_numpy(frames).to(device), 1),
+                                 generator=generator)
+        return y.data.cpu().numpy()
+
     datamodule.setup("predict")
     with torch.inference_mode():
         for x, f0, rel in datamodule.predict_dataloader():
-            y, _ = task.predict_step(Sig(torch.from_numpy(x).to(device), 1),
-                                     Sig(torch.from_numpy(f0).to(device), 1),
-                                     generator=generator)
-            write_wav(os.path.join(out_dir, rel[0]),
-                      np.asarray(y.data[0].cpu()), sr)
+            if vocoder:
+                audio = chunked_ola_predict(resynth, x, sr)
+            else:
+                y, _ = task.predict_step(
+                    Sig(torch.from_numpy(x).to(device), 1),
+                    Sig(torch.from_numpy(f0).to(device), 1),
+                    generator=generator)
+                audio = np.asarray(y.data[0].cpu())
+            write_wav(os.path.join(out_dir, rel[0]), audio, sr)
     print(f"predictions written to {out_dir}")
     return 0

@@ -402,13 +402,16 @@ def test_fit_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
 
 
 def test_port_sources_import_neither_jax_nor_golf_tpu():
-    """Every module of golf_tpu_torch (loss/ and train/ included) and
-    chip_smoke.py, read as source: no import of jax, flax, optax or
+    """Every module of golf_tpu_torch (loss/ and train/ included),
+    chip_smoke.py and the root entry points autoencode_torch.py and
+    main_torch.py, read as source: no import of jax, flax, optax or
     golf_tpu."""
     banned = ("jax", "flax", "optax", "golf_tpu")
     pkg = os.path.join(ROOT, "golf_tpu_torch")
     files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
-             if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py")]
+             if f.endswith(".py")] + [
+                 os.path.join(ROOT, name) for name in
+                 ("chip_smoke.py", "autoencode_torch.py", "main_torch.py")]
     assert any("/train/" in f for f in files)
     assert any("/loss/" in f for f in files)
     for path in files:

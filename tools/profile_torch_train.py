@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Where the training time of the PyTorch/CUDA port goes, on one GPU.
 
-    python tools/profile_torch_train.py [--out chiprun_out/profile_train]
+    python tools/profile_torch_train.py [--config vctk|vocoder]
+        [--out chiprun_out/profile_train]
 
-For the GOLF-ff (``golf.yaml``) and GOLF-ss (``golf-precise.yaml``)
-decoders on the full-width vctk encoder, with the seeded weights of
+``--config vctk`` (the default): the GOLF-ff (``golf.yaml``) and GOLF-ss
+(``golf-precise.yaml``) decoders on the full-width vctk encoder;
+``--config vocoder``: the ISMIR23 vocoder of ``cfg/vocoder.yaml`` with
+``golf-v1.yaml`` and ``ddsp.yaml``. With the seeded weights of
 ``chip_smoke.py``, one Adam step of the port's ``Trainer`` on B = 64
 synthetic items of 2 s:
 
 * forward stage times: CUDA events recorded by forward hooks around the
-  encoder, the harmonic source, the noise generator and filter, the end
-  filter, the room filter, and around the loss (median of 5 steps; idle
-  gaps inside a stage count);
+  encoder (and the vocoder's log-mel features), the harmonic source, the
+  noise generator and filter, the harmonic filter (vocoder), the end
+  filter, the room filter (vctk), and around the loss (median of 5 steps;
+  idle gaps inside a stage count);
 * backward stage times: CUDA events recorded when the gradient reaches each
   stage's output (tensor hooks), so a stage's backward is the interval
   from its output's gradient to the next stage's; the loss's backward runs
@@ -48,12 +52,22 @@ from golf_tpu_torch.ops import dsp  # noqa: E402
 from golf_tpu_torch.train.loop import Trainer  # noqa: E402
 from profile_torch_serve import busy_share  # noqa: E402
 
-FWD_STAGES = ("encoder", "decoder.harm_oscillator", "decoder.noise_generator",
-              "decoder.noise_filter", "decoder.end_filter",
-              "decoder.room_filter")
+# per config: the decoders, the seeded model, the forward stages, and the
 # stage outputs in the order the backward reaches them
-BWD_MARKS = ("decoder.room_filter", "decoder.end_filter",
-             "decoder.harm_oscillator", "encoder")
+CONFIGS = {
+    "vctk": (("golf", "golf-precise"), chip_smoke.seeded_model,
+             ("encoder", "decoder.harm_oscillator", "decoder.noise_generator",
+              "decoder.noise_filter", "decoder.end_filter",
+              "decoder.room_filter"),
+             ("decoder.room_filter", "decoder.end_filter",
+              "decoder.harm_oscillator", "encoder")),
+    "vocoder": (("golf-v1", "ddsp"), chip_smoke.vocoder_model,
+                ("feature_trsfm", "encoder", "decoder.harm_oscillator",
+                 "decoder.noise_generator", "decoder.harm_filter",
+                 "decoder.noise_filter", "decoder.end_filter"),
+                ("decoder.end_filter", "decoder.harm_filter",
+                 "decoder.harm_oscillator", "encoder")),
+}
 
 
 def _event() -> torch.cuda.Event:
@@ -76,11 +90,13 @@ def _first_tensor(out):
 class StepTimer:
     """Hooks that record CUDA events around the stages of one step."""
 
-    def __init__(self, task):
+    def __init__(self, task, fwd_stages, bwd_marks):
         self.marks = {}
         self.bwd = []
+        self.marked = []
         self.handles = []
-        for name in FWD_STAGES:
+        self.bwd_marks = bwd_marks
+        for name in fwd_stages:
             mod = task.get_submodule(name)
             self.handles += [
                 mod.register_forward_pre_hook(
@@ -103,8 +119,11 @@ class StepTimer:
 
     def _stop(self, name, out):
         self.marks[name][-1][1] = _event()
-        t = _first_tensor(out) if name in BWD_MARKS else None
-        if t is not None and t.requires_grad:
+        t = _first_tensor(out) if name in self.bwd_marks else None
+        # a pass-through stage returns its input: the mark stays with the
+        # stage that made the tensor
+        if t is not None and t.requires_grad and id(t) not in self.marked:
+            self.marked.append(id(t))
             t.register_hook(lambda g, name=name: self.bwd.append(
                 (name, _event())))
 
@@ -116,6 +135,7 @@ class StepTimer:
     def step(self, trainer, xs, f0s) -> dict:
         self.marks.clear()
         self.bwd.clear()
+        self.marked = []
         task, opt = trainer.task, trainer.optimizer
         task.train()
         opt.zero_grad()
@@ -140,8 +160,8 @@ class StepTimer:
         return out
 
 
-def cotangent_forms(timer: "StepTimer", trainer, xs, f0s, steps: int
-                    ) -> None:
+def cotangent_forms(timer: "StepTimer", trainer, xs, f0s, steps: int,
+                    decoder: str) -> None:
     """The step's median time under each form of ``wrapped_cumsum``'s
     cotangent, in turns."""
     shipped = dsp.reversed_cumsum
@@ -156,13 +176,14 @@ def cotangent_forms(timer: "StepTimer", trainer, xs, f0s, steps: int
             out.append(f"{label} {statistics.median(reps):.2f}")
     finally:
         dsp.reversed_cumsum = shipped
-    print(f"profile_train {trainer.task.decoder.end_filter.__class__.__name__}"
-          f": step ms (median of {steps}) with the cotangent of "
+    print(f"profile_train {decoder}: step ms (median of {steps}) with the "
+          f"cotangent of "
           f"wrapped_cumsum accumulated in " + ", ".join(out))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="vctk")
     ap.add_argument("--out", default="chiprun_out/profile_train")
     ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args()
@@ -176,18 +197,19 @@ def main() -> int:
     x, f0 = chip_smoke.requests(chip_smoke.TRAIN_BATCH,
                                 chip_smoke.TRAIN_SECONDS)
     xs, f0s = Sig(x.to(dev), 1), Sig(f0.to(dev), 1)
-    for decoder in ("golf", "golf-precise"):
+    decoders, build, fwd_stages, bwd_marks = CONFIGS[args.config]
+    for decoder in decoders:
         torch.manual_seed(chip_smoke.SEED)
-        task = chip_smoke.seeded_model(decoder, dev)
+        task = build(decoder, dev)
         task.init_running_stats(xs, f0s)
         trainer = Trainer(task, run_dir=os.path.join(args.out, decoder),
                           seed=chip_smoke.SEED)
         for _ in range(2):
             trainer.train_step(xs, f0s)
         torch.cuda.synchronize()
-        timer = StepTimer(task)
+        timer = StepTimer(task, fwd_stages, bwd_marks)
         reps = [timer.step(trainer, xs, f0s) for _ in range(args.steps)]
-        cotangent_forms(timer, trainer, xs, f0s, args.steps)
+        cotangent_forms(timer, trainer, xs, f0s, args.steps, decoder)
         timer.remove()
         stages = {k: statistics.median(r.get(k, 0.0) for r in reps)
                   for k in reps[0]}
