@@ -81,7 +81,18 @@ Phases (any failure exits non-zero):
     ``coef_smooth_weight`` 0.1 through the CLI's ``fit`` (B1, B3b, B4 and
     B4's adjoint entry once a step, B3a never), and one B = 2 x 1 s SGD
     step card vs CPU;
-12. vocoder: the ISMIR23 mel vocoder (``main_torch.py``, ``cfg/vocoder.yaml``,
+12. baselines: the Interspeech24 baselines (``nhv.yaml``, ``mlsa.yaml``,
+    ``mlsa-taylor.yaml``, ``world.yaml``: ``AdditivePulseTrain`` with
+    ``LTVCepFilter``, ``LTVMLSAFilter`` freq-domain and Taylor,
+    ``DiffWorldSPFilter``) on the full-width vctk encoder: each serves
+    4 x 6 s (a first call, then two timed) with a 2 s request card vs CPU
+    (1e-3 of max|y|), takes 3 Adam steps at B = 64 x 2 s (step times, peak
+    memory) and one B = 2 x 1 s training step card vs CPU (loss 1e-4
+    relative, gradients 1e-3 of max-abs, the conv pyramid 2e-2); then
+    ``fit`` (2 steps) and ``test`` through the CLI for nhv and world from
+    the VCTK tree; no kernel may launch on this path; a ``baselines`` JSON
+    line;
+13. vocoder: the ISMIR23 mel vocoder (``main_torch.py``, ``cfg/vocoder.yaml``,
     full width: 80 mels, Mel2Control 128 x 3) from a miniature MPop600 tree
     it writes (flat ``f1_NNN.wav`` and ``.pv``: 001-003 test, 004-006 valid,
     six train files of 10 s, 102 segments of 2 s at overlap 1.5): ``fit``
@@ -98,7 +109,7 @@ Phases (any failure exits non-zero):
     the CPU's float32 distance of a float64 CPU run); 3 Adam steps each of
     golf-v1 and ``ddsp.yaml`` (155 harmonics, no kernel) through the
     Trainer, with step times and peak memory; a ``vocoder`` JSON line;
-13. summary: a ``kernels:`` line, the card, then one JSON line with the
+14. summary: a ``kernels:`` line, the card, then one JSON line with the
     kernel table; B1's and B3b's ``library_ms`` is ``F.grid_sample`` on the
     table padded with its first column, and its backward with respect to
     the table (B3a's is null: no one call returns its three outputs); B1's
@@ -108,7 +119,7 @@ Phases (any failure exits non-zero):
     rows carry ``vocoder_serve`` (the vocoder's serving shapes and the
     vocoder phase's launches); ``launches`` counts every phase, the
     vocoder's included;
-14. last line: ``{"ok": true, "device": {...}}``.
+15. last line: ``{"ok": true, "device": {...}}``.
 Each phase's seconds are printed as it ends.
 
 Needs one CUDA device, and exits non-zero without one. Imports torch and
@@ -265,10 +276,20 @@ _END_FILTERS = {
 }
 
 
+# the Interspeech24 baselines (phase "baselines"): their decoder nodes are
+# read from the checkout's YAML
+BASELINES = ("nhv", "mlsa", "mlsa-taylor", "world")
+_CFG_DIR = Path(__file__).resolve().parent / "cfg" / "ae" / "decoder"
+
+
 def model_config(decoder: str) -> dict:
     """model.init_args for ``cfg/ae/vctk.yaml`` + ``cfg/ae/decoder/<decoder>
     .yaml``."""
     cfg = copy.deepcopy(_MODEL)
+    if decoder in BASELINES:
+        cfg["decoder"] = load_config([str(_CFG_DIR / f"{decoder}.yaml")])[
+            "decoder"]
+        return cfg
     cfg["decoder"] = {
         "class_path": "models.sf.SourceFilterSynth",
         "init_args": {
@@ -1138,8 +1159,8 @@ def phase_test(decoder: str) -> dict:
 
 def seeded_model(decoder: str, device) -> VoiceAutoEncoder:
     """Full-width model with seeded weights; the zero-initialised head and
-    acoustic filter get small random values so the LPC and the room filter
-    are not the identity."""
+    acoustic filter (the room filter, or NHV's end filter) get small random
+    values so the LPC and the acoustic filter are not the identity."""
     torch.manual_seed(SEED)
     task = build_voice_autoencoder(model_config(decoder), device="cpu")
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -1148,8 +1169,10 @@ def seeded_model(decoder: str, device) -> VoiceAutoEncoder:
         head.weight.copy_(0.004 * torch.randn(head.weight.shape,
                                               generator=gen))
         head.bias.copy_(0.05 * torch.randn(head.bias.shape, generator=gen))
-        room = task.decoder.room_filter.kernel
-        room.copy_(0.01 * torch.randn(room.shape, generator=gen))
+        acoustic = getattr(task.decoder, "room_filter", None) or \
+            task.decoder.end_filter
+        acoustic.kernel.copy_(0.01 * torch.randn(acoustic.kernel.shape,
+                                                 generator=gen))
     return task.to(device)
 
 
@@ -1160,7 +1183,7 @@ def requests(n: int, seconds: float):
             torch.from_numpy(np.stack([f for _, f in items])))
 
 
-def phase_serve(decoder: str, expect: dict) -> dict:
+def phase_serve(decoder: str, expect: dict) -> tuple:
     dev = torch.device("cuda")
     task = seeded_model(decoder, dev)
     x, f0 = requests(BATCH, SECONDS)
@@ -1169,8 +1192,9 @@ def phase_serve(decoder: str, expect: dict) -> dict:
     task.eval()
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
+    # the baselines' decoders run no kernel
     path = {"golf": ("lookup", "allpole_const"),
-            "golf-precise": ("lookup", "allpole_tv")}[decoder]
+            "golf-precise": ("lookup", "allpole_tv")}.get(decoder, ())
     for k in kernels.ALL:
         k.launches = 0
     latencies = []
@@ -1191,6 +1215,8 @@ def phase_serve(decoder: str, expect: dict) -> dict:
         k = next(k for k in kernels.ALL if k.name == name)
         check(k.last_shapes == expect[name],
               f"{name} shapes {k.last_shapes} == {expect[name]}")
+    for name, n in counts.items():
+        check(name in path or n == 0, f"{decoder} serve launched {name}")
     print(f"serve {decoder}: latency per request (B={BATCH} x {SECONDS:.0f} "
           f"s, batched) first {latencies[0] * 1e3:.1f} ms, then "
           f"{', '.join(f'{s * 1e3:.1f}' for s in latencies[1:])} ms")
@@ -1212,11 +1238,11 @@ def phase_serve(decoder: str, expect: dict) -> dict:
            / y_cpu.data.abs().max()).item()
     print(f"serve {decoder}: 2 s request, card vs CPU: max err / max|y| "
           f"{rel:.3e} (tolerance 1e-3: cuDNN LSTM and cuFFT sum in another "
-          f"order than the CPU, and the all-pole kernels run the "
-          f"sequential (B2) and chunked float64 (B4) forms where the CPU "
-          f"runs the blocked float32 forms)")
+          f"order than the CPU, and the all-pole kernels, where the decoder "
+          f"runs them, the sequential (B2) and chunked float64 (B4) forms "
+          f"where the CPU runs the blocked float32 forms)")
     check(rel <= 1e-3, f"{decoder} card vs CPU")
-    return counts
+    return counts, {"ms": [t * 1e3 for t in latencies], "vs_cpu": rel}
 
 
 def train_model_config(decoder: str, dropout: float = None,
@@ -1228,10 +1254,11 @@ def train_model_config(decoder: str, dropout: float = None,
     return cfg
 
 
-def phase_train(decoder: str, expect: dict) -> dict:
+def phase_train(decoder: str, expect: dict) -> tuple:
     """3 Adam steps of the full-width model on B = 64 x 2 s through the
     port's Trainer; every loss finite; the path's kernels launched at the
-    training shapes."""
+    training shapes, no other (none for the baselines). Returns (launches,
+    step times and peak memory)."""
     dev = torch.device("cuda")
     torch.manual_seed(SEED)
     task = seeded_model(decoder, dev)
@@ -1244,7 +1271,7 @@ def phase_train(decoder: str, expect: dict) -> dict:
     path = {"golf": ("lookup", "lookup_dtab", "allpole_const",
                      "allpole_const_adjoint"),
             "golf-precise": ("lookup", "lookup_dtab", "allpole_tv",
-                             "allpole_tv_adjoint")}[decoder]
+                             "allpole_tv_adjoint")}.get(decoder, ())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.ALL:
@@ -1268,7 +1295,9 @@ def phase_train(decoder: str, expect: dict) -> dict:
           f"{peak:.2f} GiB; launches {counts}")
     check(all(np.isfinite(losses)), f"{decoder} train losses finite")
     check_train_launches(decoder, counts, path, TRAIN_STEPS, expect)
-    return counts
+    for name, n in counts.items():
+        check(name in path or n == 0, f"{decoder} train launched {name}")
+    return counts, {"step_ms": [t * 1e3 for t in times], "peak_gib": peak}
 
 
 def check_train_launches(label: str, counts: dict, path, steps: int,
@@ -1327,7 +1356,7 @@ def phase_train_f0() -> dict:
 
 
 def phase_train_vs_cpu(decoder: str, state: dict = None,
-                       optimizer: dict = None, **model_args) -> None:
+                       optimizer: dict = None, **model_args) -> dict:
     """One training step at B = 2 x 1 s, full width, on the card and on the
     CPU: same weights (``seeded_model``'s, or ``state``), noise and random
     f0, dropout 0, train mode (cuDNN has no RNN backward in eval mode, and
@@ -1399,11 +1428,13 @@ def phase_train_vs_cpu(decoder: str, state: dict = None,
           f"vs {losses[1]:.6f} (rel {rel_loss:.2e}, tolerance 1e-4), worst "
           f"gradient {worst_name} {worst:.2e} of its max|ref| (tolerance "
           f"{TRAIN_GRAD_TOL:g}, the conv pyramid {PYRAMID_GRAD_TOL:g}: "
-          f"cuDNN, cuFFT and the all-pole kernels (sequential B2, chunked "
-          f"float64 B4) sum in other orders than the CPU's oneDNN, "
-          f"pocketfft and blocked forms)")
+          f"cuDNN, cuFFT and the all-pole kernels where the decoder runs "
+          f"them (sequential B2, chunked float64 B4) sum in other orders "
+          f"than the CPU's oneDNN, pocketfft and blocked forms)")
     check(rel_loss <= 1e-4, f"{decoder} train loss card vs CPU")
     check(worst <= TRAIN_GRAD_TOL, f"{decoder} train gradients card vs CPU")
+    summary = {"loss_rel": rel_loss, "worst_grad": worst,
+               "worst_grad_name": worst_name}
     if optimizer is not None:
         after = {n: p.detach().cpu() for n, p in gpu_task.named_parameters()}
         ref = dict(cpu_task.named_parameters())
@@ -1415,6 +1446,65 @@ def phase_train_vs_cpu(decoder: str, state: dict = None,
               f"{STEP_WEIGHT_TOL:g})")
         check(err <= STEP_WEIGHT_TOL * scale,
               f"{decoder} {optimizer['optimizer']} step card vs CPU")
+    return summary
+
+
+def phase_baselines() -> tuple:
+    """The Interspeech24 baselines (NHV, MLSA, MLSA-Taylor, WORLD) on the
+    full-width vctk encoder: for each, 4 x 6 s served (``phase_serve``: a
+    first call, then two timed) with a 2 s request card vs CPU, 3 Adam steps
+    at B = 64 x 2 s (``phase_train``: step times, peak memory) and one
+    B = 2 x 1 s training step card vs CPU (``phase_train_vs_cpu``). These
+    decoders are FFT and elementwise work: no kernel may launch. Returns
+    (launches, the summary for the ``baselines`` line)."""
+    counts = {k.name: 0 for k in kernels.ALL}
+    summary = {}
+    for decoder in BASELINES:
+        serve_counts, serve = phase_serve(decoder, {})
+        train_counts, train = phase_train(decoder, {})
+        for c in (serve_counts, train_counts):
+            for name, n in c.items():
+                counts[name] += n
+        summary[decoder] = {"serve": serve, "train": train,
+                            "train_vs_cpu": phase_train_vs_cpu(decoder)}
+    check(not any(counts.values()), f"the baselines launched {counts}")
+    return counts, summary
+
+
+def phase_baselines_cli(tree: Path, out: Path) -> tuple:
+    """``autoencode_torch.py fit`` (2 steps at B = 64 x 2 s) and ``test`` of
+    that checkpoint (the 64-segment test split) from the VCTK tree, for nhv
+    and world; finite losses and metrics, no kernel launched. Returns
+    (launches, the step times and test metrics)."""
+    counts = {k.name: 0 for k in kernels.ALL}
+    summary = {}
+    for decoder in ("nhv", "world"):
+        yaml_path = str(_CFG_DIR / f"{decoder}.yaml")
+        run_dir = out / decoder
+        with StepProbe() as probe:
+            fit_counts = cli_run(["fit", *disk_args(tree, yaml_path, run_dir),
+                                  "trainer.max_steps=2"])
+        print(f"baselines CLI fit {decoder}: losses {probe.losses}, step "
+              f"wall time {[f'{t * 1e3:.1f}' for t in probe.times]} ms")
+        check(len(probe.times) == 2 and all(np.isfinite(probe.losses)),
+              f"{decoder} CLI fit: 2 finite steps")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            test_counts = cli_run(["test", *disk_args(tree, yaml_path,
+                                                      out / f"{decoder}-t"),
+                                   "--ckpt_path",
+                                   str(run_dir / "ckpt" / "last")])
+        print(text.getvalue(), end="")
+        result = json.loads(text.getvalue().strip().splitlines()[-1])
+        check(all(np.isfinite(v) for v in result.values()),
+              f"{decoder} CLI test metrics finite")
+        for c in (fit_counts, test_counts):
+            for name, n in c.items():
+                counts[name] += n
+        summary[decoder] = {"fit_step_ms": [t * 1e3 for t in probe.times],
+                            "test": result}
+    check(not any(counts.values()), f"the baselines' CLI launched {counts}")
+    return counts, summary
 
 
 # ---------------------------------------------------------------------------
@@ -2107,10 +2197,10 @@ def main() -> int:
         return c
 
     for decoder in ("golf", "golf-precise"):
-        add(phase_serve(decoder, serve_shapes))
+        add(phase_serve(decoder, serve_shapes)[0])
     t0 = done("serve", t0)
     for decoder in ("golf", "golf-precise"):
-        add(phase_train(decoder, train_shapes))
+        add(phase_train(decoder, train_shapes)[0])
         phase_train_vs_cpu(decoder)
     t0 = done("train", t0)
     add(phase_train_f0())
@@ -2135,6 +2225,11 @@ def main() -> int:
         ft_counts, ft_probe = phase_finetune(tree, ckpt, out)
         add(ft_counts)
         t0 = done("finetune", t0)
+        base_counts, baselines = phase_baselines()
+        add(base_counts)
+        cli_counts, baselines["cli"] = phase_baselines_cli(tree, out)
+        add(cli_counts)
+        t0 = done("baselines", t0)
     voc_counts, vocoder = phase_vocoder()
     add(voc_counts)
     t0 = done("vocoder", t0)
@@ -2144,6 +2239,8 @@ def main() -> int:
         "finetune_step_ms": [t * 1e3 for t in ft_probe.times],
         "phase_s": phase_s}}))
     print(json.dumps({"vocoder": {**vocoder, "launches": voc_counts}}))
+    print(json.dumps({"baselines": {**baselines, "launches": {
+        name: base_counts[name] + cli_counts[name] for name in base_counts}}}))
 
     replaces = {"lookup": "golf_tpu/ops/lookup_pallas.py:107",
                 "lookup_res": "golf_tpu/ops/lookup_pallas.py:222",

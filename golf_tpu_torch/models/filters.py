@@ -1,26 +1,43 @@
-"""Time-varying and time-invariant synthesis filters (counterpart of the
-GOLF part of ``golf_tpu.models.filters``).
+"""Time-varying and time-invariant synthesis filters (counterpart of
+``golf_tpu.models.filters``).
 
 * ``LTVMinimumPhaseFilterPrecise`` (GOLF-ss): sample-wise time-varying
   all-pole filter over the whole clip (``ops.allpole.allpole``).
 * ``LTVMinimumPhaseFilter`` (GOLF-ff): constant-coefficient LPC per
   overlapping window (``ops.allpole.allpole_const``) + windowed overlap-add.
 * ``LTVZeroPhaseFIRFilter``: frame-wise zero-phase FIR noise shaping by FFT;
-  ``LTVZeroPhaseFIRFilterPrecise`` its sample-wise twin (GOLF-fs).
-* ``LTIAcousticFilter``: identity + strictly causal learned taps.
+  ``LTVZeroPhaseFIRFilterPrecise`` its sample-wise twin (GOLF-fs),
+  ``LTVAPZeroPhaseFIRFilter`` its aperiodicity variant.
+* ``LTVMinimumPhaseFIRFilter`` and its ``Precise`` twin: minimum-phase FIR
+  from log-magnitude frames, frame-wise by FFT or sample-wise.
+* ``LTIAcousticFilter``: identity + strictly causal learned taps;
+  ``LTIRadiationFilter``: the fixed 33-tap radiation FIR.
+* The Interspeech24 baselines' spectral filters, all by (inverse) STFT:
+  ``LTVCepFilter`` (NHV's harmonic filter), ``LTVMLSAFilter`` (MLSA,
+  ``freq-domain`` or the ``multi-stage`` Taylor cascade), its variants
+  ``LTVMLSAFilter2`` and ``LTVAPFilter``, and ``DiffWorldSPFilter``
+  (∇WORLD).
+
+The sharded branches of ``golf_tpu`` are not ported.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..core.sig import Sig
+from ..ops import stft as stft_ops
 from ..ops.allpole import allpole, allpole_const
-from ..ops.dsp import get_window_fn, rc2lpc, unfold, zero_phase_fir
+from ..ops.cepstrum import freqt, mc2sp_log, mcep, minimum_phase_response
+from ..ops.dsp import (fir_filt, get_radiation_time_filter, get_window_fn,
+                       minimum_phase_fir, minimum_phase_spectrum, rc2lpc,
+                       unfold, zero_phase_fir)
 from ..ops.fftsize import conv_fft_size
 from .ctrl import Controllable
 
@@ -142,6 +159,63 @@ class LTVMinimumPhaseFilter(LTVMinimumPhaseFilterPrecise):
         return Sig(y, 1)
 
 
+class SampleBasedLTVMinimumPhaseFilter(LTVMinimumPhaseFilterPrecise):
+    """Deprecated alias of ``LTVMinimumPhaseFilterPrecise``, kept for
+    configs and checkpoints."""
+
+
+class LTVMinimumPhaseFIRFilterPrecise(LTVFilterInterface):
+    """Sample-wise minimum-phase FIR: the kernel of every frame (its
+    window's first half set to 1), linearly upsampled to every sample and
+    applied causally (``fir_filt``)."""
+
+    def __init__(self, window: str = "hanning", n_mag: Optional[int] = None):
+        super().__init__()
+        self.window = window
+        self.n_mag = n_mag
+
+    @property
+    def split_sizes(self) -> Tuple[int, ...]:
+        return (self.n_mag,) if self.n_mag else ()
+
+    def ctrl(self, x: Sig) -> Tuple[Sig, ...]:
+        return (x,)
+
+    def _window_kernel(self, kernel: torch.Tensor) -> torch.Tensor:
+        k = kernel.shape[-1]
+        w = np.asarray(get_window_fn(self.window)(k))
+        w[:k // 2] = 1.0
+        return kernel * torch.as_tensor(w, dtype=kernel.dtype,
+                                        device=kernel.device)
+
+    def forward(self, ex: Sig, log_mag: Sig) -> Sig:
+        kernel = self._window_kernel(minimum_phase_fir(log_mag.data))
+        up = Sig(kernel, log_mag.hop).reduce_hop_length()
+        t = min(ex.steps, up.steps)
+        return Sig(fir_filt(ex.data[:, :t], up.data[:, :t]), 1)
+
+
+class LTVMinimumPhaseFIRFilter(LTVMinimumPhaseFIRFilterPrecise):
+    """Frame-wise minimum-phase FIR: causal padding, then one FFT
+    convolution a frame."""
+
+    def __init__(self, window: str = "hanning", n_mag: Optional[int] = None,
+                 conv_method: str = "fft"):
+        super().__init__(window, n_mag)
+        if conv_method != "fft":
+            raise NotImplementedError(f"conv_method {conv_method!r}")
+
+    def forward(self, ex: Sig, log_mag: Sig) -> Sig:
+        hop = log_mag.hop
+        kernel = self._window_kernel(minimum_phase_fir(log_mag.data))
+        k = kernel.shape[-1]
+        frames = unfold(F.pad(ex.data, (k - 1, 0)), k + hop - 1, hop)
+        f = min(frames.shape[1], kernel.shape[1])
+        out = _fft_frame_conv(frames[:, :f], kernel[:, :f], hop,
+                              correlate=False)
+        return Sig(out.reshape(ex.shape[0], -1), 1)
+
+
 class LTVZeroPhaseFIRFilterPrecise(LTVFilterInterface):
     """Sample-wise zero-phase FIR (GOLF-fs's noise filter): the windowed
     kernel of every frame, linearly upsampled to every sample, applied to
@@ -199,6 +273,16 @@ class LTVZeroPhaseFIRFilter(LTVZeroPhaseFIRFilterPrecise):
         return Sig(out.reshape(ex.shape[0], -1), 1)
 
 
+class LTVAPZeroPhaseFIRFilter(LTVZeroPhaseFIRFilter):
+    """Aperiodicity variant: the ctrl is ``log(sigmoid(x) * sqrt(n_fft))``,
+    n_fft = 2 (n_mag - 1)."""
+
+    def ctrl(self, x: Sig) -> Tuple[Sig, ...]:
+        n_fft = 2 * (self.n_mag - 1)
+        return (Sig(torch.log(torch.sigmoid(x.data) * math.sqrt(n_fft)),
+                    x.hop),)
+
+
 class LTIAcousticFilter(FilterInterface):
     """Learnable LTI FIR: identity + strictly causal learned taps,
     ``out[n] = x[n] + sum_k kernel[k] x[n - L + 1 + k]`` over delays
@@ -221,3 +305,234 @@ class LTIAcousticFilter(FilterInterface):
             * torch.fft.rfft(torch.flip(self.kernel, (0,)), n=nfft), n=nfft)
         out = F.pad(conv[:, :t - 1], (1, 0))
         return ex + Sig(out, 1)
+
+
+class LTIRadiationFilter(FilterInterface):
+    """The fixed radiation FIR (``get_radiation_time_filter``, 2 *
+    num_zeros + 1 taps, windowed) as a centred correlation."""
+
+    def __init__(self, num_zeros: int = 16, window: str = "hanning"):
+        super().__init__()
+        k = get_radiation_time_filter(num_zeros, get_window_fn(window))
+        self.register_buffer("kernel", torch.tensor(k, dtype=torch.float32),
+                             persistent=False)
+
+    def forward(self, ex: Sig) -> Sig:
+        pad = self.kernel.shape[0] // 2
+        xp = F.pad(ex.data, (pad, pad))[:, None, :]
+        w = self.kernel.to(xp.dtype)[None, None, :]
+        return Sig(F.conv1d(xp, w)[:, 0, :], 1)
+
+
+# ---------------------------------------------------------------------------
+# Mel-cepstral and spectral-envelope filters
+# ---------------------------------------------------------------------------
+
+class LTVMLSAFilter(LTVFilterInterface):
+    """Differentiable MLSA synthesis filter on mel-cepstrum frames (hop
+    ``frame_period``), ``x`` cut to whole frames.
+
+    * ``freq-domain`` (and ``single-stage``): mel-cepstrum -> log spectrum
+      (``mc2sp_log``) -> its minimum-phase response (or ``exp`` of it when
+      ``phase`` is not minimum) -> a product with the one-sided STFT of x ->
+      the inverse STFT at x's length.
+    * ``multi-stage``: the Taylor cascade ``exp(c0) * sum_{q<=Q} C^q x / q!``
+      of the unwarped cepstrum (``freqt`` to ``cep_order``), C the FIR of
+      taps c_1..c_K held within each frame: one FFT convolution a frame
+      and stage.
+    """
+
+    def __init__(self, filter_order: int = 24, frame_period: int = 240,
+                 alpha: float = 0.46, gamma: float = 0.0,
+                 mode: str = "freq-domain", cep_order: Optional[int] = None,
+                 frame_length: int = 1024, fft_length: int = 1024,
+                 window: str = "hanning", phase: str = "minimum",
+                 taylor_order: int = 20):
+        super().__init__()
+        self.filter_order = filter_order
+        self.frame_period = frame_period
+        self.alpha = alpha
+        self.gamma = gamma
+        self.mode = mode
+        self.cep_order = cep_order
+        self.frame_length = frame_length
+        self.fft_length = fft_length
+        self.window = window
+        self.phase = phase
+        self.taylor_order = taylor_order
+
+    @property
+    def split_sizes(self) -> Tuple[int, ...]:
+        return (self.filter_order + 1,)
+
+    def ctrl(self, x: Sig) -> Tuple[Sig, ...]:
+        return (x,)
+
+    def _filter_freq_domain(self, x: torch.Tensor,
+                            mc_d: torch.Tensor) -> torch.Tensor:
+        n_fft = self.fft_length
+        hop = self.frame_period
+        # multi-stage truncates the unwarped cepstrum at cep_order (this
+        # realization runs with it in LTVMLSAFilter2), freq-domain takes
+        # the full half-spectrum order
+        lin_order = (self.cep_order or None) if self.mode == "multi-stage" \
+            else None
+        log_mag = mc2sp_log(mc_d, n_fft, self.alpha, lin_order=lin_order)
+        if self.phase in ("minimum", "min"):
+            h = minimum_phase_response(log_mag)
+        else:
+            h = torch.exp(log_mag)
+        spec = stft_ops.stft(x, n_fft, hop, window=self.window, center=True)
+        f = min(spec.shape[-1], h.shape[1])
+        return stft_ops.istft(
+            spec[..., :f] * h[:, :f].transpose(1, 2), n_fft, hop,
+            window=self.window, center=True, length=x.shape[1])
+
+    def _filter_multi_stage(self, x: torch.Tensor,
+                            mc_d: torch.Tensor) -> torch.Tensor:
+        hop = self.frame_period
+        k_ord = self.cep_order or 4 * self.filter_order
+        c_lin = freqt(mc_d, k_ord, -self.alpha)       # (B, F, K+1)
+        gain = torch.exp(c_lin[..., 0])               # (B, F)
+        taps = F.pad(c_lin[..., 1:], (1, 0))
+        b, t = x.shape
+        frames = mc_d.shape[1]
+
+        def tv_fir(u: torch.Tensor) -> torch.Tensor:
+            fr = unfold(F.pad(u, (k_ord, 0)), hop + k_ord, hop)
+            seg = _fft_frame_conv(fr[:, :frames], taps, hop, correlate=False)
+            return seg.reshape(b, -1)
+
+        acc = x
+        term = x
+        for q in range(1, self.taylor_order + 1):
+            term = tv_fir(term) / q
+            acc = acc + term
+        return acc * torch.repeat_interleave(gain, hop, dim=1)[:, :t]
+
+    def _whole_frames(self, ex: Sig, mc: Sig
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if mc.hop != self.frame_period:
+            raise ValueError(f"mc hop {mc.hop} != {self.frame_period}")
+        frames = ex.data.shape[1] // self.frame_period
+        return (ex.data[:, :frames * self.frame_period],
+                mc.data[:, :frames])
+
+    def forward(self, ex: Sig, mc: Sig, **kwargs) -> Sig:
+        x, mc_d = self._whole_frames(ex, mc)
+        if self.mode == "multi-stage":
+            return Sig(self._filter_multi_stage(x, mc_d), 1)
+        return Sig(self._filter_freq_domain(x, mc_d), 1)
+
+
+class LTVMLSAFilter2(LTVMLSAFilter):
+    """The spectral realization, whatever ``mode`` says."""
+
+    def forward(self, ex: Sig, mc: Sig, **kwargs) -> Sig:
+        return Sig(self._filter_freq_domain(*self._whole_frames(ex, mc)), 1)
+
+
+class LTVAPFilter(LTVMLSAFilter):
+    """Aperiodicity through MLSA: ctrl is ``mcep(sigmoid(x))``; zero phase
+    by default."""
+
+    def __init__(self, n_mag: int = 257, phase: str = "zero", **kwargs):
+        super().__init__(phase=phase, **kwargs)
+        self.n_mag = n_mag
+
+    @property
+    def split_sizes(self) -> Tuple[int, ...]:
+        return (self.n_mag,)
+
+    def ctrl(self, x: Sig) -> Tuple[Sig, ...]:
+        return (Sig(mcep(torch.sigmoid(x.data), self.filter_order,
+                         self.alpha), x.hop),)
+
+
+class LTVCepFilter(LTVFilterInterface):
+    """NHV's harmonic filter: cepstrum frames -> a log magnitude (zero-,
+    then reflect-padded to n_fft, real FFT) -> zero-phase or, by the
+    Hilbert transform, minimum-phase response -> a product with the
+    two-sided STFT -> the two-sided inverse STFT, without ``length``: the
+    output is (frames - 1) * hop long."""
+
+    def __init__(self, filter_order: int = 240, n_fft: int = 1024,
+                 window: str = "hanning", hop_length: int = 240,
+                 phase: str = "zero"):
+        super().__init__()
+        self.filter_order = filter_order
+        self.n_fft = n_fft
+        self.window = window
+        self.hop_length = hop_length
+        self.phase = phase
+
+    @property
+    def split_sizes(self) -> Tuple[int, ...]:
+        return (self.filter_order + 1,)
+
+    def ctrl(self, x: Sig) -> Tuple[Sig, ...]:
+        return (x,)
+
+    def forward(self, ex: Sig, ceps: Sig, **kwargs) -> Sig:
+        if ceps.hop != self.hop_length:
+            raise ValueError(f"ceps hop {ceps.hop} != {self.hop_length}")
+        n_fft = self.n_fft
+        c = F.pad(ceps.data, (0, n_fft // 2 - self.filter_order))
+        b, f, n = c.shape
+        c = F.pad(c.reshape(b * f, 1, n), (0, n_fft // 2 - 1),
+                  mode="reflect").reshape(b, f, n_fft)
+        log_mag = torch.fft.fft(c, dim=-1).real       # (B, F, n_fft)
+        if self.phase == "zero":
+            h = torch.exp(log_mag)
+        else:
+            h = minimum_phase_spectrum(log_mag)
+        h = h.transpose(1, 2)                         # (B, n_fft, F)
+        spec = stft_ops.stft(ex.data, n_fft, self.hop_length,
+                             window=self.window, center=True, onesided=False)
+        f = min(spec.shape[-1], h.shape[-1])
+        return Sig(stft_ops.istft(spec[..., :f] * h[..., :f], n_fft,
+                                  self.hop_length, window=self.window,
+                                  center=True, onesided=False), 1)
+
+
+class DiffWorldSPFilter(LTVFilterInterface):
+    """∇WORLD's spectral-envelope filter: mel bins -> the non-negative part
+    of the mel filterbank's pseudo-inverse (a buffer, host numpy from the
+    float32 filterbank, as ``golf_tpu``'s) -> the square root of the
+    envelope -> a product with the one-sided STFT -> the inverse STFT."""
+
+    def __init__(self, n_mels: int = 80, n_fft: int = 1024,
+                 hop_length: int = 240, f_min: float = 0.0,
+                 f_max: float = 12000.0, sample_rate: int = 24000,
+                 center: bool = True, window: str = "hanning"):
+        super().__init__()
+        self.n_mels = n_mels
+        self.n_fft = n_fft
+        self.hop_length = hop_length
+        self.center = center
+        self.window = window
+        fb = stft_ops.melscale_fbanks(n_fft // 2 + 1, f_min, f_max, n_mels,
+                                      sample_rate)
+        inv_fb = np.maximum(np.linalg.pinv(fb), 0.0)
+        self.register_buffer("inv_fb", torch.tensor(inv_fb,
+                                                    dtype=torch.float32),
+                             persistent=False)
+
+    @property
+    def split_sizes(self) -> Tuple[int, ...]:
+        return (self.n_mels,)
+
+    def ctrl(self, x: Sig) -> Tuple[Sig, ...]:
+        return (Sig(torch.exp(x.data), x.hop),)
+
+    def forward(self, ex: Sig, mel_sp: Sig) -> Sig:
+        if mel_sp.hop != self.hop_length:
+            raise ValueError(f"mel hop {mel_sp.hop} != {self.hop_length}")
+        sp = mel_sp.data @ self.inv_fb.to(mel_sp.dtype)  # (B, F, bins)
+        sp = torch.sqrt(torch.clamp(sp, min=0.0)).transpose(1, 2)
+        spec = stft_ops.stft(ex.data, self.n_fft, self.hop_length,
+                             window=self.window, center=self.center)
+        f = min(spec.shape[-1], sp.shape[-1])
+        return Sig(stft_ops.istft(spec[..., :f] * sp[..., :f], self.n_fft,
+                                  self.hop_length, window=self.window,
+                                  center=self.center), 1)

@@ -162,16 +162,26 @@ class HarmonicOscillator(OscillatorInterface):
     """Additive sine bank with hard anti-aliasing: harmonic k of the phase
     is k times one wrapped cumsum of the base phase (exact mod 1 for an
     integer k), and its amplitude is zero where k times the phase
-    increment reaches 0.5 cycles a sample. Plain PyTorch, as ``golf_tpu``
-    computes it outside any kernel."""
+    increment reaches 0.5 cycles a sample. ``phase_offset`` (B, T) at hop
+    1 adds k times itself to harmonic k, ``initial_phase`` (B, n) its own
+    cycles to each harmonic. Plain PyTorch, as ``golf_tpu`` computes it
+    outside any kernel."""
 
-    def forward(self, phase: Sig, amplitudes: Sig) -> Sig:
+    def forward(self, phase: Sig, amplitudes: Sig,
+                initial_phase: Optional[torch.Tensor] = None,
+                phase_offset: Optional[Sig] = None) -> Sig:
         n_harm = amplitudes.shape[-1]
         up_phase = phase.reduce_hop_length()
         base = wrapped_cumsum(up_phase.data)
         harm_series = torch.arange(1, n_harm + 1, dtype=base.dtype,
                                    device=base.device)
         inst = base[..., None] * harm_series
+        if phase_offset is not None:
+            inst = inst + phase_offset.data[..., None] * harm_series
+        if initial_phase is not None:
+            init = initial_phase.data if isinstance(initial_phase, Sig) \
+                else initial_phase
+            inst = inst + init[:, None, :]
         harm_freq = up_phase.data[..., None] * harm_series
         amp = amplitudes.reduce_hop_length().truncate(base.shape[1])
         t = min(amp.steps, base.shape[1])
@@ -179,6 +189,13 @@ class HarmonicOscillator(OscillatorInterface):
         return Sig(torch.einsum("btn,btn->bt",
                                 torch.sin(inst[:, :t] * (2 * math.pi)),
                                 amp_d), 1)
+
+
+def _num_freq_bins(phase: torch.Tensor) -> torch.Tensor:
+    """``0.5 / phase`` as a true division on every device (PyTorch's
+    ``0.5 / tensor`` is the reciprocal times 0.5)."""
+    return torch.full((), 0.5, dtype=phase.dtype,
+                      device=phase.device) / phase
 
 
 class AdditiveSynthesizer(HarmonicOscillator):
@@ -199,13 +216,10 @@ class AdditiveSynthesizer(HarmonicOscillator):
             torch.sigmoid(amp_logits.data)
         return (Sig(amp, amp_logits.hop),)
 
-    def forward(self, phase: Sig, amplitudes: Sig) -> Sig:
-        # 0.5 / phase as a true division on every device (PyTorch's
-        # ``0.5 / tensor`` is the reciprocal times 0.5)
-        d = phase.data
-        num_freq_bins = torch.full((), 0.5, dtype=d.dtype, device=d.device) / d
-        amplitudes = amplitudes * Sig(torch.rsqrt(num_freq_bins), phase.hop)
-        return super().forward(phase, amplitudes)
+    def forward(self, phase: Sig, amplitudes: Sig, **kwargs) -> Sig:
+        amplitudes = amplitudes * Sig(
+            torch.rsqrt(_num_freq_bins(phase.data)), phase.hop)
+        return super().forward(phase, amplitudes, **kwargs)
 
 
 class V1AdditiveSynthesizer(HarmonicOscillator):
@@ -225,3 +239,56 @@ class V1AdditiveSynthesizer(HarmonicOscillator):
         s = s / torch.sum(s, dim=-1, keepdim=True)
         return (Sig(torch.exp(log_gain.data)[..., None] * s,
                     amp_logits.hop),)
+
+
+class SawToothOscillator(HarmonicOscillator):
+    """Fixed 1/k amplitudes (SawSing)."""
+
+    def __init__(self, num_harmonics: int = 155, gain: float = 0.4):
+        super().__init__()
+        self.num_harmonics = num_harmonics
+        self.gain = gain
+
+    def forward(self, phase: Sig, initial_phase=None, phase_offset=None,
+                **kwargs) -> Sig:
+        d = phase.data
+        amps = 1.0 / torch.arange(1, self.num_harmonics + 1, dtype=d.dtype,
+                                  device=d.device)
+        amplitudes = Sig(amps.expand(*d.shape, self.num_harmonics),
+                         phase.hop)
+        return super().forward(phase, amplitudes, initial_phase,
+                               phase_offset)
+
+
+class PulseTrain(OscillatorInterface):
+    """An impulse of amplitude rsqrt(phase increment) at each wrap of the
+    phase; none at the first sample."""
+
+    def forward(self, phase: Sig, phase_offset: Optional[Sig] = None) -> Sig:
+        up = phase.reduce_hop_length().data
+        wrapped = wrapped_cumsum(up)
+        if phase_offset is not None:
+            wrapped = torch.remainder(wrapped + phase_offset.data, 1)
+        transition = (wrapped[:, 1:] - wrapped[:, :-1]) < 0
+        pulses = torch.where(transition, torch.rsqrt(up[:, 1:]), 0.0)
+        return Sig(torch.cat([torch.zeros_like(up[:, :1]), pulses], dim=1),
+                   1)
+
+
+class AdditivePulseTrain(HarmonicOscillator):
+    """Band-limited pulse train: an all-ones bank of ``num_harmonics``
+    scaled by rsqrt(0.5 / phase), the source of the Interspeech24 baseline
+    decoders (NHV, MLSA, WORLD). The (B, T, n) bank is materialised, as in
+    ``golf_tpu``."""
+
+    def __init__(self, num_harmonics: int = 155):
+        super().__init__()
+        self.num_harmonics = num_harmonics
+
+    def forward(self, phase: Sig, initial_phase=None, phase_offset=None,
+                **kwargs) -> Sig:
+        amp = torch.rsqrt(_num_freq_bins(phase.data))[..., None]
+        amplitudes = Sig(amp.expand(*phase.shape, self.num_harmonics),
+                         phase.hop)
+        return super().forward(phase, amplitudes, initial_phase,
+                               phase_offset)

@@ -1,10 +1,14 @@
-"""Mel-cepstral analysis for the MCD metric (counterpart of the ``freqt``
-and ``mcep`` part of ``golf_tpu.ops.cepstrum``).
+"""Mel-cepstral analysis and synthesis (counterpart of the ``freqt``,
+``mcep``, ``mc2sp_log`` and ``minimum_phase_response`` part of
+``golf_tpu.ops.cepstrum``).
 
 * ``freqt``: Oppenheim frequency transform (all-pass warping) of cepstra.
 * ``mcep``: mel-cepstrum of amplitude-spectrum frames: the warped real
   cepstrum (SPTK's initial estimate), then optional Newton iterations with
   Levenberg damping on the mel log-spectral-approximation criterion.
+* ``mc2sp_log``: mel-cepstrum -> log-magnitude half spectrum (the MLSA
+  filters' transfer function), ``minimum_phase_response`` its complex
+  minimum-phase response.
 
 The design-time matrices (``_freqt_matrix``, ``_warped_cos_basis``) are
 host-side numpy, copied from ``golf_tpu``.
@@ -14,8 +18,13 @@ from __future__ import annotations
 
 from functools import lru_cache
 
+import math
+from typing import Optional
+
 import numpy as np
 import torch
+
+from .dsp import minimum_phase_spectrum, mirror_spectrum
 
 
 @lru_cache(maxsize=None)
@@ -69,9 +78,8 @@ def mcep(amp_spec: torch.Tensor, cep_order: int, alpha: float = 0.0,
     n_bins = amp_spec.shape[-1]
     n_fft = 2 * (n_bins - 1)
     log_mag = torch.log(torch.clamp(amp_spec, min=eps))
-    full = torch.cat([log_mag, torch.flip(log_mag, (-1,))[..., 1:-1]],
-                     dim=-1)
-    c = torch.fft.ifft(full, dim=-1).real      # real cepstrum, length n_fft
+    c = torch.fft.ifft(mirror_spectrum(log_mag),
+                       dim=-1).real            # real cepstrum, length n_fft
     half = n_fft // 2
     # one-sided cosine-series coefficients: log|X(w)| = c[0]
     # + 2 sum_{1<=m<half} c[m] cos(wm) + c[half] cos(w half)
@@ -97,3 +105,26 @@ def mcep(amp_spec: torch.Tensor, cep_order: int, alpha: float = 0.0,
             -1)[..., None, None] * eye
         mc = mc - torch.linalg.solve(hess, grad[..., None])[..., 0]
     return mc
+
+
+def mc2sp_log(mc: torch.Tensor, n_fft: int, alpha: float = 0.0,
+              lin_order: Optional[int] = None) -> torch.Tensor:
+    """Mel-cepstrum -> log-magnitude half spectrum (..., n_fft//2+1): the
+    unwarped cepstrum to ``lin_order`` (default n_fft//2), then a cosine
+    matrix built in float32 as ``golf_tpu`` builds it."""
+    if lin_order is None:
+        lin_order = n_fft // 2
+    c_lin = freqt(mc, lin_order, -alpha)
+    m = torch.arange(c_lin.shape[-1], device=mc.device)
+    w = torch.arange(n_fft // 2 + 1, dtype=torch.float32,
+                     device=mc.device) * (2 * math.pi / n_fft)
+    cos = torch.cos(w[:, None] * m[None, :]).to(c_lin.dtype)
+    return c_lin @ cos.T
+
+
+def minimum_phase_response(log_mag_half: torch.Tensor) -> torch.Tensor:
+    """Half-spectrum log-magnitude -> the complex minimum-phase frequency
+    response, one-sided."""
+    n_bins = log_mag_half.shape[-1]
+    return minimum_phase_spectrum(mirror_spectrum(log_mag_half))[
+        ..., :n_bins]

@@ -114,11 +114,82 @@ def rc2lpc(rc: torch.Tensor) -> torch.Tensor:
     return cur[..., 1:]
 
 
+def fir_filt(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Sample-wise time-varying causal FIR, ``h`` flipped against causally
+    padded windows: ``y[n] = sum_k h[n, k] * x[n - (K-1) + k]``. x (B, T),
+    h (B, T, K) -> (B, T). Up to 128 taps as K shifted slices of x,
+    longer as a strided window view and one product, as ``golf_tpu``."""
+    k = h.shape[-1]
+    t = x.shape[1]
+    xp = F.pad(x, (k - 1, 0))
+    hf = torch.flip(h, (-1,))
+    if k <= 128:
+        y = hf[:, :, 0] * xp[:, :t]
+        for j in range(1, k):
+            y = y + hf[:, :, j] * xp[:, j:j + t]
+        return y
+    frames = unfold(xp, k, 1)[:, :t]              # (B, T, K)
+    return torch.einsum("btk,btk->bt", frames, hf)
+
+
+def hilbert(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """FFT analytic signal (scipy's semantics); complex from real. The
+    one-sided mask is host numpy."""
+    n = x.shape[dim]
+    h = np.zeros(n)
+    if n % 2 == 0:
+        h[0] = h[n // 2] = 1
+        h[1:n // 2] = 2
+    else:
+        h[0] = 1
+        h[1:(n + 1) // 2] = 2
+    shape = [1] * x.ndim
+    shape[dim] = n
+    mask = torch.as_tensor(h, dtype=x.dtype, device=x.device).reshape(shape)
+    return torch.fft.ifft(torch.fft.fft(x, dim=dim) * mask, dim=dim)
+
+
+def mirror_spectrum(half: torch.Tensor) -> torch.Tensor:
+    """Half spectrum (..., n//2+1) -> the even full spectrum (..., n)."""
+    return torch.cat([half, torch.flip(half, (-1,))[..., 1:-1]], dim=-1)
+
+
+def minimum_phase_spectrum(log_mag: torch.Tensor) -> torch.Tensor:
+    """Full-spectrum log-magnitude -> the complex minimum-phase response
+    ``exp(log_mag - i * imag(hilbert(log_mag)))``."""
+    return torch.exp(torch.complex(log_mag, -hilbert(log_mag).imag))
+
+
+def minimum_phase_fir(log_mag: torch.Tensor) -> torch.Tensor:
+    """Half-spectrum log-magnitude frames -> minimum-phase FIR kernels of
+    length n_fft: mirror the spectrum, the Hilbert transform for the phase,
+    then an inverse FFT."""
+    return torch.fft.ifft(minimum_phase_spectrum(mirror_spectrum(log_mag)),
+                          dim=-1).real
+
+
 def zero_phase_fir(log_mag: torch.Tensor) -> torch.Tensor:
     """Half-spectrum log-magnitude -> zero-phase (centred) FIR: irfft then
     fftshift."""
     fir = torch.fft.irfft(torch.exp(log_mag), dim=-1)
     return torch.fft.fftshift(fir, dim=-1)
+
+
+def get_radiation_time_filter(num_zeros: int = 16,
+                              window_fn: Callable[[int], np.ndarray] = None
+                              ) -> np.ndarray:
+    """The radiation (differentiator-like) FIR, host numpy, as
+    ``golf_tpu``'s: ``(cos(pi t) - sinc(t)) / t`` over t in
+    [-num_zeros, num_zeros], 0 at t = 0, optionally windowed."""
+    t = np.arange(-num_zeros, num_zeros + 1)
+    pi_t = t * np.pi
+    tmp = np.cos(pi_t) - np.sinc(t)  # np.sinc(t) == sin(pi t)/(pi t)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        out = tmp / t
+    out[num_zeros] = 0
+    if window_fn is not None:
+        out = out * window_fn(out.shape[0])
+    return out
 
 
 def freq2cent(f0):

@@ -27,17 +27,72 @@ def frame_signal(x: torch.Tensor, frame_length: int, hop: int,
     return x.unfold(-1, frame_length, hop)
 
 
-def stft(x: torch.Tensor, n_fft: int, hop_length: int,
-         win_length: Optional[int] = None, window: str = "hann",
-         center: bool = True, pad_mode: str = "reflect") -> torch.Tensor:
-    """One-sided STFT. Returns complex (..., n_bins, n_frames)."""
+def _padded_window(window: str, n_fft: int,
+                   win_length: Optional[int]) -> np.ndarray:
+    """The window of ``win_length`` centred in ``n_fft`` zeros (float64)."""
     win_length = win_length or n_fft
     w = np.zeros(n_fft)
     ofs = (n_fft - win_length) // 2
     w[ofs:ofs + win_length] = get_window_fn(window)(win_length)
+    return w
+
+
+def stft(x: torch.Tensor, n_fft: int, hop_length: int,
+         win_length: Optional[int] = None, window: str = "hann",
+         center: bool = True, onesided: bool = True,
+         pad_mode: str = "reflect") -> torch.Tensor:
+    """torch.stft-compatible. Returns complex (..., n_bins, n_frames)."""
+    w = _padded_window(window, n_fft, win_length)
     frames = frame_signal(x, n_fft, hop_length, center, pad_mode)
     frames = frames * torch.as_tensor(w, dtype=x.dtype, device=x.device)
-    return torch.fft.rfft(frames, dim=-1).transpose(-1, -2)
+    if onesided:
+        spec = torch.fft.rfft(frames, dim=-1)
+    else:
+        spec = torch.fft.fft(frames, dim=-1)
+    return spec.transpose(-1, -2)
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop_length: int,
+          win_length: Optional[int] = None, window: str = "hann",
+          center: bool = True, onesided: bool = True,
+          length: Optional[int] = None) -> torch.Tensor:
+    """Inverse STFT with the window-square overlap-add normalisation
+    (torch.istft semantics). spec: (..., n_bins, n_frames). The frames are
+    added in strips of one hop; the normalisation does not depend on the
+    data and is host numpy (float64, floored at 1e-11, cast to the frames'
+    dtype: float32 in the models, as ``golf_tpu``'s)."""
+    w = _padded_window(window, n_fft, win_length)
+    frames_spec = spec.transpose(-1, -2)           # (..., F, n_bins)
+    if onesided:
+        frames = torch.fft.irfft(frames_spec, n=n_fft, dim=-1)
+    else:
+        frames = torch.fft.ifft(frames_spec, dim=-1).real
+    frames = frames * torch.as_tensor(w, dtype=frames.dtype,
+                                      device=frames.device)
+
+    n_frames = frames.shape[-2]
+    out_len = n_fft + hop_length * (n_frames - 1)
+    lead = frames.shape[:-2]
+    flat = frames.reshape(-1, n_frames, n_fft)
+    q = -(-n_fft // hop_length)                    # strips per frame
+    fr = F.pad(flat, (0, q * hop_length - n_fft)).reshape(
+        -1, n_frames, q, hop_length)
+    buf = fr.new_zeros((fr.shape[0], n_frames + q, hop_length))
+    for j in range(q):
+        buf[:, j:j + n_frames] += fr[:, :, j]
+    y = buf.reshape(fr.shape[0], -1)[:, :out_len]
+
+    wsq = np.zeros(out_len)
+    for i in range(n_frames):
+        wsq[i * hop_length:i * hop_length + n_fft] += w * w
+    y = y / torch.as_tensor(np.maximum(wsq, 1e-11), dtype=y.dtype,
+                            device=y.device)
+    y = y.reshape(*lead, out_len)
+    if center:
+        y = y[..., n_fft // 2:out_len - n_fft // 2]
+    if length is not None:
+        y = y[..., :length]
+    return y
 
 
 def spectrogram(x: torch.Tensor, n_fft: int, hop_length: int,
@@ -45,7 +100,8 @@ def spectrogram(x: torch.Tensor, n_fft: int, hop_length: int,
                 power: Optional[float] = 2.0, center: bool = True,
                 pad_mode: str = "reflect") -> torch.Tensor:
     """power=None returns complex; 1 magnitude; 2 power spectrum."""
-    s = stft(x, n_fft, hop_length, win_length, window, center, pad_mode)
+    s = stft(x, n_fft, hop_length, win_length, window, center,
+             pad_mode=pad_mode)
     if power is None:
         return s
     mag = torch.abs(s)

@@ -162,7 +162,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
              "cfg/ae/decoder/golf.yaml"])
 
 
-@pytest.mark.parametrize("decoder", ["golf", "golf-precise"])
+@pytest.mark.parametrize("decoder", ["golf", "golf-precise", "nhv", "mlsa",
+                                     "mlsa-taylor", "world"])
 def test_chip_smoke_config_equals_yaml(decoder):
     import chip_smoke
     cfg = j_load_config("cfg/ae/vctk.yaml")

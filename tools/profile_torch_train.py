@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the training time of the PyTorch/CUDA port goes, on one GPU.
 
-    python tools/profile_torch_train.py [--config vctk|vocoder]
+    python tools/profile_torch_train.py [--config vctk|vocoder|baselines]
         [--out chiprun_out/profile_train]
 
 ``--config vctk`` (the default): the GOLF-ff (``golf.yaml``) and GOLF-ss
 (``golf-precise.yaml``) decoders on the full-width vctk encoder;
 ``--config vocoder``: the ISMIR23 vocoder of ``cfg/vocoder.yaml`` with
-``golf-v1.yaml`` and ``ddsp.yaml``. With the seeded weights of
+``golf-v1.yaml`` and ``ddsp.yaml``; ``--config baselines``: the
+Interspeech24 baselines (``nhv``, ``mlsa``, ``mlsa-taylor``, ``world``) on
+the vctk encoder (a stage the decoder lacks is skipped). With the seeded
+weights of
 ``chip_smoke.py``, one Adam step of the port's ``Trainer`` on B = 64
 synthetic items of 2 s:
 
@@ -67,6 +70,14 @@ CONFIGS = {
                  "decoder.noise_filter", "decoder.end_filter"),
                 ("decoder.end_filter", "decoder.harm_filter",
                  "decoder.harm_oscillator", "encoder")),
+    "baselines": (chip_smoke.BASELINES, chip_smoke.seeded_model,
+                  ("encoder", "decoder.harm_oscillator",
+                   "decoder.noise_generator", "decoder.harm_filter",
+                   "decoder.noise_filter", "decoder.end_filter",
+                   "decoder.room_filter"),
+                  ("decoder.room_filter", "decoder.end_filter",
+                   "decoder.harm_filter", "decoder.harm_oscillator",
+                   "encoder")),
 }
 
 
@@ -97,7 +108,10 @@ class StepTimer:
         self.handles = []
         self.bwd_marks = bwd_marks
         for name in fwd_stages:
-            mod = task.get_submodule(name)
+            try:
+                mod = task.get_submodule(name)
+            except AttributeError:      # a stage this decoder lacks
+                continue
             self.handles += [
                 mod.register_forward_pre_hook(
                     lambda _m, _a, name=name: self._start(name)),
