@@ -7,6 +7,11 @@ Usage:
     python autoencode_torch.py validate ... --ckpt_path <run_dir>/ckpt/last
     python autoencode_torch.py test ... [--ckpt_path <run_dir>/ckpt/last]
     python autoencode_torch.py predict ... [--ckpt_path <run_dir>/ckpt/last]
+    python autoencode_torch.py test|predict --config cfg/ae/pyworld.yaml \
+        data.init_args.wav_dir=<VCTK tree>
+
+The WORLD baseline (``cfg/ae/pyworld.yaml``) has no weights: ``test`` and
+``predict`` only.
 
 Add ``--device cpu`` to run on the CPU.
 """

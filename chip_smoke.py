@@ -26,7 +26,9 @@ Phases (any failure exits non-zero):
    algorithm in plain PyTorch) and the adjoint entry bit for bit against
    the forward entry on the materialised flipped, column-shifted operands;
    B1 and B2 (and its adjoint entry) also at the vocoder's serving shapes
-   (``vocoder_shapes``: 601 mel frames a 6 s request); then each autograd
+   (``vocoder_shapes``: 601 mel frames a 6 s request); B2 also at LPCNet's
+   de-emphasis, (32, 24000) with a (32, 1) of -0.85, within 1e-5 of max|y|
+   of its plain version and 1e-6 of its float64 mirror; then each autograd
    Function's backward through the kernels against the same Function on the
    plain versions, on the same cotangent;
    resonance: on resonant filters (capped at 0.95 and uncapped) B4's error
@@ -92,6 +94,11 @@ Phases (any failure exits non-zero):
     ``fit`` (2 steps) and ``test`` through the CLI for nhv and world from
     the VCTK tree; no kernel may launch on this path; a ``baselines`` JSON
     line;
+    pyworld: the WORLD baseline (``autoencode_torch.py test --config
+    cfg/ae/pyworld.yaml``) on the VCTK tree's test split (16 segments of
+    2 s), WORLD on the host, its time; the same batch resynthesised again
+    and scored on the card and the CPU, within 1e-5 relative; ``predict``
+    of two utterances; no kernel; a ``pyworld`` JSON line;
 13. vocoder: the ISMIR23 mel vocoder (``main_torch.py``, ``cfg/vocoder.yaml``,
     full width: 80 mels, Mel2Control 128 x 3) from a miniature MPop600 tree
     it writes (flat ``f1_NNN.wav`` and ``.pv``: 001-003 test, 004-006 valid,
@@ -109,7 +116,19 @@ Phases (any failure exits non-zero):
     the CPU's float32 distance of a float64 CPU run); 3 Adam steps each of
     golf-v1 and ``ddsp.yaml`` (155 harmonics, no kernel) through the
     Trainer, with step times and peak memory; a ``vocoder`` JSON line;
-14. summary: a ``kernels:`` line, the card, then one JSON line with the
+14. lpcnet: the full-width ``cfg/lpcnet.yaml`` (80 mels, Mel2Control 128 x
+    1, SampleNet Q 256 with GRUs of 192 and 32, LPC order 22) with seeded
+    weights and a non-zero head: 3 steps of the recipe's Adam with amsgrad
+    at B = 32 x 1 s (step times, peak memory, no kernel); one step at
+    B = 2 x 0.25 s card vs CPU (the float32 loss 1e-4 relative, float64
+    gradients 1e-3 of max-abs); one ``generate`` at B = 32 x 1 s (its host
+    time, B2 exactly once), and at B = 2 x 0.05 s the sampling loop and
+    de-emphasis card vs CPU on the same conditioning and Gumbel draws (1e-4
+    of max|y|); ``main_torch.py fit`` (2 steps) and ``test`` (the
+    teacher-forced metrics and one autoregressive batch, B2 once) from a
+    miniature LJSpeech tree it writes (36 train, 20 test segments of 1 s);
+    an ``lpcnet`` JSON line;
+15. summary: a ``kernels:`` line, the card, then one JSON line with the
     kernel table; B1's and B3b's ``library_ms`` is ``F.grid_sample`` on the
     table padded with its first column, and its backward with respect to
     the table (B3a's is null: no one call returns its three outputs); B1's
@@ -117,9 +136,10 @@ Phases (any failure exits non-zero):
     ``earlier_ms``, the times of ``tools/lookup_unsplit.cu`` (before the
     split) on the same inputs in this run; B1's, B2's and its adjoint's
     rows carry ``vocoder_serve`` (the vocoder's serving shapes and the
-    vocoder phase's launches); ``launches`` counts every phase, the
-    vocoder's included;
-15. last line: ``{"ok": true, "device": {...}}``.
+    vocoder phase's launches), B2's ``lpcnet`` (LPCNet's de-emphasis shape,
+    the lpcnet phase's launches); ``launches`` counts every phase, the
+    vocoder's and LPCNet's included;
+16. last line: ``{"ok": true, "device": {...}}``.
 Each phase's seconds are printed as it ends.
 
 Needs one CUDA device, and exits non-zero without one. Imports torch and
@@ -134,6 +154,7 @@ import ctypes
 import io
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -169,8 +190,11 @@ from golf_tpu_torch.serve import GOLFStream, StreamingEncoder, chunk_ctrl
 from golf_tpu_torch.tasks import cli
 from golf_tpu_torch.tasks.ae import VoiceAutoEncoder, build_voice_autoencoder
 from golf_tpu_torch.tasks.data import SyntheticVoiceDataset
+from golf_tpu_torch.tasks.lpcnet import (LPCNetVocoder, build_lpcnet_vocoder,
+                                         deemphasis, gumbel_noise)
 from golf_tpu_torch.tasks.vocoder import (DDSPVocoder, build_ddsp_vocoder,
                                           chunked_ola_predict)
+from golf_tpu_torch.tasks.world_ae import build_world_autoencoder
 from golf_tpu_torch.train import checkpoint as ckpt_lib
 from golf_tpu_torch.train.loop import (ClippedOptimizer, Trainer,
                                        trainable_parameters)
@@ -208,6 +232,13 @@ DISK_STEPS = 3
 FINETUNE_LR = 1e-5          # the SGD finetune's recipe (docs/BENCH.md)
 FINETUNE_SMOOTH = 0.1
 VOCODER_CONFIG = "cfg/vocoder.yaml"     # main_torch.py's default
+LPCNET_CONFIG = "cfg/lpcnet.yaml"
+LPCNET_BATCH = 32           # cfg/lpcnet.yaml: batch 32 of 1 s segments
+LPCNET_SECONDS = 1.0
+LPCNET_CHECK_SECONDS = 0.25  # the card-vs-CPU training step, B = 2
+LPCNET_AR_CHECK_SECONDS = 0.05  # the card-vs-CPU generate, B = 2
+LPCNET_FIT_STEPS = 2
+PYWORLD_CONFIG = "cfg/ae/pyworld.yaml"
 # B1 and B3a before their grid was split (one CTA a (batch, block)), built
 # from tools/lookup_unsplit.cu with the kernels and timed beside B1 and B3a
 # as ``earlier_ms``; they are on no path of the port
@@ -1511,6 +1542,18 @@ def phase_baselines_cli(tree: Path, out: Path) -> tuple:
 # the Interspeech24 recipe from disk: fit, GOLF-fs, the SGD finetune
 # ---------------------------------------------------------------------------
 
+def write_voice(path: Path, seconds: float, seed: int) -> None:
+    """One corpus file: a ``SyntheticVoiceDataset`` item (its own seed) as a
+    24 kHz PCM16 wav, and its 5 ms ``.pv`` f0 track beside it."""
+    x, f0 = SyntheticVoiceDataset(1, seconds, SR, seed=seed)[0]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    wavfile.write(str(path), SR,
+                  np.round(np.clip(x, -1, 1) * 32767).astype(np.int16))
+    hop = SR // 200
+    frames = np.minimum(np.arange(len(x) // hop + 1) * hop, len(x) - 1)
+    np.savetxt(str(path.with_suffix(".pv")), f0[frames], fmt="%.4f")
+
+
 def write_vctk_tree(root: Path) -> dict:
     """A miniature VCTK tree: 24 kHz PCM16 ``pNNN/pNNN_XXX_mic1.wav`` files
     with their 5 ms ``.pv`` f0 tracks, each a ``SyntheticVoiceDataset``
@@ -1523,16 +1566,9 @@ def write_vctk_tree(root: Path) -> dict:
              + [(spk, 0, DISK_SECONDS) for spk in DISK_VALID]
              + [(spk, k, DISK_TEST_SECONDS) for spk in DISK_TEST
                 for k in range(2)])
-    hop = SR // 200
     for j, (spk, k, seconds) in enumerate(files):
-        x, f0 = SyntheticVoiceDataset(1, seconds, SR, seed=SEED + 100 + j)[0]
-        d = root / spk
-        d.mkdir(parents=True, exist_ok=True)
-        path = d / f"{spk}_{k + 1:03d}_mic1.wav"
-        wavfile.write(str(path), SR,
-                      np.round(np.clip(x, -1, 1) * 32767).astype(np.int16))
-        frames = np.minimum(np.arange(len(x) // hop + 1) * hop, len(x) - 1)
-        np.savetxt(str(path.with_suffix(".pv")), f0[frames], fmt="%.4f")
+        write_voice(root / spk / f"{spk}_{k + 1:03d}_mic1.wav", seconds,
+                    SEED + 100 + j)
     seg = lambda secs: int((secs - 2.0) / 0.5) + 1  # noqa: E731
     return {"train": 2 * DISK_TRAIN_SPEAKERS * seg(DISK_SECONDS),
             "valid": len(DISK_VALID) * seg(DISK_SECONDS),
@@ -1843,15 +1879,8 @@ def write_mpop_tree(root: Path) -> dict:
     seconds = {**{i: 4.0 for i in range(1, 4)},
                **{i: 2.5 for i in range(4, 7)},
                **{i: 10.0 for i in range(7, 13)}}
-    hop = SR // 200
-    root.mkdir(parents=True, exist_ok=True)
     for i, secs in seconds.items():
-        x, f0 = SyntheticVoiceDataset(1, secs, SR, seed=SEED + 300 + i)[0]
-        path = root / f"f1_{i:03d}.wav"
-        wavfile.write(str(path), SR,
-                      np.round(np.clip(x, -1, 1) * 32767).astype(np.int16))
-        frames = np.minimum(np.arange(len(x) // hop + 1) * hop, len(x) - 1)
-        np.savetxt(str(path.with_suffix(".pv")), f0[frames], fmt="%.4f")
+        write_voice(root / f"f1_{i:03d}.wav", secs, SEED + 300 + i)
     seg = lambda secs: int((secs - 2.0) / 0.5) + 1  # noqa: E731
     return {split: sum(seg(seconds[i]) for i in ids) for split, ids in
             (("train", range(7, 13)), ("valid", range(4, 7)),
@@ -2158,6 +2187,419 @@ def phase_vocoder() -> tuple:
     return counts, summary
 
 
+# ---------------------------------------------------------------------------
+# LPCNet (main_torch.py --config cfg/lpcnet.yaml) and the WORLD baseline
+# (autoencode_torch.py --config cfg/ae/pyworld.yaml)
+# ---------------------------------------------------------------------------
+
+def lpcnet_b2_shapes(batch: int, t: int) -> tuple:
+    """B2's operands in LPCNet's ``generate``: the de-emphasis of ``batch``
+    outputs of ``t`` samples, order 1."""
+    return ((batch, t), (batch, 1))
+
+
+def phase_kernels_lpcnet() -> dict:
+    """B2 at LPCNet's de-emphasis shape, (32, 24000) with a = -0.85 (32, 1),
+    on outputs in [-1, 1] as ``generate``'s: within 1e-5 of max|y| of its
+    plain version and 1e-6 of its float64 mirror, with its time, the plain
+    version's and the byte bound (the order-1 recurrence needs 2 flops a
+    sample; the kernel pads the order to 22)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x_shape, a_shape = lpcnet_b2_shapes(LPCNET_BATCH,
+                                        int(LPCNET_SECONDS * SR))
+    x = torch.rand(x_shape, generator=gen, device="cuda") * 2 - 1
+    a = torch.full(a_shape, -0.85, device="cuda")
+    out = allpole_const_cuda(x, a)
+    ref = allpole_const_plain(x, a)
+    err = (out - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    rel64 = rel_err(out, allpole_const_scan64(x, a))
+    print(f"[lpcnet] allpole_const (B2) {x_shape} p=1: max err {err:.3e}, "
+          f"/ max|y| {rel:.3e} against allpole_const_plain (tolerance "
+          f"1e-5); {rel64:.3e} against allpole_const_scan64 (tolerance "
+          f"1e-6)")
+    check(rel <= 1e-5 and rel64 <= 1e-6 and torch.isfinite(out).all().item(),
+          "allpole_const at LPCNet's shape vs plain and float64")
+    n, t = x_shape
+    row = dict(err=err, rel64=rel64,
+               ms=cuda_ms(lambda: allpole_const_cuda(x, a), 20),
+               plain_ms=cuda_ms(lambda: allpole_const_plain(x, a), 3,
+                                strict=False),
+               bound=bound(4 * (2 * n * t + n), 2 * n * t, fp64=True),
+               shapes=[list(x_shape), list(a_shape)])
+    print(f"B2 at LPCNet's de-emphasis {x_shape}: {row['ms'] * 1e3:.1f} us, "
+          f"bound {row['bound'][0] * 1e3:.2f} us ({row['bound'][1]}), plain "
+          f"{row['plain_ms'] * 1e3:.1f} us")
+    return row
+
+
+def lpcnet_model(device) -> LPCNetVocoder:
+    """The full-width ``cfg/lpcnet.yaml`` model with seeded weights; the
+    frame net's zero-initialised head gets small random values, so the LAR,
+    the LPC, the prediction p and the ``match_lpc`` loss are off their
+    trivial values (all zero at the initialisation)."""
+    torch.manual_seed(SEED)
+    task = build_lpcnet_vocoder(
+        load_config([LPCNET_CONFIG])["model"]["init_args"], device="cpu")
+    gen = torch.Generator().manual_seed(SEED + 3)
+    with torch.no_grad():
+        head = task.frame_decoder.out_linear
+        head.weight.copy_(0.02 * torch.randn(head.weight.shape,
+                                             generator=gen))
+        head.bias.copy_(0.1 * torch.randn(head.bias.shape, generator=gen))
+    return task.to(device)
+
+
+def lpcnet_batch(n: int, seconds: float):
+    """Synthetic voices plus white noise at -30 dB of full scale."""
+    x, f0 = requests(n, seconds)
+    return x + 0.03 * torch.randn(
+        x.shape, generator=torch.Generator().manual_seed(SEED + 9)), f0
+
+
+def phase_lpcnet_steps() -> dict:
+    """DISK_STEPS steps of the recipe's optimizer (Adam with amsgrad, lr
+    1e-3 decayed by 1 / (1 + 5e-5 step), clip 0.5) at B = 32 x 1 s through
+    the Trainer: losses finite, no kernel launched (B2 runs in ``generate``
+    only), the step's host time and peak memory."""
+    dev = torch.device("cuda")
+    task = lpcnet_model(dev)
+    x, f0 = lpcnet_batch(LPCNET_BATCH, LPCNET_SECONDS)
+    xs, f0s = Sig(x.to(dev), 1), Sig(f0.to(dev), 1)
+    kw = {**cli.trainer_kwargs(load_config([LPCNET_CONFIG])),
+          "max_steps": DISK_STEPS}
+    check(kw["optimizer"] == "amsgrad" and kw["lr_decay"] == 5e-5 and
+          kw["lr"] == 1e-3 and kw["grad_clip"] == 0.5,
+          f"cfg/lpcnet.yaml's optimizer: {kw}")
+    trainer = Trainer(task, run_dir="runs/chip_smoke_lpcnet", **kw)
+    task.init_running_stats(xs, f0s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.ALL:
+        k.launches = 0
+    losses, times = [], []
+    for _ in range(DISK_STEPS):
+        metrics, secs = timed(lambda: trainer.train_step(xs, f0s))
+        losses.append(metrics["loss"].item())
+        times.append(secs)
+        trainer.step += 1
+    counts = {k.name: k.launches for k in kernels.ALL}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"lpcnet train: B={LPCNET_BATCH} x {LPCNET_SECONDS:.0f} s, losses "
+          f"{', '.join(f'{v:.5f}' for v in losses)} (ll "
+          f"{metrics['ll'].item():.5f}, lar_l2 {metrics['lar_l2'].item():.5f}"
+          f"); step wall time (host clock around synchronize, TF32 off) "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; peak memory "
+          f"{peak:.2f} GiB; launches {counts}")
+    check(all(np.isfinite(losses)), "lpcnet losses finite")
+    check(not any(counts.values()), f"lpcnet training launched {counts}")
+    return {"step_ms": [t * 1e3 for t in times], "peak_gib": peak,
+            "losses": losses}
+
+
+def phase_lpcnet_vs_cpu() -> dict:
+    """One training step at B = 2 x 0.25 s, card against CPU, same weights,
+    running min/max and teacher-forcing noise, train mode. float32: the
+    loss within 1e-4 relative. float64 on both sides: every gradient within
+    1e-3 of its max-abs (the card's cuDNN convolutions, LSTM and GRUs and
+    the embedding table's atomics). The float32 gradients are printed, not
+    held: the loss is not smooth (the floor of the embeddings' and the
+    likelihood's continuous mu-law indices, steep near zero), so the frame
+    net's gradient jumps when a forward value moves by ~1e-5 relative, as
+    cuDNN's float32 convolutions move it against the CPU's (a float64 CPU
+    run shows the same 11% jump for a 1e-5 perturbation of one conv
+    weight)."""
+    dev = torch.device("cuda")
+    x, f0 = lpcnet_batch(TRAIN_CHECK_BATCH, LPCNET_CHECK_SECONDS)
+    base = lpcnet_model("cpu")
+    base.init_running_stats(Sig(x, 1), Sig(f0, 1))
+    state = base.state_dict()
+    noise = torch.randn((x.shape[0], x.shape[1] - 1),
+                        generator=torch.Generator().manual_seed(SEED + 5))
+    losses, grads = {}, {}
+    for label, d, dtype in (("card", dev, torch.float32),
+                            ("cpu", torch.device("cpu"), torch.float32),
+                            ("card64", dev, torch.float64),
+                            ("cpu64", torch.device("cpu"), torch.float64)):
+        task = lpcnet_model("cpu")
+        task.load_state_dict(state)
+        task = task.to(d, dtype).train()
+        loss, _ = task.training_step(Sig(x.to(d, dtype), 1),
+                                     Sig(f0.to(d, dtype), 1),
+                                     noise=noise.to(d, dtype))
+        loss.backward()
+        losses[label] = loss.item()
+        grads[label] = {n: p.grad.detach().cpu().double()
+                        for n, p in task.named_parameters()
+                        if p.requires_grad}
+
+    def gaps(a: str, b: str) -> dict:
+        return {n: ((grads[a][n] - ref).abs().max()
+                    / ref.abs().max().clamp(min=1e-30)).item()
+                for n, ref in grads[b].items()}
+
+    rel_loss = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    errs64, errs32 = gaps("card64", "cpu64"), gaps("card", "cpu")
+    worst64 = max(errs64, key=errs64.get)
+    worst32 = max(errs32, key=errs32.get)
+    sample32 = max((n for n in errs32 if n.startswith("sample_decoder")),
+                   key=errs32.get)
+    print(f"lpcnet train: B={TRAIN_CHECK_BATCH} x {LPCNET_CHECK_SECONDS} s, "
+          f"card vs CPU: loss {losses['card']:.6f} vs {losses['cpu']:.6f} "
+          f"(rel {rel_loss:.2e}, tolerance 1e-4); float64 worst gradient "
+          f"{worst64} {errs64[worst64]:.2e} of its max|ref| (tolerance 1e-3); "
+          f"float32 (not held) worst {worst32} {errs32[worst32]:.2e}, the "
+          f"sample net's worst {sample32} {errs32[sample32]:.2e}")
+    check(rel_loss <= 1e-4, "lpcnet train loss card vs CPU")
+    check(errs64[worst64] <= TRAIN_GRAD_TOL,
+          "lpcnet float64 train gradients card vs CPU")
+    return {"loss_rel": rel_loss, "worst_grad64": errs64[worst64],
+            "worst_grad64_name": worst64, "worst_grad32": errs32[worst32],
+            "worst_grad32_name": worst32,
+            "worst_sample_net_grad32": errs32[sample32]}
+
+
+def phase_lpcnet_generate() -> tuple:
+    """One ``generate`` at B = 32 x 1 s (eval mode): shape, finite, within
+    the de-emphasis's bound 1 / (1 - 0.85), B2 launched exactly once at
+    (32, 24000) x (32, 1) and no other kernel; its host time. Then B = 2 x
+    0.05 s card against CPU: the sampling loop and the de-emphasis on the
+    CPU's conditioning and LPC with the same Gumbel draws, within 1e-4 of
+    max|y|. (The whole ``generate`` cannot be compared: cuDNN's float32
+    convolutions move the conditioning by ~1e-5 relative, enough to change
+    a draw, after which the two outputs are different samples.) Returns
+    (launches, summary)."""
+
+    dev = torch.device("cuda")
+    task = lpcnet_model(dev)
+    x, f0 = lpcnet_batch(LPCNET_BATCH, LPCNET_SECONDS)
+    xs = Sig(x.to(dev), 1)
+    task.init_running_stats(xs, Sig(f0.to(dev), 1))
+    task.eval()
+    gen = torch.Generator(dev).manual_seed(SEED)
+    for k in kernels.ALL:
+        k.launches = 0
+    with torch.inference_mode():
+        y, secs = timed(lambda: task.generate(xs, generator=gen))
+    counts = {k.name: k.launches for k in kernels.ALL}
+    t = int(LPCNET_SECONDS * SR)
+    print(f"lpcnet generate: B={LPCNET_BATCH} x {LPCNET_SECONDS:.0f} s, out "
+          f"{tuple(y.shape)}, max|y| {y.abs().max().item():.3f}; host time "
+          f"{secs:.2f} s ({secs / t * 1e6:.1f} us a sample step, "
+          f"{secs / (LPCNET_BATCH * LPCNET_SECONDS):.3f} s a second of "
+          f"audio); launches {counts}")
+    check(y.shape == (LPCNET_BATCH, t) and torch.isfinite(y).all().item()
+          and y.abs().max().item() <= 1 / (1 - 0.85) + 1e-4,
+          "lpcnet generate output")
+    for name, n in counts.items():
+        want = 1 if name == "allpole_const" else 0
+        check(n == want, f"lpcnet generate launched {name} {n} times, not "
+              f"{want}")
+    check_shapes("lpcnet generate",
+                 {"allpole_const": lpcnet_b2_shapes(LPCNET_BATCH, t)})
+    loop = profile_sample_loop(task, xs, gen)
+
+    n = int(LPCNET_AR_CHECK_SECONDS * SR)
+    xc = x[:TRAIN_CHECK_BATCH, :n]
+    cpu_task = lpcnet_model("cpu")
+    cpu_task.load_state_dict({k: v.cpu() for k, v in
+                              task.state_dict().items()})
+    cpu_task.eval()
+    # drawn in the order sample draws them, one (B, Q) a step
+    g = gumbel_noise((n, TRAIN_CHECK_BATCH, task.quantization_channels),
+                     torch.Generator().manual_seed(SEED + 4)).transpose(0, 1)
+    with torch.inference_mode():
+        _, f, up_lpc, _, _, _ = cpu_task._prepare(xc, train=False)
+        y_card = deemphasis(task.sample(f.to(dev), up_lpc.to(dev),
+                                        noise=g.to(dev)), task.alpha).cpu()
+        y_cpu = deemphasis(cpu_task.sample(f, up_lpc, noise=g),
+                           cpu_task.alpha)
+    rel = ((y_card - y_cpu).abs().max() / y_cpu.abs().max()).item()
+    print(f"lpcnet generate: B={TRAIN_CHECK_BATCH} x "
+          f"{LPCNET_AR_CHECK_SECONDS} s, the sampling loop and de-emphasis "
+          f"card vs CPU on the same conditioning and Gumbel draws: max err / "
+          f"max|y| {rel:.3e} (tolerance 1e-4)")
+    check(rel <= 1e-4, "lpcnet generate card vs CPU")
+    return counts, {"generate_s": secs, "us_per_step": secs / t * 1e6,
+                    "vs_cpu": rel, **loop}
+
+
+def profile_sample_loop(task: LPCNetVocoder, xs: Sig, gen, steps: int = 50
+                        ) -> dict:
+    """A ``torch.profiler`` window over ``steps`` steps of the sampling loop
+    at the batch's width, after a warm-up: the device kernels a step, and
+    the device's busy time (the loop runs on one stream, so its kernels do
+    not overlap) over the window's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        _, f, up_lpc, _, _, _ = task._prepare(xs.data, train=False)
+        f, up_lpc = f[:, :steps], up_lpc[:, :steps]
+        task.sample(f, up_lpc, generator=gen)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            task.sample(f, up_lpc, generator=gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(r.end - r.start for r in spans) / 1e3
+    out = {"kernels_per_step": len(spans) / steps,
+           "profiled_us_per_step": wall_ms / steps * 1e3,
+           "idle_share": 1 - busy_ms / wall_ms if spans else None}
+    print(f"lpcnet sampling loop, profiled over {steps} steps at B="
+          f"{f.shape[0]}: {out['kernels_per_step']:.1f} device kernels a "
+          f"step, {out['profiled_us_per_step']:.1f} us a step under the "
+          f"profiler, device busy {busy_ms:.2f} of {wall_ms:.2f} ms (idle "
+          f"share {out['idle_share']})")
+    check(len(spans) > 0, "the profiler saw the sampling loop's kernels")
+    return out
+
+
+def write_ljspeech_tree(root: Path) -> dict:
+    """A miniature flat LJSpeech tree of synthetic voices: LJ001-0001..0020
+    are the test split (1 s each: 20 segments, one batch of the protocol's
+    autoregressive resynthesis), LJ001-0021..0022 the valid split (1 s),
+    LJ002-0001..0004 the train split (5 s each: 9 segments of 1 s at
+    overlap 0.5). Returns the segment counts."""
+    for i in range(1, 23):
+        write_voice(root / f"LJ001-{i:04d}.wav", 1.0, SEED + 500 + i)
+    for i in range(1, 5):
+        write_voice(root / f"LJ002-{i:04d}.wav", 5.0, SEED + 600 + i)
+    return {"train": 4 * 9, "valid": 2, "test": 20}
+
+
+def phase_lpcnet_cli(tree: Path, out: Path) -> tuple:
+    """``main_torch.py fit --config cfg/lpcnet.yaml`` from the LJSpeech
+    tree (LPCNET_FIT_STEPS steps at B = 32 x 1 s: finite losses, no kernel),
+    then ``test`` of that checkpoint: the teacher-forced metrics over the
+    20 test segments and the autoregressive protocol on their one batch (B2
+    once). Returns (launches, summary)."""
+    over = ["--config", LPCNET_CONFIG, f"data.init_args.wav_dir={tree}"]
+    with StepProbe() as probe:
+        fit_counts = cli_run(["fit", *over, "--run_dir", str(out / "lpcnet"),
+                              f"trainer.max_steps={LPCNET_FIT_STEPS}"],
+                             VOCODER_CONFIG)
+    print(f"lpcnet CLI fit: losses {probe.losses}, step wall time "
+          f"{[f'{t * 1e3:.1f}' for t in probe.times]} ms, batch "
+          f"{probe.batch[0].shape}")
+    check(len(probe.times) == LPCNET_FIT_STEPS and
+          all(np.isfinite(probe.losses)) and
+          probe.batch[0].shape == (LPCNET_BATCH, int(LPCNET_SECONDS * SR)),
+          "lpcnet CLI fit: finite steps at B = 32 x 1 s")
+    check(not any(fit_counts.values()), f"lpcnet fit launched {fit_counts}")
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        test_counts = cli_run(
+            ["test", *over, "--run_dir", str(out / "lpcnet-t"),
+             "--ckpt_path", str(out / "lpcnet" / "ckpt" / "last")],
+            VOCODER_CONFIG)
+    secs = time.perf_counter() - t0
+    print(text.getvalue(), end="")
+    result = json.loads(text.getvalue().strip().splitlines()[-1])
+    print(f"lpcnet CLI test: {secs:.2f} s for the whole command (data, model, "
+          f"restore, teacher-forced metrics, one AR batch of 20 x 1 s, DIO "
+          f"on the host); launches {test_counts}")
+    check(set(result) == {"avg_loss", "avg_ll", "avg_reg", "avg_lar_l2",
+                          "avg_ar_mss", "avg_ar_f0_cents"} and
+          all(np.isfinite(v) for v in result.values()),
+          "lpcnet CLI test metrics")
+    for name, n in test_counts.items():
+        want = 1 if name == "allpole_const" else 0
+        check(n == want, f"lpcnet test launched {name} {n} times, not "
+              f"{want}")
+    counts = {name: fit_counts[name] + test_counts[name]
+              for name in fit_counts}
+    return counts, {"fit_step_ms": [t * 1e3 for t in probe.times],
+                    "test_s": secs, "test": result}
+
+
+def phase_lpcnet() -> tuple:
+    """LPCNet end to end: 3 training steps, a step card vs CPU, one
+    ``generate`` (and a short one card vs CPU), then fit and test through
+    ``main_torch.py`` from a miniature LJSpeech tree. Returns (launches of
+    the generate and the CLI, the summary for the ``lpcnet`` line)."""
+    summary = {"train": phase_lpcnet_steps(),
+               "train_vs_cpu": phase_lpcnet_vs_cpu()}
+    gen_counts, summary["generate"] = phase_lpcnet_generate()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lpc_",
+                                     dir="runs") as tmp:
+        tree = Path(tmp) / "ljspeech"
+        sizes = write_ljspeech_tree(tree)
+        print(f"lpcnet: an LJSpeech tree of {sizes} segments of 1 s at "
+              f"overlap 0.5")
+        cli_counts, summary["cli"] = phase_lpcnet_cli(tree, Path(tmp) / "runs")
+    counts = {name: gen_counts[name] + cli_counts[name]
+              for name in gen_counts}
+    return counts, summary
+
+
+def phase_pyworld(tree: Path, out: Path) -> tuple:
+    """``autoencode_torch.py test --config cfg/ae/pyworld.yaml`` on the VCTK
+    tree (its test split at the recipe's 2 s, overlap 0: 16 segments, one
+    batch; WORLD on the host, the metrics on the card), with its time; the
+    same batch resynthesised once more on the host and scored on the card
+    and on the CPU, within 1e-5 relative; then ``predict`` of a tree of two
+    test utterances, one wav each. No kernel launches. Returns (launches,
+    summary)."""
+    over = ["--config", PYWORLD_CONFIG, f"data.init_args.wav_dir={tree}"]
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        counts = cli_run(["test", *over, "--run_dir", str(out / "pyworld-t")])
+    secs = time.perf_counter() - t0
+    print(text.getvalue(), end="")
+    result = json.loads(text.getvalue().strip().splitlines()[-1])
+    print(f"pyworld CLI test: {secs:.2f} s for the whole command (WORLD "
+          f"analysis and synthesis on the host, MSS and MCD on the card)")
+    check(set(result) == {"avg_mss_loss", "avg_mcd"} and
+          all(np.isfinite(v) for v in result.values()),
+          "pyworld test metrics")
+
+    cfg = load_config([PYWORLD_CONFIG], None, over[2:])
+    dm = instantiate(cfg["data"])
+    dm.setup("test")
+    x, f0 = next(iter(dm.test_dataloader()))
+    card = build_world_autoencoder(cfg["model"]["init_args"], device="cuda")
+    cpu = build_world_autoencoder(cfg["model"]["init_args"], device="cpu")
+    t0 = time.perf_counter()
+    x_hat = card.resynthesize(x, f0)
+    host_s = time.perf_counter() - t0
+    on_card, on_cpu = card.metrics(x, x_hat), cpu.metrics(x, x_hat)
+    rels = {k: abs(on_card[k] - on_cpu[k]) / abs(on_cpu[k])
+            for k in ("loss", "mcd")}
+    print(f"pyworld: batch {tuple(x.shape)} resynthesised on the host in "
+          f"{host_s:.2f} s; metrics card {on_card} vs CPU {on_cpu}: rel "
+          f"{rels} (tolerance 1e-5)")
+    check(max(rels.values()) <= TEST_REL_TOL, "pyworld metrics card vs CPU")
+
+    two = out / "vctk-two" / "p360"
+    two.mkdir(parents=True)
+    for k in (1, 2):
+        for ext in (".wav", ".pv"):
+            name = f"p360_{k:03d}_mic1{ext}"
+            shutil.copy(tree / "p360" / name, two / name)
+    p_counts = cli_run(["predict", "--config", PYWORLD_CONFIG,
+                        f"data.init_args.wav_dir={two.parent}", "--run_dir",
+                        str(out / "pyworld-p")])
+    wavs = sorted((out / "pyworld-p" / "predictions" / "p360").iterdir())
+    ys = [wavfile.read(str(w))[1] for w in wavs]
+    print(f"pyworld predict: {[w.name for w in wavs]}, lengths "
+          f"{[len(y) for y in ys]}")
+    check(len(ys) == 2 and all(len(y) == int(DISK_TEST_SECONDS * SR) and
+                               np.isfinite(y).all() for y in ys),
+          "pyworld predict: two utterances")
+    counts = {name: counts[name] + p_counts[name] for name in counts}
+    check(not any(counts.values()), f"pyworld launched {counts}")
+    return counts, {"test_s": secs, "test": result,
+                    "batch": list(x.shape), "resynthesis_s": host_s,
+                    "vs_cpu": rels}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2183,6 +2625,7 @@ def main() -> int:
     voc_shapes = vocoder_shapes(BATCH, int(SECONDS * SR), train=False)
     voc_rows = phase_kernels(voc_shapes, ("lookup", "allpole_const"),
                              label="vocoder serve")
+    lpc_row = phase_kernels_lpcnet()
     print_lookup_summary({"push": push_rows["lookup"],
                           "serve": serve_rows["lookup"],
                           "train": rows["lookup"]})
@@ -2230,9 +2673,15 @@ def main() -> int:
         cli_counts, baselines["cli"] = phase_baselines_cli(tree, out)
         add(cli_counts)
         t0 = done("baselines", t0)
+        pw_counts, pyworld = phase_pyworld(tree, out)
+        add(pw_counts)
+        t0 = done("pyworld", t0)
     voc_counts, vocoder = phase_vocoder()
     add(voc_counts)
     t0 = done("vocoder", t0)
+    lpc_counts, lpcnet = phase_lpcnet()
+    add(lpc_counts)
+    t0 = done("lpcnet", t0)
     print(json.dumps({"recipe": {
         "disk_fit_step_ms": [t * 1e3 for t in disk_probe.times],
         "golf_fs": fs,
@@ -2241,6 +2690,8 @@ def main() -> int:
     print(json.dumps({"vocoder": {**vocoder, "launches": voc_counts}}))
     print(json.dumps({"baselines": {**baselines, "launches": {
         name: base_counts[name] + cli_counts[name] for name in base_counts}}}))
+    print(json.dumps({"lpcnet": {**lpcnet, "launches": lpc_counts}}))
+    print(json.dumps({"pyworld": {**pyworld, "launches": pw_counts}}))
 
     replaces = {"lookup": "golf_tpu/ops/lookup_pallas.py:107",
                 "lookup_res": "golf_tpu/ops/lookup_pallas.py:222",
@@ -2318,6 +2769,15 @@ def main() -> int:
                 "ms": vr["ms"], "plain_ms": vr["plain_ms"],
                 "bound_ms": vr["bound"][0],
                 "library_ms": vr.get("library_ms")}
+        if k.name == "allpole_const":
+            entry["lpcnet"] = {
+                "shapes": lpc_row["shapes"],
+                "launches": lpc_counts[k.name],
+                "max_abs_err": lpc_row["err"],
+                "err_vs_scan64": lpc_row["rel64"], "ms": lpc_row["ms"],
+                "plain_ms": lpc_row["plain_ms"],
+                "bound_ms": lpc_row["bound"][0],
+                "bound_by": lpc_row["bound"][1], "library_ms": None}
         if k.name in serve_rows:
             sr_ = serve_rows[k.name]
             entry["serve"] = {
@@ -2345,6 +2805,12 @@ def main() -> int:
             note = (f"; serving shapes {sv['ms'] * 1e3:.1f} us, bound "
                     f"{sv['bound_ms'] * 1e3:.1f} us, plain "
                     f"{sv['plain_ms'] * 1e3:.1f} us" + composite_note(sv))
+        if "lpcnet" in e:
+            lp = e["lpcnet"]
+            note += (f"; LPCNet de-emphasis {lp['ms'] * 1e3:.1f} us, bound "
+                     f"{lp['bound_ms'] * 1e3:.2f} us, plain "
+                     f"{lp['plain_ms'] * 1e3:.1f} us, {lp['launches']} "
+                     f"launches")
         if "stream" in e:
             st = e["stream"]
             note += (f"; stream push {st['ms'] * 1e3:.2f} us, bound "

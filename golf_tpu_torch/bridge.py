@@ -3,8 +3,9 @@
 Input: the JAX task's variables as nested dicts of numpy arrays, with the
 collections ``params``, ``stats`` and ``batch_stats`` (as
 ``jax.tree_util.tree_map(np.asarray, variables)`` gives them). Output: a
-``state_dict`` for ``golf_tpu_torch.tasks.ae.VoiceAutoEncoder`` or
-``golf_tpu_torch.tasks.vocoder.DDSPVocoder``.
+``state_dict`` for ``golf_tpu_torch.tasks.ae.VoiceAutoEncoder``,
+``golf_tpu_torch.tasks.vocoder.DDSPVocoder`` or
+``golf_tpu_torch.tasks.lpcnet.LPCNetVocoder``.
 
 Conversions:
 * Conv: flax ``(kh, kw, in, out)`` -> torch ``(out, in, kh, kw)``, and
@@ -13,7 +14,13 @@ Conversions:
   (eps is 1e-5 in both).
 * LayerNorm, GroupNorm: scale/bias -> weight/bias (the port sets flax's
   eps, 1e-6).
-* Dense: ``(in, out)`` -> ``Linear.weight (out, in)``.
+* Dense (``Dense_i``, ``out_linear``, LPCNet's ``fc``): ``(in, out)`` ->
+  ``Linear.weight (out, in)``.
+* GRU (LPCNet's ``GRUCellNoBias``): ``wi (in, 3H)`` and ``wh (H, 3H)`` ->
+  ``weight_ih_l0`` and ``weight_hh_l0`` of a bias-free ``nn.GRU``,
+  transposed (the gate order r, z, n is the same). The embedding table and
+  the head's ``a`` come across as they are.
+* ``NonCausalWaveNetLayer_i`` (``WN``'s layers) -> ``layers.i``.
 * LSTM: flax keeps per-gate input kernels ``i{i,f,g,o}`` without bias and
   recurrent kernels ``h{i,f,g,o}`` with bias; torch takes
   ``weight_ih = cat(i*).T``, ``weight_hh = cat(h*).T`` in gate order
@@ -39,6 +46,7 @@ _SCOPES = {"ConvPyramid_0": "pyramid", "LayerNorm_0": "norm",
            "GroupNorm_0": "group_norm", "BiLSTM_0": "lstm.lstm"}
 _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
          "var": "running_var"}
+_GRU = {"wi": "weight_ih_l0", "wh": "weight_hh_l0"}
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -73,7 +81,8 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     for path, arr in flat.items():
         scope = []
         for part in path[:-1]:
-            scope.append(_SCOPES.get(part, part))
+            scope.append(_SCOPES.get(part, re.sub(
+                r"^NonCausalWaveNetLayer_(\d+)$", r"layers.\1", part)))
         leaf = path[-1]
         m = re.fullmatch(r"OptimizedLSTMCell_(\d+)", path[-3]) \
             if len(path) >= 3 else None
@@ -92,7 +101,7 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         elif owner.startswith("BatchNorm_"):
             key = ".".join(scope[:-1] + ["norms", owner[10:]])
             sd[f"{key}.{_LEAF[leaf]}"] = _t(arr)
-        elif owner.startswith("Dense_") or owner == "out_linear":
+        elif owner.startswith("Dense_") or owner in ("out_linear", "fc"):
             name = "dense" + owner[6:] if owner.startswith("Dense_") \
                 else owner
             key = ".".join(scope[:-1] + [name])
@@ -100,6 +109,8 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
                 arr.T if leaf == "kernel" else arr)
         elif owner in ("LayerNorm_0", "GroupNorm_0"):
             sd[f"{'.'.join(scope)}.{_LEAF[leaf]}"] = _t(arr)
+        elif leaf in _GRU:
+            sd[".".join(scope + [_GRU[leaf]])] = _t(arr.T)
         elif leaf == "glottal_table":
             sd[".".join(scope + ["table"])] = _t(arr)
         else:                  # acoustic filter kernels, running min/max

@@ -26,9 +26,12 @@ _ALIASES = {
     "models.unet": f"{_PKG}.models.unet",
     "models.hpn": f"{_PKG}.models.hpn",
     "models.mel": f"{_PKG}.models.mel",
+    "models.lpcnet": f"{_PKG}.models.lpcnet",
     "loss.spec": f"{_PKG}.loss.spec",
     "ltng.ae": f"{_PKG}.tasks.ae",
     "ltng.vocoder": f"{_PKG}.tasks.vocoder",
+    "ltng.lpcnet": f"{_PKG}.tasks.lpcnet",
+    "ltng.world_ae": f"{_PKG}.tasks.world_ae",
     "ltng.data": f"{_PKG}.tasks.data",
 }
 

@@ -1,11 +1,14 @@
-"""Mel frame-rate backbone (counterpart of ``golf_tpu.models.mel``):
-``Mel2Control``, the ISMIR23 vocoder's encoder. ``X2Control``,
-``LPCFrameNet`` and ``WN`` are not ported."""
+"""Mel frame-rate backbones (counterpart of ``golf_tpu.models.mel``):
+``Mel2Control``, the encoder of the ISMIR23 vocoder and of LPCNet, and the
+other frame nets a ``frame_decoder`` may name, ``LPCFrameNet`` and the
+non-causal WaveNet ``WN``. Each takes its ``out_channels`` at construction
+(``golf_tpu`` passes them at call time). ``X2Control`` is not ported."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -49,3 +52,80 @@ class Mel2Control(BackboneModelInterface):
         x = self.convs[1](x).transpose(1, 2)           # (B, T, C)
         h = self.norm(self.lstm(x))
         return Sig(self.out_linear(h), mels.hop)
+
+
+class LPCFrameNet(BackboneModelInterface):
+    """tanh(Conv1d(3)) twice, tanh(Linear), then the zero-initialised head,
+    over (B, T, in_channels) features (``in_channels`` is the mel count,
+    which flax infers)."""
+
+    def __init__(self, out_channels: int, in_channels: int = 80,
+                 hidden_channels: int = 128):
+        super().__init__()
+        self.convs = nn.ModuleList([
+            nn.Conv1d(in_channels, hidden_channels, 3, padding=1),
+            nn.Conv1d(hidden_channels, hidden_channels, 3, padding=1)])
+        self.dense0 = nn.Linear(hidden_channels, hidden_channels)
+        self.out_linear = self.make_out_linear(hidden_channels,
+                                               out_channels)
+
+    def forward(self, mels: Sig, f0: Optional[Sig] = None,
+                train: bool = False) -> Sig:
+        x = mels.data.transpose(1, 2)
+        for conv in self.convs:
+            x = torch.tanh(conv(x))
+        x = torch.tanh(self.dense0(x.transpose(1, 2)))
+        return Sig(self.out_linear(x), mels.hop)
+
+
+class NonCausalWaveNetLayer(nn.Module):
+    """Gated dilated Conv1d (``radix`` taps, same-length padding), then a
+    1x1 conv into the residual (added to the input) and the skip; the last
+    layer has the skip only and returns (None, skip)."""
+
+    def __init__(self, radix: int, dilation: int, residual_channels: int,
+                 last_layer: bool = False):
+        super().__init__()
+        pad = dilation * (radix - 1) // 2
+        out = residual_channels if last_layer else 2 * residual_channels
+        self.last_layer = last_layer
+        self.convs = nn.ModuleList([
+            nn.Conv1d(residual_channels, 2 * residual_channels, radix,
+                      padding=pad, dilation=dilation),
+            nn.Conv1d(residual_channels, out, 1)])
+
+    def forward(self, x: torch.Tensor):
+        """x: (B, C, T) -> (residual output or None, skip)."""
+        zw, zf = torch.chunk(self.convs[0](x), 2, dim=1)
+        z = self.convs[1](torch.tanh(zw) * torch.sigmoid(zf))
+        if self.last_layer:
+            return None, z
+        res, skip = torch.chunk(z, 2, dim=1)
+        return res + x, skip
+
+
+class WN(BackboneModelInterface):
+    """Non-causal WaveNet: a 1x1 conv in, ``depth`` gated layers with
+    dilations 2^(i mod cycle), the sum of their skips through a 1x1 conv out
+    (not zero-initialised)."""
+
+    def __init__(self, out_channels: int, in_channels: int = 80,
+                 residual_channels: int = 128, depth: int = 20,
+                 cycle: int = 6, radix: int = 3):
+        super().__init__()
+        self.convs = nn.ModuleList([
+            nn.Conv1d(in_channels, residual_channels, 1),
+            nn.Conv1d(residual_channels, out_channels, 1)])
+        self.layers = nn.ModuleList([
+            NonCausalWaveNetLayer(radix, 2 ** (i % cycle), residual_channels,
+                                  last_layer=i == depth - 1)
+            for i in range(depth)])
+
+    def forward(self, mels: Sig, f0: Optional[Sig] = None,
+                train: bool = False) -> Sig:
+        x = self.convs[0](mels.data.transpose(1, 2))
+        cum_skip = 0.0
+        for layer in self.layers:
+            x, skip = layer(x)
+            cum_skip = cum_skip + skip
+        return Sig(self.convs[1](cum_skip).transpose(1, 2), mels.hop)

@@ -1,5 +1,7 @@
-"""Mel-cepstral analysis and synthesis (counterpart of the ``freqt``,
-``mcep``, ``mc2sp_log`` and ``minimum_phase_response`` part of
+"""Mel-cepstral analysis and synthesis, and the LPC <-> reflection
+coefficient <-> log-area-ratio chain (counterpart of the ``freqt``,
+``mcep``, ``mc2sp_log``, ``minimum_phase_response``, ``lpc2rc``,
+``rc2lar``, ``lar2rc`` and ``lpc_from_frames`` part of
 ``golf_tpu.ops.cepstrum``).
 
 * ``freqt``: Oppenheim frequency transform (all-pass warping) of cepstra.
@@ -9,6 +11,9 @@
 * ``mc2sp_log``: mel-cepstrum -> log-magnitude half spectrum (the MLSA
   filters' transfer function), ``minimum_phase_response`` its complex
   minimum-phase response.
+* ``lpc_from_frames``: windowed frames -> [gain, a1..ap] by the
+  autocorrelation and ``levinson`` (LPCNet's ground-truth LPC);
+  ``lpc2rc`` (step-down), ``rc2lar`` and ``lar2rc``.
 
 The design-time matrices (``_freqt_matrix``, ``_warped_cos_basis``) are
 host-side numpy, copied from ``golf_tpu``.
@@ -24,7 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .dsp import minimum_phase_spectrum, mirror_spectrum
+from .dsp import levinson, minimum_phase_spectrum, mirror_spectrum
 
 
 @lru_cache(maxsize=None)
@@ -128,3 +133,46 @@ def minimum_phase_response(log_mag_half: torch.Tensor) -> torch.Tensor:
     n_bins = log_mag_half.shape[-1]
     return minimum_phase_spectrum(mirror_spectrum(log_mag_half))[
         ..., :n_bins]
+
+
+def lpc2rc(a: torch.Tensor) -> torch.Tensor:
+    """Step-down recursion: a1..ap -> reflection coefficients k1..kp, each
+    division's denominator 1 - k^2 floored at 1e-9."""
+    p = a.shape[-1]
+    cur = a
+    ks = []
+    for n in range(p, 0, -1):
+        k = cur[..., n - 1:n]
+        ks.append(k)
+        if n > 1:
+            head = cur[..., :n - 1]
+            cur = (head - k * torch.flip(head, (-1,))) / torch.clamp(
+                1 - k * k, min=1e-9)
+    return torch.cat(ks[::-1], dim=-1)
+
+
+def rc2lar(k: torch.Tensor, clip: float = 0.999) -> torch.Tensor:
+    """Reflection coefficients, clipped to +-clip, -> log area ratios."""
+    k = torch.clamp(k, -clip, clip)
+    return torch.log((1 + k) / (1 - k))
+
+
+def lar2rc(g: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(g / 2)
+
+
+def lpc_from_frames(frames: torch.Tensor, order: int,
+                    window: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Frames (..., L) -> [gain, a1..ap] (diffsptk's LPC): window, the
+    autocorrelation through a 2L-point FFT divided by L, Levinson, and the
+    gain sqrt(max(prediction error, 1e-12))."""
+    if window is not None:
+        frames = frames * window
+    length = frames.shape[-1]
+    spec = torch.fft.rfft(frames, 2 * length, dim=-1)
+    r = torch.fft.irfft(torch.abs(spec) ** 2, 2 * length,
+                        dim=-1)[..., :order + 1] / length
+    a = levinson(r, order)
+    err = r[..., 0] + torch.sum(a[..., 1:] * r[..., 1:], dim=-1)
+    gain = torch.sqrt(torch.clamp(err, min=1e-12))
+    return torch.cat([gain[..., None], a[..., 1:]], dim=-1)

@@ -114,6 +114,23 @@ def rc2lpc(rc: torch.Tensor) -> torch.Tensor:
     return cur[..., 1:]
 
 
+def levinson(r: torch.Tensor, order: int) -> torch.Tensor:
+    """Levinson-Durbin: autocorrelation (..., order+1) -> LPC [1, a1..ap],
+    in r's dtype, the prediction error floored at 1e-9 in each reflection
+    coefficient's division, the sums in ``golf_tpu``'s order."""
+    a = [torch.ones_like(r[..., 0])] + [None] * order
+    err = r[..., 0]
+    for i in range(1, order + 1):
+        acc = r[..., i]
+        for j in range(1, i):
+            acc = acc + a[j] * r[..., i - j]
+        k = -acc / torch.clamp(err, min=1e-9)
+        a = [a[0]] + [a[j] + k * a[i - j] for j in range(1, i)] + [k] \
+            + a[i + 1:]
+        err = err * (1 - k * k)
+    return torch.stack(a, dim=-1)
+
+
 def fir_filt(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Sample-wise time-varying causal FIR, ``h`` flipped against causally
     padded windows: ``y[n] = sum_k h[n, k] * x[n - (K-1) + k]``. x (B, T),

@@ -1,11 +1,15 @@
 """CLI runner for the port: the ``fit``, ``validate``, ``test`` and
-``predict`` subcommands of the voice autoencoder and the mel vocoder
-(counterpart of ``golf_tpu.tasks.cli``)::
+``predict`` subcommands of the voice autoencoder, the mel vocoder, LPCNet
+and the WORLD baseline (counterpart of ``golf_tpu.tasks.cli``)::
 
     python autoencode_torch.py fit --config cfg/ae/vctk.yaml \\
         --model cfg/ae/decoder/golf.yaml data.class_path=ltng.data.Synthetic
     python main_torch.py fit --model cfg/ae/decoder/golf-v1.yaml \\
         data.init_args.wav_dir=<MPop600 tree>
+    python main_torch.py fit --config cfg/lpcnet.yaml \\
+        data.init_args.wav_dir=<LJSpeech tree>
+    python autoencode_torch.py test --config cfg/ae/pyworld.yaml \\
+        data.init_args.wav_dir=<VCTK tree>
     python autoencode_torch.py validate ... --ckpt_path <run>/ckpt/last
     python autoencode_torch.py test ... [--ckpt_path <run>/ckpt/last]
     python autoencode_torch.py predict ... [--ckpt_path <run>/ckpt/last]
@@ -15,12 +19,15 @@ dotted overrides apply last; the resolved config is written to the run
 directory. ``fit`` writes ``metrics.jsonl`` and ``ckpt/{last,step=...}``
 there, ``validate`` prints the validation metrics as JSON, ``test`` the
 test split's ``avg_mss_loss`` and ``avg_mcd`` (MCD; the vocoder's
-``avg_mss_loss`` and ``avg_f0_loss``, the f0 error in cents), ``predict``
-writes one wav per item to ``<run_dir>/predictions`` (the vocoder's in
-6 s chunks crossfaded over 0.3 s). Without a checkpoint the weights are
-the seeded initialisation, with the running min/max set from the first
-training batch as ``golf_tpu``'s trainer init does. Runs on CUDA unless
-``--device cpu``.
+``avg_mss_loss`` and ``avg_f0_loss``, the f0 error in cents; LPCNet's
+teacher-forced metrics and ``avg_ar_mss`` and ``avg_ar_f0_cents`` of its
+autoregressive output), ``predict`` writes one wav per item to
+``<run_dir>/predictions`` (the vocoder's in 6 s chunks crossfaded over
+0.3 s). Without a checkpoint the weights are the seeded initialisation,
+with the running min/max set from the first training batch as
+``golf_tpu``'s trainer init does. The WORLD baseline has no weights: it
+runs ``test`` and ``predict`` only. LPCNet has no ``predict``, as in
+``golf_tpu``. Runs on CUDA unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -40,8 +47,10 @@ from ..core.sig import Sig
 from ..train.loop import Trainer
 from ..utils.wav import write_wav
 from .ae import build_voice_autoencoder
+from .lpcnet import LPCNetVocoder, build_lpcnet_vocoder, run_lpcnet_test
 from .vocoder import (DDSPVocoder, build_ddsp_vocoder, chunked_ola_predict,
                       run_vocoder_test)
+from .world_ae import WORLDAutoEncoder, build_world_autoencoder
 
 
 def _parse_args(argv: List[str]):
@@ -115,7 +124,9 @@ def run(argv: List[str], default_config: Optional[str] = None) -> int:
     model_node = cfg["model"]
     class_path = model_node.get("class_path", "")
     build_fns = {"VoiceAutoEncoder": build_voice_autoencoder,
-                 "DDSPVocoder": build_ddsp_vocoder}
+                 "DDSPVocoder": build_ddsp_vocoder,
+                 "LPCNetVocoder": build_lpcnet_vocoder,
+                 "WORLDAutoEncoder": build_world_autoencoder}
     build = build_fns.get(class_path.rpartition(".")[2])
     if build is None:
         raise ValueError(f"task {class_path!r} is not ported")
@@ -123,6 +134,14 @@ def run(argv: List[str], default_config: Optional[str] = None) -> int:
     torch.manual_seed(cfg.get("seed_everything") or 2434)
     task = build(init_args, device=device)
     datamodule = instantiate(cfg["data"])
+    if isinstance(task, WORLDAutoEncoder):
+        return _run_world(args.subcommand, task, datamodule, run_dir)
+    if isinstance(task, LPCNetVocoder) and args.subcommand == "predict":
+        raise NotImplementedError(
+            "LPCNetVocoder has no predict: golf_tpu's has no predict_step "
+            "either (main.py predict fails there); test writes the "
+            "autoregressive resynthesis of its first batch with "
+            "ar_dump_dir=<dir>")
     ckpt_path = args.ckpt_path or cfg.get("ckpt_path")
 
     trainer = Trainer(task, run_dir=run_dir, **trainer_kwargs(cfg))
@@ -142,6 +161,9 @@ def run(argv: List[str], default_config: Optional[str] = None) -> int:
     if args.subcommand == "test":
         if vocoder:
             print(json.dumps(run_vocoder_test(task, datamodule)))
+        elif isinstance(task, LPCNetVocoder):
+            print(json.dumps(run_lpcnet_test(
+                task, datamodule, ar_dump_dir=cfg.get("ar_dump_dir"))))
         else:
             trainer.test(datamodule)
         return 0
@@ -168,5 +190,26 @@ def run(argv: List[str], default_config: Optional[str] = None) -> int:
                     generator=generator)
                 audio = np.asarray(y.data[0].cpu())
             write_wav(os.path.join(out_dir, rel[0]), audio, sr)
+    print(f"predictions written to {out_dir}")
+    return 0
+
+
+def _run_world(subcommand: str, task: WORLDAutoEncoder, datamodule,
+               run_dir: str) -> int:
+    """The WORLD baseline's ``test`` (the metrics as JSON) and ``predict``
+    (one wav per utterance of the predict split); it has no parameters, so
+    ``fit`` and ``validate`` raise."""
+    if subcommand in ("fit", "validate"):
+        raise ValueError(
+            f"WORLDAutoEncoder is not trainable: {subcommand} has nothing to "
+            f"do; run test or predict")
+    if subcommand == "test":
+        print(json.dumps(task.run_test(datamodule)))
+        return 0
+    out_dir = os.path.join(run_dir, "predictions")
+    datamodule.setup("predict")
+    for x, f0, rel in datamodule.predict_dataloader():
+        y, _ = task.predict_step(np.asarray(x), np.asarray(f0))
+        write_wav(os.path.join(out_dir, rel[0]), y[0], task.sample_rate)
     print(f"predictions written to {out_dir}")
     return 0

@@ -1,16 +1,22 @@
-"""DIO f0 estimation on the host (counterpart of the DIO part of
-``golf_tpu.utils.world_lite``, copied as it is): log-spaced lowpass
-channels, four event sequences a channel, the most stable candidate, then
-contour cleaning and a spectral refinement. Pure numpy in float64; the
-vocoder's test step scores the f0 it re-estimates from the synthesised
-audio. ``golf_tpu``'s default ``utils.native.dio`` (``method="dio"``) is
-this function.
+"""WORLD analysis and synthesis on the host (counterpart of
+``golf_tpu.utils.world_lite``, copied as it is; its YIN variant and
+``get_f0`` are not ported). Pure numpy in float64:
+
+* ``dio``: log-spaced lowpass channels, four event sequences a channel,
+  the most stable candidate, then contour cleaning and a spectral
+  refinement. The vocoder's and LPCNet's test steps score the f0 they
+  re-estimate from the synthesised audio; ``golf_tpu``'s default
+  ``utils.native.dio`` (``method="dio"``) is this function.
+* ``cheaptrick``, ``d4c`` and ``synthesize``: the spectral envelope, the
+  band aperiodicity and the resynthesis of the WORLD baseline
+  (``tasks/world_ae.py``); ``synthesize`` draws its noise from a numpy
+  generator seeded with ``seed``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -180,3 +186,218 @@ def _refine_f0(x: np.ndarray, fs: int, f0: np.ndarray,
         if 0.7 * cf0 < refined < 1.35 * cf0:
             out[i] = refined
     return out
+
+
+# ---------------------------------------------------------------------------
+# Spectral envelope (CheapTrick-style)
+# ---------------------------------------------------------------------------
+
+def cheaptrick(x: np.ndarray, f0: np.ndarray, t: np.ndarray, fs: int,
+               fft_size: Optional[int] = None,
+               default_f0: float = 500.0) -> np.ndarray:
+    """f0-adaptive windowed power spectrum + spectral smoothing + liftering.
+    Returns (n_frames, fft_size//2+1) power envelope."""
+    x = np.asarray(x, np.float64)
+    if fft_size is None:
+        fft_size = 2 ** math.ceil(math.log2(3 * fs / 71.0 + 1))
+    half = fft_size // 2
+    n_frames = len(f0)
+    sp = np.zeros((n_frames, half + 1))
+    freq = np.arange(half + 1) * fs / fft_size
+    q1 = -0.15
+    for i in range(n_frames):
+        cf0 = f0[i] if f0[i] > 0 else default_f0
+        center = int(t[i] * fs)
+        win_len = min(int(3 * fs / cf0) // 2 * 2 + 1, fft_size)
+        idx = center + np.arange(win_len) - win_len // 2
+        idx = np.clip(idx, 0, len(x) - 1)
+        win = np.hanning(win_len)
+        seg = x[idx] * win
+        # window-power normalization: without it the envelope level would
+        # depend on f0 through the 3*T0 window length
+        power = np.abs(np.fft.rfft(seg, fft_size)) ** 2 / np.sum(win ** 2)
+        power += 1e-12
+        # DC correction (WORLD): mirror the spectrum around f0 into the
+        # sub-f0 region so the envelope doesn't dip below the first
+        # harmonic
+        bf0 = int(round(cf0 / (fs / fft_size)))
+        if 0 < 2 * bf0 < half:
+            power[:bf0] = power[:bf0] + power[2 * bf0: bf0: -1]
+        # rectangular smoothing of width 2/3 f0: exact boxcar average via
+        # the cumulative integral with DC mirroring (WORLD's
+        # LinearSmoothing), not a discrete convolve — sub-bin width and
+        # boundary handling matter for envelope accuracy
+        width_bins = (2 * cf0 / 3) / (fs / fft_size)
+        mirrored = np.concatenate([power[1:][::-1], power,
+                                   power[-2:][::-1]])
+        cum = np.concatenate([[0.0], np.cumsum(mirrored)])
+        pos = np.arange(half + 1) + half          # center in mirrored
+        lo_q = pos - width_bins / 2 + 0.5
+        hi_q = pos + width_bins / 2 + 0.5
+
+        def interp_cum(q):
+            qi = np.clip(q, 0, len(cum) - 1.001)
+            base = np.floor(qi).astype(int)
+            return cum[base] + (qi - base) * (cum[base + 1] - cum[base])
+
+        smoothed = (interp_cum(hi_q) - interp_cum(lo_q)) / width_bins
+        # log-domain liftering: log_sp IS the one-sided spectrum, so
+        # irfft alone yields the (even, real) cepstrum — mirroring by
+        # hand and passing the full array to irfft would reinterpret it
+        # as a one-sided spectrum of twice the length
+        log_sp = np.log(smoothed)
+        cep = np.fft.irfft(log_sp)[:half + 1]
+        quef = np.arange(half + 1) / fs
+        lifter = np.sinc(cf0 * quef)
+        lifter_c = (1 + 2 * q1) - 2 * q1 * np.cos(
+            2 * np.pi * quef * cf0)
+        cep = cep * lifter * lifter_c
+        cep_full = np.concatenate([cep, cep[-2:0:-1]])
+        sp[i] = np.exp(np.fft.rfft(cep_full).real[:half + 1])
+    return sp
+
+
+# ---------------------------------------------------------------------------
+# Aperiodicity (D4C-lite)
+# ---------------------------------------------------------------------------
+
+def d4c(x: np.ndarray, f0: np.ndarray, t: np.ndarray, fs: int,
+        fft_size: Optional[int] = None,
+        frequency_interval: float = 3000.0) -> np.ndarray:
+    """Band aperiodicity (D4C structure): coarse aperiodicity is MEASURED
+    per frequency band (centers every ``frequency_interval`` Hz, as in
+    WORLD) from the pitch-synchronous normalized autocorrelation of the
+    band-passed signal around each frame, then log-interpolated over the
+    full FFT grid. Reference surface: ``ltng/world_ae.py:36-41``
+    (pyworld.d4c). Returns (n_frames, fft_size//2+1) aperiodicity."""
+    x = np.asarray(x, np.float64)
+    if fft_size is None:
+        fft_size = 2 ** math.ceil(math.log2(3 * fs / 71.0 + 1))
+    half = fft_size // 2
+    n_frames = len(f0)
+    ap = np.ones((n_frames, half + 1)) * 0.999
+    freq = np.arange(half + 1) * fs / fft_size
+
+    # coarse band centers: 3 kHz spacing like WORLD (plus the edges)
+    n_bands = max(1, int(fs / 2 / frequency_interval))
+    centers = np.arange(1, n_bands + 1) * frequency_interval
+    centers = centers[centers < fs / 2 - 500]
+    if centers.size == 0:
+        centers = np.asarray([fs / 4])
+
+    # band-passed copies of the whole signal (zero-phase FFT masking)
+    n = len(x)
+    spec = np.fft.rfft(x)
+    fgrid = np.fft.rfftfreq(n, 1.0 / fs)
+    bands = []
+    for fc in centers:
+        lo, hi = max(50.0, fc - frequency_interval), fc + frequency_interval
+        gain = np.clip(np.minimum(fgrid - lo, hi - fgrid)
+                       / (0.25 * frequency_interval), 0.0, 1.0)
+        bands.append(np.fft.irfft(spec * gain, n))
+
+    coarse_freq = np.concatenate([[0.0], centers, [fs / 2]])
+    for i in range(n_frames):
+        if f0[i] <= 0:
+            continue
+        period = max(2, int(round(fs / f0[i])))
+        center = int(t[i] * fs)
+        w = 3 * period
+        s0, s1 = max(0, center - w), min(n, center + w)
+        if s1 - s0 < 2 * period + 2:
+            continue
+        coarse = np.empty(len(centers))
+        for bi, bx in enumerate(bands):
+            seg = bx[s0:s1]
+            a = seg[:-period]
+            b = seg[period:]
+            denom = math.sqrt(float(np.sum(a * a)) *
+                              float(np.sum(b * b))) + 1e-12
+            r = float(np.sum(a * b)) / denom
+            coarse[bi] = math.sqrt(max(1e-6, 1.0 - max(r, 0.0) ** 2))
+        coarse = np.clip(coarse, 1e-3, 0.999)
+        # log-domain interpolation over the full grid; edges follow
+        # WORLD's convention (low edge near-periodic floor, Nyquist
+        # fully aperiodic)
+        cvals = np.concatenate([[coarse[0]], coarse, [0.999]])
+        ap[i] = np.exp(np.interp(freq, coarse_freq, np.log(cvals)))
+    return np.clip(ap, 1e-3, 0.999)
+
+
+# ---------------------------------------------------------------------------
+# Synthesis
+# ---------------------------------------------------------------------------
+
+def synthesize(f0: np.ndarray, sp: np.ndarray, ap: np.ndarray, fs: int,
+               frame_period: float = 5.0, seed: int = 0) -> np.ndarray:
+    """WORLD synthesis: phase-coherent time-domain harmonic bank for the
+    periodic part (amplitudes sampled from sqrt(sp)·sqrt(1-ap²) along
+    each harmonic's trajectory — bin-quantized frame-OLA harmonics would
+    comb-filter under vibrato) + frame-OLA spectrally-shaped noise for
+    the aperiodic part."""
+    rng = np.random.default_rng(seed)
+    hop = int(fs * frame_period / 1000)
+    n_frames = len(f0)
+    bins = sp.shape[1]
+    fft_size = 2 * (bins - 1)
+    out_len = n_frames * hop
+    tt = np.arange(out_len)
+
+    # ---- periodic part: time-domain harmonic bank ----------------------
+    frame_of_t = np.minimum(tt / hop, n_frames - 1)
+    fi = np.floor(frame_of_t).astype(int)
+    fw = frame_of_t - fi
+    fi1 = np.minimum(fi + 1, n_frames - 1)
+    f0_t = f0[fi] * (1 - fw) + f0[fi1] * fw
+    f0_t = np.where((f0[fi] > 0) & (f0[fi1] > 0), f0_t,
+                    np.maximum(f0[fi], f0[fi1]) * (fw > 0.5))
+    voiced_t = f0_t > 0
+    phase = np.cumsum(np.where(voiced_t, f0_t, 0.0)) / fs
+    y = np.zeros(out_len)
+    if voiced_t.any():
+        f0_safe = np.where(voiced_t, f0_t, 100.0)
+        max_harm = int(fs / 2 / max(f0[f0 > 0].min(), 1e-3)) \
+            if (f0 > 0).any() else 0
+        df = fs / fft_size
+        for k in range(1, max_harm + 1):
+            fk = k * f0_safe
+            alive = voiced_t & (fk < fs / 2 - df)
+            if not alive.any():
+                break
+            # bilinear sample of sp and ap along the trajectory
+            bq = fk / df
+            b0 = np.clip(bq.astype(int), 0, bins - 2)
+            bwt = bq - b0
+            spk = (sp[fi, b0] * (1 - bwt) + sp[fi, b0 + 1] * bwt) \
+                * (1 - fw) + (sp[fi1, b0] * (1 - bwt)
+                              + sp[fi1, b0 + 1] * bwt) * fw
+            apk = (ap[fi, b0] * (1 - bwt) + ap[fi, b0 + 1] * bwt) \
+                * (1 - fw) + (ap[fi1, b0] * (1 - bwt)
+                              + ap[fi1, b0 + 1] * bwt) * fw
+            # pulse-train-through-envelope amplitude convention:
+            # a_k = 2 f0/fs * sqrt(density) (see analysis normalization)
+            amp = 2.0 * (f0_safe / fs) * np.sqrt(
+                np.maximum(spk, 1e-12) * fft_size / 6.0)
+            amp = amp * np.sqrt(np.maximum(1 - apk ** 2, 0.0)) * alive
+            y += amp * np.sin(2 * np.pi * k * phase)
+
+    # ---- aperiodic part: frame-OLA shaped noise ------------------------
+    yn = np.zeros(out_len + 2 * fft_size)
+    wsum = np.zeros_like(yn)
+    win = np.hanning(fft_size)
+    for i in range(n_frames):
+        env = np.sqrt(np.maximum(sp[i], 1e-12))
+        apw = np.clip(ap[i], 1e-3, 0.999)
+        noise_spec = (rng.standard_normal(bins)
+                      + 1j * rng.standard_normal(bins)) / math.sqrt(2)
+        spec = env * apw * noise_spec * math.sqrt(fft_size)
+        frame = np.fft.fftshift(np.fft.irfft(spec)) * win
+        start = i * hop
+        yn[start:start + fft_size] += frame
+        wsum[start:start + fft_size] += win ** 2
+    yn = yn[fft_size // 2: fft_size // 2 + out_len]
+    wsum = wsum[fft_size // 2: fft_size // 2 + out_len]
+    # independent frames overlap-add: variance grows with sum(win^2), so
+    # normalize by its square root to recover the target noise PSD
+    y = y + yn / np.sqrt(np.maximum(wsum, 1e-6))
+    return y.astype(np.float64)
