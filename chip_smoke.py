@@ -127,8 +127,27 @@ Phases (any failure exits non-zero):
     of max|y|); ``main_torch.py fit`` (2 steps) and ``test`` (the
     teacher-forced metrics and one autoregressive batch, B2 once) from a
     miniature LJSpeech tree it writes (36 train, 20 test segments of 1 s);
-    an ``lpcnet`` JSON line;
-15. summary: a ``kernels:`` line, the card, then one JSON line with the
+    the float32 card step is also run with cuDNN off (restored in a
+    ``finally``), its gradients within 1e-3 of max-abs of the CPU's; an
+    ``lpcnet`` JSON line;
+15. options: the encoder's options, GOLF's parameterisations and the
+    allpass filters at full vctk width (encoder sample_rate 24000): GOLF-ff
+    with ``compute_dtype: bfloat16`` and in fp32, 4 Adam steps each at
+    B = 64 x 2 s in turns (step times, peak memory, launches exact); one
+    B = 2 x 1 s bf16 step card vs CPU, loss and gradients within twice the
+    CPU's own bf16-to-fp32 distance plus 2^-8; cuDNN's bf16 LSTM timed
+    beside the mirror of golf_tpu's bf16 LSTM (and cuDNN fp32) with its
+    distances; GOLF-ss with ``use_lru`` and ``include_env_features``: 3
+    steps, a 4 x 6 s predict and a stream (look-ahead 24) whose every row
+    is held to 1e-4 of the offline encoder's on the untrained weights; coef,
+    conj, real and lsp2lpc (order 21) on golf.yaml and golf-precise.yaml, 2
+    steps each, launches exact; each allpass as golf.yaml's room filter, 3
+    steps and a predict (B2 and its adjoint twice a step); B2 at the allpass
+    ``lfilter``'s training rows (forward and adjoint) and serving rows at
+    p = 16, and a ``BatchSecondOrderLPCSynth`` section (12800, 960) at
+    p = 2 (11 launches a call), each against its plain version and a
+    float64 reference; an ``options`` JSON line;
+16. summary: a ``kernels:`` line, the card, then one JSON line with the
     kernel table; B1's and B3b's ``library_ms`` is ``F.grid_sample`` on the
     table padded with its first column, and its backward with respect to
     the table (B3a's is null: no one call returns its three outputs); B1's
@@ -137,9 +156,11 @@ Phases (any failure exits non-zero):
     split) on the same inputs in this run; B1's, B2's and its adjoint's
     rows carry ``vocoder_serve`` (the vocoder's serving shapes and the
     vocoder phase's launches), B2's ``lpcnet`` (LPCNet's de-emphasis shape,
-    the lpcnet phase's launches); ``launches`` counts every phase, the
-    vocoder's and LPCNet's included;
-16. last line: ``{"ok": true, "device": {...}}``.
+    the lpcnet phase's launches), and B2's and its adjoint's rows the
+    options' shapes (``lfilter_train``, ``lfilter_serve``, ``cascade_p2``);
+    ``launches`` counts every phase, the vocoder's, LPCNet's and the
+    options' included;
+17. last line: ``{"ok": true, "device": {...}}``.
 Each phase's seconds are printed as it ends.
 
 Needs one CUDA device, and exits non-zero without one. Imports torch and
@@ -1023,6 +1044,46 @@ def leaves(raw: dict) -> dict:
     return out
 
 
+def stream_encoder(se: StreamingEncoder, xs: Sig, f0s: Sig,
+                   each=None) -> tuple:
+    """Push ``xs`` and ``f0s`` through the streaming encoder ``se`` in
+    pushes of STREAM_CHUNK samples, then flush: (the emitted rows as
+    leaves, one dict for each push that emitted and one for the flush; each
+    push's latency, host clock around synchronize; the flush's seconds).
+    ``each(c)`` runs after push ``c``."""
+    parts, lat = [], []
+    for c in range(xs.data.shape[1] // STREAM_CHUNK):
+        sl = slice(c * STREAM_CHUNK, (c + 1) * STREAM_CHUNK)
+        r, dt = timed(lambda: se.push(xs.data[:, sl], f0s.data[:, sl]))
+        lat.append(dt)
+        if r is not None:
+            parts.append(leaves(r))
+        if each is not None:
+            each(c)
+    r, flush_s = timed(se.flush)
+    parts.append(leaves(r))
+    return parts, lat, flush_s
+
+
+def cat_rows(parts: list) -> dict:
+    """The stream's emitted leaves joined along the frames."""
+    return {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}
+
+
+def row_errors(got: dict, ref: dict, label: str) -> np.ndarray:
+    """Per frame, the largest of max|got - ref| over each leaf's
+    max-abs."""
+    worst = None
+    for k, want in ref.items():
+        check(got[k].shape == want.shape, f"{label} rows {k} "
+              f"{tuple(got[k].shape)} == {tuple(want.shape)}")
+        d = (got[k].float().cpu() - want.float().cpu()).abs()
+        d = d.amax(dim=tuple(i for i in range(d.ndim) if i != 1))
+        d = d.double().numpy() / (want.abs().max().item() + 1e-9)
+        worst = d if worst is None else np.maximum(worst, d)
+    return worst
+
+
 def phase_stream(shapes: dict) -> dict:
     """B = 4 streams of 6 s through the full-width encoder and GOLF-ss
     decoder, pushes of STREAM_CHUNK samples: the streaming encoder against
@@ -1049,24 +1110,21 @@ def phase_stream(shapes: dict) -> dict:
 
     se = StreamingEncoder(enc, lookahead=STREAM_LOOKAHEAD, batch=BATCH)
     stream = GOLFStream(dec, chunk=STREAM_CHUNK)
-    enc_parts, dec_parts, enc_lat, dec_lat = [], [], [], []
+    dec_parts, dec_lat = [], []
+
+    def decoder_push(c):
+        sl = slice(c * STREAM_CHUNK, (c + 1) * STREAM_CHUNK)
+        out, dt = timed(lambda: stream.push(
+            chunk_ctrl(ctrl, c, STREAM_CHUNK), phase[:, sl], noise[:, sl]))
+        dec_lat.append(dt)
+        if out is not None:
+            dec_parts.append(out)
+
     for k in kernels.ALL:
         k.launches = 0
     with torch.inference_mode():
-        for c in range(n):
-            sl = slice(c * STREAM_CHUNK, (c + 1) * STREAM_CHUNK)
-            r, dt = timed(lambda: se.push(xs.data[:, sl], f0s.data[:, sl]))
-            enc_lat.append(dt)
-            if r is not None:
-                enc_parts.append(leaves(r))
-            out, dt = timed(lambda: stream.push(
-                chunk_ctrl(ctrl, c, STREAM_CHUNK), phase[:, sl],
-                noise[:, sl]))
-            dec_lat.append(dt)
-            if out is not None:
-                dec_parts.append(out)
-        r, enc_flush_s = timed(se.flush)
-        enc_parts.append(leaves(r))
+        enc_parts, enc_lat, enc_flush_s = stream_encoder(se, xs, f0s,
+                                                         decoder_push)
         n_flushed = next(iter(enc_parts[-1].values())).shape[1]
         out, dec_flush_s = timed(lambda: stream.flush(
             chunk_ctrl(ctrl, n, STREAM_CHUNK, rest=True)))
@@ -1085,18 +1143,9 @@ def phase_stream(shapes: dict) -> dict:
     check(y.shape[1] >= y_off.shape[1] and torch.isfinite(y).all().item(),
           "stream output finite and long enough")
     dec_err = rel_err(y[:, :y_off.shape[1]], y_off)
-    ref = leaves(raw)
-    m = next(iter(ref.values())).shape[1]
-    enc_tail, enc_mid = 0.0, 0.0
-    for k, want in ref.items():
-        got = torch.cat([p[k] for p in enc_parts], dim=1)
-        check(got.shape == want.shape, f"encoder rows {k} {tuple(got.shape)}"
-              f" == {tuple(want.shape)}")
-        scale = want.abs().max().item() + 1e-9
-        enc_tail = max(enc_tail, (got[:, m - n_flushed:]
-                                  - want[:, m - n_flushed:]).abs().max()
-                       .item() / scale)
-        enc_mid = max(enc_mid, (got - want).abs().max().item() / scale)
+    rows = row_errors(cat_rows(enc_parts), leaves(raw), "stream encoder")
+    m = rows.shape[0]
+    enc_tail, enc_mid = float(rows[m - n_flushed:].max()), float(rows.max())
     print(f"stream: decoder vs offline decoder (same ctrl and noise) "
           f"{dec_err:.3e} of max|y| (tolerance 5e-4, golf_tpu's bound); "
           f"encoder vs offline encoder, look-ahead {STREAM_LOOKAHEAD}: "
@@ -1188,12 +1237,14 @@ def phase_test(decoder: str) -> dict:
     return counts
 
 
-def seeded_model(decoder: str, device) -> VoiceAutoEncoder:
-    """Full-width model with seeded weights; the zero-initialised head and
-    acoustic filter (the room filter, or NHV's end filter) get small random
-    values so the LPC and the acoustic filter are not the identity."""
+def seeded_model(decoder: str, device, cfg: dict = None) -> VoiceAutoEncoder:
+    """Full-width model (``model_config(decoder)``, or ``cfg``) with seeded
+    weights; the zero-initialised head and acoustic filter (the room
+    filter, or NHV's end filter) get small random values so the LPC and the
+    acoustic filter are not the identity. An allpass room filter keeps its
+    seeded initialisation."""
     torch.manual_seed(SEED)
-    task = build_voice_autoencoder(model_config(decoder), device="cpu")
+    task = build_voice_autoencoder(cfg or model_config(decoder), device="cpu")
     gen = torch.Generator().manual_seed(SEED + 1)
     with torch.no_grad():
         head = task.encoder.backbone.out_linear
@@ -1202,8 +1253,9 @@ def seeded_model(decoder: str, device) -> VoiceAutoEncoder:
         head.bias.copy_(0.05 * torch.randn(head.bias.shape, generator=gen))
         acoustic = getattr(task.decoder, "room_filter", None) or \
             task.decoder.end_filter
-        acoustic.kernel.copy_(0.01 * torch.randn(acoustic.kernel.shape,
-                                                 generator=gen))
+        if hasattr(acoustic, "kernel"):
+            acoustic.kernel.copy_(0.01 * torch.randn(acoustic.kernel.shape,
+                                                     generator=gen))
     return task.to(device)
 
 
@@ -1285,50 +1337,69 @@ def train_model_config(decoder: str, dropout: float = None,
     return cfg
 
 
+def train_steps(tasks: dict, steps: int, label: str) -> dict:
+    """``steps`` Adam steps of each task on B = 64 x 2 s through the port's
+    Trainer, the tasks in turns (one step of each, then the next round):
+    every loss finite. Per task: its launches, losses, step wall times
+    (host clock around synchronize, TF32 off), the last grad norm and the
+    peak memory (the largest over its own steps)."""
+    dev = torch.device("cuda")
+    x, f0 = requests(TRAIN_BATCH, TRAIN_SECONDS)
+    xs, f0s = Sig(x.to(dev), 1), Sig(f0.to(dev), 1)
+    trainers = {}
+    for name, task in tasks.items():
+        trainers[name] = Trainer(
+            task, run_dir="chiprun_out/chip_smoke_" + label.replace(" ", "_"),
+            max_steps=steps, seed=SEED)
+        task.init_running_stats(xs, f0s)
+    out = {name: {"counts": {k.name: 0 for k in kernels.ALL},
+                  "step_ms": [], "losses": [], "peak_gib": 0.0}
+           for name in tasks}
+    for _ in range(steps):
+        for name, trainer in trainers.items():
+            for k in kernels.ALL:
+                k.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            metrics, secs = timed(lambda: trainer.train_step(xs, f0s))
+            trainer.step += 1
+            rec = out[name]
+            for k in kernels.ALL:
+                rec["counts"][k.name] += k.launches
+            rec["step_ms"].append(secs * 1e3)
+            rec["losses"].append(metrics["loss"].item())
+            rec["grad_norm"] = metrics["grad_norm"].item()
+            rec["peak_gib"] = max(rec["peak_gib"],
+                                  torch.cuda.max_memory_allocated() / 2 ** 30)
+    for name, rec in out.items():
+        print(f"{label} {name}: B={TRAIN_BATCH} x {TRAIN_SECONDS:.0f} s, "
+              f"losses {', '.join(f'{v:.5f}' for v in rec['losses'])}; step "
+              f"wall time (host clock around synchronize, TF32 off) "
+              f"{', '.join(f'{t:.1f}' for t in rec['step_ms'])} ms; grad "
+              f"norm {rec['grad_norm']:.4g}; peak memory "
+              f"{rec['peak_gib']:.2f} GiB; launches {rec['counts']}")
+        check(all(np.isfinite(rec["losses"])),
+              f"{label} {name} losses finite")
+    return out
+
+
 def phase_train(decoder: str, expect: dict) -> tuple:
     """3 Adam steps of the full-width model on B = 64 x 2 s through the
     port's Trainer; every loss finite; the path's kernels launched at the
     training shapes, no other (none for the baselines). Returns (launches,
     step times and peak memory)."""
-    dev = torch.device("cuda")
     torch.manual_seed(SEED)
-    task = seeded_model(decoder, dev)
-    x, f0 = requests(TRAIN_BATCH, TRAIN_SECONDS)
-    xs, f0s = Sig(x.to(dev), 1), Sig(f0.to(dev), 1)
-    trainer = Trainer(task, run_dir="chiprun_out/chip_smoke_train",
-                      max_steps=TRAIN_STEPS, seed=SEED)
-    task.init_running_stats(xs, f0s)
+    task = seeded_model(decoder, torch.device("cuda"))
+    rec = train_steps({decoder: task}, TRAIN_STEPS, "train")[decoder]
     # the phase of the true f0 needs no gradient: B1, not B3a
     path = {"golf": ("lookup", "lookup_dtab", "allpole_const",
                      "allpole_const_adjoint"),
             "golf-precise": ("lookup", "lookup_dtab", "allpole_tv",
                              "allpole_tv_adjoint")}.get(decoder, ())
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for k in kernels.ALL:
-        k.launches = 0
-    losses, times = [], []
-    for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics = trainer.train_step(xs, f0s)
-        losses.append(metrics["loss"].item())
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        trainer.step += 1
-    counts = {k.name: k.launches for k in kernels.ALL}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"train {decoder}: B={TRAIN_BATCH} x {TRAIN_SECONDS:.0f} s, "
-          f"losses {', '.join(f'{v:.5f}' for v in losses)}; step wall "
-          f"time (host clock around synchronize, TF32 off) "
-          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; grad norm "
-          f"{metrics['grad_norm'].item():.4g}; peak memory "
-          f"{peak:.2f} GiB; launches {counts}")
-    check(all(np.isfinite(losses)), f"{decoder} train losses finite")
+    counts = rec["counts"]
     check_train_launches(decoder, counts, path, TRAIN_STEPS, expect)
     for name, n in counts.items():
         check(name in path or n == 0, f"{decoder} train launched {name}")
-    return counts, {"step_ms": [t * 1e3 for t in times], "peak_gib": peak}
+    return counts, {"step_ms": rec["step_ms"], "peak_gib": rec["peak_gib"]}
 
 
 def check_train_launches(label: str, counts: dict, path, steps: int,
@@ -2302,13 +2373,15 @@ def phase_lpcnet_vs_cpu() -> dict:
     running min/max and teacher-forcing noise, train mode. float32: the
     loss within 1e-4 relative. float64 on both sides: every gradient within
     1e-3 of its max-abs (the card's cuDNN convolutions, LSTM and GRUs and
-    the embedding table's atomics). The float32 gradients are printed, not
-    held: the loss is not smooth (the floor of the embeddings' and the
-    likelihood's continuous mu-law indices, steep near zero), so the frame
-    net's gradient jumps when a forward value moves by ~1e-5 relative, as
-    cuDNN's float32 convolutions move it against the CPU's (a float64 CPU
-    run shows the same 11% jump for a 1e-5 perturbation of one conv
-    weight)."""
+    the embedding table's atomics). The float32 gradients with cuDNN are
+    printed, not held: the loss is not smooth (the floor of the embeddings'
+    and the likelihood's continuous mu-law indices, steep near zero), so the
+    frame net's gradient jumps when a forward value moves by ~1e-5
+    relative, as cuDNN's float32 convolutions move it against the CPU's (a
+    float64 CPU run shows the same 11% jump for a 1e-5 perturbation of one
+    conv weight). The same float32 card step with cuDNN off holds every
+    gradient within 1e-3 of max-abs of the CPU's: the gap is cuDNN's, not
+    the port's."""
     dev = torch.device("cuda")
     x, f0 = lpcnet_batch(TRAIN_CHECK_BATCH, LPCNET_CHECK_SECONDS)
     base = lpcnet_model("cpu")
@@ -2320,14 +2393,22 @@ def phase_lpcnet_vs_cpu() -> dict:
     for label, d, dtype in (("card", dev, torch.float32),
                             ("cpu", torch.device("cpu"), torch.float32),
                             ("card64", dev, torch.float64),
-                            ("cpu64", torch.device("cpu"), torch.float64)):
+                            ("cpu64", torch.device("cpu"), torch.float64),
+                            ("card_nocudnn", dev, torch.float32)):
         task = lpcnet_model("cpu")
         task.load_state_dict(state)
         task = task.to(d, dtype).train()
-        loss, _ = task.training_step(Sig(x.to(d, dtype), 1),
-                                     Sig(f0.to(d, dtype), 1),
-                                     noise=noise.to(d, dtype))
-        loss.backward()
+        cudnn = torch.backends.cudnn.enabled
+        # the suspect of ROADMAP §C: the same float32 card step with cuDNN
+        # off (PyTorch's own CUDA convolutions, LSTM and GRUs)
+        torch.backends.cudnn.enabled = label != "card_nocudnn"
+        try:
+            loss, _ = task.training_step(Sig(x.to(d, dtype), 1),
+                                         Sig(f0.to(d, dtype), 1),
+                                         noise=noise.to(d, dtype))
+            loss.backward()
+        finally:
+            torch.backends.cudnn.enabled = cudnn
         losses[label] = loss.item()
         grads[label] = {n: p.grad.detach().cpu().double()
                         for n, p in task.named_parameters()
@@ -2340,8 +2421,18 @@ def phase_lpcnet_vs_cpu() -> dict:
 
     rel_loss = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
     errs64, errs32 = gaps("card64", "cpu64"), gaps("card", "cpu")
+    errs_nc = gaps("card_nocudnn", "cpu")
     worst64 = max(errs64, key=errs64.get)
     worst32 = max(errs32, key=errs32.get)
+    worst_nc = max(errs_nc, key=errs_nc.get)
+    loss_nc = abs(losses["card_nocudnn"] - losses["cpu"]) / abs(losses["cpu"])
+    print(f"lpcnet train: float32 card step with cuDNN off vs CPU: loss "
+          f"{loss_nc:.2e} relative; worst gradient {worst_nc} "
+          f"{errs_nc[worst_nc]:.2e} of its max|ref| (with cuDNN "
+          f"{errs32[worst_nc]:.2e}); the frame net's worst "
+          f"{max(v for n, v in errs_nc.items() if n.startswith('frame')):.2e}"
+          f" (tolerance {TRAIN_GRAD_TOL:g}: the float32 card-vs-CPU "
+          f"gap of the frame net is cuDNN's)")
     sample32 = max((n for n in errs32 if n.startswith("sample_decoder")),
                    key=errs32.get)
     print(f"lpcnet train: B={TRAIN_CHECK_BATCH} x {LPCNET_CHECK_SECONDS} s, "
@@ -2353,10 +2444,15 @@ def phase_lpcnet_vs_cpu() -> dict:
     check(rel_loss <= 1e-4, "lpcnet train loss card vs CPU")
     check(errs64[worst64] <= TRAIN_GRAD_TOL,
           "lpcnet float64 train gradients card vs CPU")
+    check(errs_nc[worst_nc] <= TRAIN_GRAD_TOL,
+          "lpcnet float32 train gradients card (cuDNN off) vs CPU")
     return {"loss_rel": rel_loss, "worst_grad64": errs64[worst64],
             "worst_grad64_name": worst64, "worst_grad32": errs32[worst32],
             "worst_grad32_name": worst32,
-            "worst_sample_net_grad32": errs32[sample32]}
+            "worst_sample_net_grad32": errs32[sample32],
+            "nocudnn_worst_grad32": errs_nc[worst_nc],
+            "nocudnn_worst_grad32_name": worst_nc,
+            "nocudnn_loss_rel": loss_nc}
 
 
 def phase_lpcnet_generate() -> tuple:
@@ -2600,6 +2696,544 @@ def phase_pyworld(tree: Path, out: Path) -> tuple:
                     "vs_cpu": rels}
 
 
+# ---------------------------------------------------------------------------
+# phase "options": the encoder's options (bf16, the LRU block, env
+# features), GOLF's other LPC parameterisations, the allpass room filters
+# and B2 at the shapes they give it
+# ---------------------------------------------------------------------------
+
+OPTION_STEPS = 3            # LRU; the allpasses
+BF16_STEPS = 4              # bf16 and fp32 in turns (the first is cuDNN's)
+PARAM_STEPS = 2             # each parameterisation on each end filter
+# golf_tpu's lsp2lpc swaps its P and Q factors at even order, so every
+# even-order lsp2lpc filter is unstable (ROADMAP §C): lsp2lpc runs at 21
+LSP_ORDER = 21
+BF16_PYRAMID_TOL = 0.5      # tests/test_torch_encoder_options.py's bounds
+BF16_ABS_TOL = 5e-2
+BF16_ABOVE_PARITY = 4e-3    # own bf16-to-fp32 distances held in sum
+ALLPASS = ("LTIComplexConjAllpassFilter", "LTIRealCoeffAllpassFilter")
+
+
+def options_config(decoder: str, encoder: dict = None, end: dict = None,
+                   room: str = None) -> dict:
+    """``model_config(decoder)`` with encoder options, end filter arguments
+    or an allpass room filter (8 roots, golf_tpu's defaults)."""
+    cfg = model_config(decoder)
+    cfg["encoder_init_args"].update(encoder or {})
+    cfg["decoder"]["init_args"]["end_filter"]["init_args"].update(end or {})
+    if room is not None:
+        cfg["decoder"]["init_args"]["room_filter"] = {
+            "class_path": f"models.filters.{room}", "init_args": {}}
+    return cfg
+
+
+def check_exact(label: str, counts: dict, per_step: dict, steps: int
+                ) -> None:
+    """Each kernel launched exactly ``per_step[name] * steps`` times (0
+    for the kernels not named)."""
+    for k in kernels.ALL:
+        want = per_step.get(k.name, 0) * steps
+        check(counts[k.name] == want,
+              f"{label}: {k.name} launched {counts[k.name]}, not {want}")
+
+
+FF_STEP = {"lookup": 1, "lookup_dtab": 1, "allpole_const": 1,
+           "allpole_const_adjoint": 1}
+SS_STEP = {"lookup": 1, "lookup_dtab": 1, "allpole_tv": 1,
+           "allpole_tv_adjoint": 1}
+
+
+def grad_gaps(a: dict, b: dict) -> dict:
+    """max|a - b| over max|b|, per gradient."""
+    return {n: ((a[n] - ref).abs().max()
+                / ref.abs().max().clamp(min=1e-30)).item()
+            for n, ref in b.items()}
+
+
+def phase_options_bf16() -> dict:
+    """bf16 against fp32 on GOLF-ff at full width: BF16_STEPS Adam steps
+    of each at B = 64 x 2 s in turns (B1, B3b, B2, B2's adjoint once a
+    step each); one B = 2 x 1 s training step in bf16 on the card and on the
+    CPU and in fp32 on the CPU, the card held to twice the CPU's own
+    bf16-to-fp32 distance plus one bf16 step (2^-8), loss and every
+    gradient, and within the absolute bounds of the CPU tests (the conv
+    pyramid's gradients 0.5 of max-abs, the rest 5e-2); the conv biases in
+    front of the train-mode batch norms, zero in exact arithmetic, are
+    rounding noise on each side and not held. Summed over the gradients
+    whose CPU bf16-to-fp32 distance is at least BF16_ABOVE_PARITY, the
+    card's distance from the CPU's bf16 step is at most the CPU's own, and
+    its distance from the CPU's fp32 step at least half the CPU's own (the
+    loss likewise): the card ran in bf16. Then cuDNN's bf16 LSTM on the
+    mirror's weights: its forward and backward time beside the mirror's
+    (fp32 cuDNN too), its distance from the mirror and from fp32."""
+    dev = torch.device("cuda")
+    bf16 = {"compute_dtype": "bfloat16"}
+    tasks = {"fp32": seeded_model("golf", dev, options_config("golf")),
+             "bf16": seeded_model("golf", dev, options_config("golf", bf16))}
+    steps = train_steps(tasks, BF16_STEPS, "options bf16")
+    for name, rec in steps.items():
+        check_exact(f"bf16 phase {name}", rec["counts"], FF_STEP,
+                    BF16_STEPS)
+
+    # one small step: card bf16, CPU bf16, CPU fp32, the same weights
+    x, f0 = requests(TRAIN_CHECK_BATCH, TRAIN_CHECK_SECONDS)
+    x = x + 0.1 * torch.randn(x.shape,
+                              generator=torch.Generator().manual_seed(8))
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(7))
+    random_f0 = torch.tensor([[90.0], [310.0]])
+    base = seeded_model("golf", "cpu", options_config("golf", bf16))
+    base.init_running_stats(Sig(x, 1), Sig(f0, 1))
+    state = base.state_dict()
+    losses, grads = {}, {}
+    for label, d, enc in (("card16", dev, bf16), ("cpu16", "cpu", bf16),
+                          ("cpu32", "cpu", {})):
+        cfg = options_config("golf", {**enc, "dropout": 0.0})
+        task = build_voice_autoencoder(cfg, device="cpu")
+        task.load_state_dict(state)
+        task = task.to(d).train()
+        loss, _ = task.training_step(Sig(x.to(d), 1), Sig(f0.to(d), 1),
+                                     noise=noise.to(d),
+                                     random_f0=random_f0.to(d))
+        loss.backward()
+        losses[label] = loss.item()
+        grads[label] = {n: p.grad.detach().cpu()
+                        for n, p in task.named_parameters()
+                        if p.requires_grad and not (
+                            ".pyramid.convs." in n and n.endswith(".bias"))}
+    card = grad_gaps(grads["card16"], grads["cpu16"])
+    own = grad_gaps(grads["cpu16"], grads["cpu32"])
+    far = grad_gaps(grads["card16"], grads["cpu32"])
+    loss_card = abs(losses["card16"] - losses["cpu16"]) / abs(losses["cpu16"])
+    loss_own = abs(losses["cpu16"] - losses["cpu32"]) / abs(losses["cpu32"])
+    loss_far = abs(losses["card16"] - losses["cpu32"]) / abs(losses["cpu32"])
+    ratio = {n: card[n] / (2 * own[n] + 2 ** -8) for n in card}
+    worst = max(ratio, key=ratio.get)
+    # the gradients where the CPU's own bf16-to-fp32 distance stands well
+    # above fp32 parity: summed over them, the card's bf16 step must be
+    # nearer the CPU's bf16 step than the CPU's fp32 step is, and as far
+    # from the CPU's fp32 step as half the CPU's own distance (a card that
+    # ran in fp32 would sit at the fp32 parity of 1e-3 and fail)
+    big = [n for n in own if own[n] >= BF16_ABOVE_PARITY]
+    sums = {key: sum(d[n] for n in big)
+            for key, d in (("card", card), ("own", own), ("far", far))}
+    print(f"options bf16: B={TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SECONDS:.0f} "
+          f"s step, card vs CPU in bf16: loss {loss_card:.2e} relative (the "
+          f"CPU's own bf16 vs fp32 {loss_own:.2e}, the card's bf16 vs the "
+          f"CPU's fp32 {loss_far:.2e}); gradient nearest its bound {worst}: "
+          f"{card[worst]:.2e} of max-abs against the CPU's own "
+          f"{own[worst]:.2e} (bound twice that plus 2^-8); largest card "
+          f"distance {max(card.values()):.2e} ({max(card, key=card.get)}); "
+          f"over the {len(big)} gradients whose own distance is at least "
+          f"{BF16_ABOVE_PARITY:g}, summed: card vs CPU bf16 "
+          f"{sums['card']:.3e}, CPU bf16 vs fp32 {sums['own']:.3e}, card "
+          f"bf16 vs CPU fp32 {sums['far']:.3e}")
+    check(loss_card <= 2 * loss_own + 1e-6, "bf16 loss card vs CPU")
+    check(loss_far >= 0.5 * loss_own, "bf16 loss: the card ran in bf16")
+    for n in card:
+        cap = BF16_PYRAMID_TOL if ".pyramid." in n else BF16_ABS_TOL
+        check(card[n] <= 2 * own[n] + 2 ** -8 and card[n] <= cap,
+              f"bf16 gradient {n} card vs CPU: {card[n]:.3e}, own "
+              f"{own[n]:.3e}")
+    check(len(big) > 0 and sums["card"] <= sums["own"],
+          "bf16 gradients: the card nearer the CPU's bf16 step than its "
+          "fp32 step is")
+    check(sums["far"] >= 0.5 * sums["own"],
+          "bf16 gradients: the card ran in bf16")
+    counts = {name: sum(rec["counts"][name] for rec in steps.values())
+              for name in steps["fp32"]["counts"]}
+    return counts, {"steps": {k: {kk: v[kk] for kk in ("step_ms", "peak_gib",
+                                                "losses")}
+                      for k, v in steps.items()},
+            "vs_cpu": {"loss_rel": loss_card, "loss_own": loss_own,
+                       "loss_far": loss_far, "worst_ratio_name": worst,
+                       "worst_ratio": ratio[worst], "sums": sums},
+            "cudnn_lstm": cudnn_lstm_finding(tasks["bf16"])}
+
+
+def cudnn_lstm_finding(task: VoiceAutoEncoder) -> dict:
+    """The full-width BiLSTM (3 layers of 256 over the pyramid's 513
+    features, B = 64 x 200 frames, dropout off) on the bf16 model's
+    weights: the mirror
+    of golf_tpu's bf16 LSTM, cuDNN's ``nn.LSTM`` in bf16 (the same weights
+    cast) and in fp32; forward plus backward time of each (CUDA events,
+    ``cuda_ms``; the loops' launches included), and the outputs'
+    distances."""
+    # copies without the encoder's dropout: train mode (cuDNN's RNN has no
+    # backward in eval mode) and deterministic
+    mirror = copy.deepcopy(task.encoder.backbone.lstm).train()
+    mirror.lstm.dropout = 0.0
+    lstm32 = mirror.lstm
+    lstm16 = copy.deepcopy(lstm32).to(torch.bfloat16)
+    frames = int(TRAIN_SECONDS * SR) // 240
+    x = torch.randn((TRAIN_BATCH, frames, lstm32.input_size),
+                    generator=torch.Generator(device="cuda").manual_seed(SEED),
+                    device="cuda")
+    g = torch.randn((TRAIN_BATCH, frames, 2 * lstm32.hidden_size),
+                    generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+
+    def fwd_bwd(fn, inp):
+        def run():
+            xi = inp.detach().requires_grad_(True)
+            y = fn(xi)
+            y.float().backward(g)
+            return y
+        return run
+
+    runs = {"mirror": fwd_bwd(mirror, x),
+            "cudnn_bf16": fwd_bwd(lambda v: lstm16(v)[0],
+                                  x.to(torch.bfloat16)),
+            "cudnn_fp32": fwd_bwd(lambda v: lstm32(v)[0], x)}
+    with torch.no_grad():
+        y_m = mirror(x)
+        y16 = lstm16(x.to(torch.bfloat16))[0].float()
+        y32 = lstm32(x)[0]
+    ms = {k: cuda_ms(fn, 3, strict=False) for k, fn in runs.items()}
+    res = {"shape": [TRAIN_BATCH, frames, lstm32.input_size],
+           "ms": ms, "cudnn_bf16_vs_mirror": rel_err(y16, y_m),
+           "cudnn_bf16_vs_fp32": rel_err(y16, y32),
+           "mirror_vs_fp32": rel_err(y_m, y32)}
+    print(f"options cuDNN bf16 LSTM {res['shape']}, forward + backward: "
+          f"mirror {ms['mirror']:.2f} ms, cuDNN bf16 {ms['cudnn_bf16']:.2f} "
+          f"ms, cuDNN fp32 {ms['cudnn_fp32']:.2f} ms; cuDNN bf16 vs the "
+          f"mirror {res['cudnn_bf16_vs_mirror']:.3e}, vs fp32 "
+          f"{res['cudnn_bf16_vs_fp32']:.3e}, the mirror vs fp32 "
+          f"{res['mirror_vs_fp32']:.3e} of max|y| (a finding, not held)")
+    return res
+
+
+def phase_options_lru() -> tuple:
+    """GOLF-ss with ``use_lru`` and ``include_env_features`` (encoder
+    sample_rate 24000): OPTION_STEPS Adam steps at B = 64 x 2 s (B1, B3b,
+    B4, B4's adjoint once a step), then on the trained weights a predict
+    of 4 x 6 s (B1 and B4 once) and a stream (look-ahead 24, pushes of
+    STREAM_CHUNK). The steps move the zi predictors off their zero
+    initialisation, so the stream's first emission predicts each layer's
+    carry-in from its newest frame where offline predicts it from the
+    utterance's last: the stream departs from offline by design, and the
+    departure decays with |lambda|. The card's stream is held to the CPU's
+    on the same weights and pushes, and the card's offline rows to the
+    CPU's (1e-4 of each leaf's max-abs); the departure is printed for all
+    rows and for the second half, and must not grow from the first half to
+    the second."""
+    dev = torch.device("cuda")
+    cfg = options_config("golf-precise", {"use_lru": True,
+                                          "include_env_features": True,
+                                          "sample_rate": SR})
+    task = seeded_model("golf-precise", dev, cfg)
+    steps = train_steps({"lru_env": task}, OPTION_STEPS,
+                        "options lru")["lru_env"]
+    check_exact("lru steps", steps["counts"], SS_STEP, OPTION_STEPS)
+    block = task.encoder.backbone.lru_block
+    zi_max = max(p.abs().max().item() for n, p in block.named_parameters()
+                 if n.startswith("zi_pred_"))
+    check(zi_max > 0, "the steps moved the zi predictors off zero")
+    x, f0 = requests(BATCH, SECONDS)
+    xs, f0s = Sig(x.to(dev), 1), Sig(f0.to(dev), 1)
+    task.eval()
+    for k in kernels.ALL:
+        k.launches = 0
+    with torch.inference_mode():
+        y, predict_s = timed(lambda: task.predict_step(
+            xs, f0s, generator=torch.Generator(dev).manual_seed(SEED))[0])
+        predict_counts = {k.name: k.launches for k in kernels.ALL}
+        off = leaves(task.encoder(xs, f0s))
+        se = StreamingEncoder(task.encoder, lookahead=STREAM_LOOKAHEAD,
+                              batch=BATCH)
+        parts, _, _ = stream_encoder(se, xs, f0s)
+    check(torch.isfinite(y.data).all().item() and y.shape[0] == BATCH,
+          "lru predict finite")
+    check_exact("lru predict", predict_counts, {"lookup": 1, "allpole_tv": 1},
+                1)
+    # the same weights, inputs and pushes on the CPU
+    cpu = copy.deepcopy(task.encoder).cpu()
+    xc, f0c = Sig(x, 1), Sig(f0, 1)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        off_cpu = leaves(cpu(xc, f0c))
+        parts_cpu, _, _ = stream_encoder(
+            StreamingEncoder(cpu, lookahead=STREAM_LOOKAHEAD, batch=BATCH),
+            xc, f0c)
+    cpu_s = time.perf_counter() - t0
+    got = cat_rows(parts)
+    stream_vs_cpu = float(row_errors(got, cat_rows(parts_cpu),
+                                     "lru stream").max())
+    off_vs_cpu = float(row_errors(off, off_cpu, "lru offline").max())
+    rows = row_errors(got, off, "lru stream vs offline")
+    rows_cpu = row_errors(cat_rows(parts_cpu), off_cpu, "lru CPU stream")
+    m = rows.shape[0]
+    n_flushed = next(iter(parts[-1].values())).shape[1]
+    print(f"options lru+env: predict 4 x 6 s {predict_s * 1e3:.1f} ms "
+          f"(launches {predict_counts}); trained zi predictors (largest "
+          f"entry {zi_max:.3e}); stream of {len(parts) - 1} emitting "
+          f"pushes and a flush ({n_flushed} rows flushed): card vs CPU "
+          f"stream {stream_vs_cpu:.3e}, card vs CPU offline "
+          f"{off_vs_cpu:.3e} of each leaf's max-abs (tolerance 1e-4; the "
+          f"CPU's encoder, stream and offline, took {cpu_s:.1f} s); the "
+          f"stream's departure from offline, card: all {m} rows "
+          f"{rows.max():.3e}, first half {rows[:m // 2].max():.3e}, second "
+          f"half {rows[m // 2:].max():.3e}, flushed rows "
+          f"{rows[m - n_flushed:].max():.3e}; CPU: all rows "
+          f"{rows_cpu.max():.3e}, second half {rows_cpu[m // 2:].max():.3e}")
+    check(stream_vs_cpu <= 1e-4, "lru stream card vs CPU")
+    check(off_vs_cpu <= 1e-4, "lru offline card vs CPU")
+    check(rows[m // 2:].max() <= rows[:m // 2].max(),
+          "lru stream: the departure from offline does not grow")
+    return steps["counts"], {"step_ms": steps["step_ms"],
+                             "peak_gib": steps["peak_gib"],
+                             "predict_ms": predict_s * 1e3,
+                             "stream_vs_cpu": stream_vs_cpu,
+                             "offline_vs_cpu": off_vs_cpu,
+                             "departure": float(rows.max()),
+                             "departure_second_half":
+                                 float(rows[m // 2:].max()),
+                             "departure_cpu": float(rows_cpu.max())}
+
+
+def phase_options_params() -> tuple:
+    """Each of coef, conj, real and lsp2lpc (order LSP_ORDER) on golf.yaml
+    and golf-precise.yaml: PARAM_STEPS Adam steps at B = 64 x 2 s, the
+    launches exact (GOLF-ff: B1, B3b, B2 and B2's adjoint once a step;
+    GOLF-ss: B1, B3b, B4 and B4's adjoint)."""
+    dev = torch.device("cuda")
+    counts = {k.name: 0 for k in kernels.ALL}
+    summary = {}
+    for rep in ("coef", "conj", "real", "lsp2lpc"):
+        end = {"lpc_parameterisation": rep}
+        if rep == "lsp2lpc":
+            end["lpc_order"] = LSP_ORDER
+        for decoder, per_step in (("golf", FF_STEP),
+                                  ("golf-precise", SS_STEP)):
+            task = seeded_model(decoder, dev, options_config(decoder, end=end))
+            rec = train_steps({f"{rep}/{decoder}": task}, PARAM_STEPS,
+                              "options params")[f"{rep}/{decoder}"]
+            check_exact(f"{rep} {decoder}", rec["counts"], per_step,
+                        PARAM_STEPS)
+            for name, v in rec["counts"].items():
+                counts[name] += v
+            summary[f"{rep}/{decoder}"] = rec["step_ms"]
+    return counts, summary
+
+
+def phase_options_allpass() -> tuple:
+    """golf.yaml with each allpass as its room_filter: OPTION_STEPS Adam
+    steps at B = 64 x 2 s and a predict of 4 x 6 s. The room filter is
+    ``lfilter``, so B2 and its adjoint run twice a step (the end filter's
+    windows, then the room filter's rows), B2 twice a predict. Returns
+    (launches, summary, the room filter's B2 shapes and B2's and its
+    adjoint's launches at those shapes, counted as they ran)."""
+    dev = torch.device("cuda")
+    counts = {k.name: 0 for k in kernels.ALL}
+    summary, shapes = {}, {}
+    room_launches = {"lfilter_train": 0, "lfilter_train_adjoint": 0,
+                     "lfilter_serve": 0}
+    x, f0 = requests(BATCH, SECONDS)
+    xs, f0s = Sig(x.to(dev), 1), Sig(f0.to(dev), 1)
+    fwd, adj = kernels.ALLPOLE_CONST, kernels.ALLPOLE_CONST_ADJ
+    for room in ALLPASS:
+        task = seeded_model("golf", dev, options_config("golf", room=room))
+        fwd.by_shapes.clear()
+        adj.by_shapes.clear()
+        rec = train_steps({room: task}, OPTION_STEPS,
+                          "options allpass")[room]
+        check_exact(f"{room} steps", rec["counts"],
+                    {**FF_STEP, "allpole_const": 2,
+                     "allpole_const_adjoint": 2}, OPTION_STEPS)
+        # the room filter's rows: (B, T) with one a of 16 per row; the end
+        # filter's windows are the other shape
+        train = [sh for sh in fwd.by_shapes if sh[1][1] == 16]
+        check(len(train) == 1, f"{room}: one room filter shape in "
+              f"training, {list(fwd.by_shapes)}")
+        shapes["train"] = train[0]
+        room_launches["lfilter_train"] += fwd.by_shapes[train[0]]
+        room_launches["lfilter_train_adjoint"] += adj.by_shapes.get(
+            train[0], 0)
+        task.eval()
+        for k in kernels.ALL:
+            k.launches = 0
+        fwd.by_shapes.clear()
+        with torch.inference_mode():
+            y, secs = timed(lambda: task.predict_step(
+                xs, f0s, generator=torch.Generator(dev).manual_seed(SEED))[0])
+        serve = [sh for sh in fwd.by_shapes if sh[1][1] == 16]
+        check(len(serve) == 1, f"{room}: one room filter shape in predict, "
+              f"{list(fwd.by_shapes)}")
+        shapes["serve"] = serve[0]
+        room_launches["lfilter_serve"] += fwd.by_shapes[serve[0]]
+        pc = {k.name: k.launches for k in kernels.ALL}
+        check_exact(f"{room} predict", pc,
+                    {"lookup": 1, "allpole_const": 2}, 1)
+        check(torch.isfinite(y.data).all().item(), f"{room} predict finite")
+        for c in (rec["counts"], pc):
+            for name, v in c.items():
+                counts[name] += v
+        summary[room] = {"step_ms": rec["step_ms"],
+                         "peak_gib": rec["peak_gib"],
+                         "predict_ms": secs * 1e3}
+        print(f"options {room}: predict 4 x 6 s {secs * 1e3:.1f} ms; the "
+              f"room filter's B2 shapes {shapes}")
+    want = {"lfilter_train": OPTION_STEPS * len(ALLPASS),
+            "lfilter_train_adjoint": OPTION_STEPS * len(ALLPASS),
+            "lfilter_serve": len(ALLPASS)}
+    print(f"options allpass: B2 launches at the room filters' shapes "
+          f"{room_launches}")
+    for label, n in want.items():
+        check(room_launches[label] == n, f"allpass {label}: "
+              f"{room_launches[label]} launches at the room filter's "
+              f"shape, not {n}")
+    return counts, summary, shapes, room_launches
+
+
+def b2_row(x: torch.Tensor, a: torch.Tensor, label: str, launches: int,
+           f64=None, adjoint: bool = False) -> dict:
+    """B2 (or, for ``adjoint``, its adjoint entry on the cotangent x) at one
+    shape: against its plain version (tolerance 1e-5 of max|y|, 1e-4 for
+    the adjoint's dx and da, as at the training shape) and a float64
+    reference ``f64`` (y; for the adjoint a function of the forward's y
+    that returns (dx, da)) within 1e-6, its time, the plain version's and
+    the byte bound."""
+    n, t = x.shape
+    p = a.shape[1]
+    if not adjoint:
+        out = allpole_const_cuda(x, a)
+        err = rel_err(out, allpole_const_plain(x, a))
+        err64 = rel_err(out, f64)
+        check(err <= 1e-5 and err64 <= 1e-6 and
+              torch.isfinite(out).all().item(), f"B2 {label}")
+        ms = cuda_ms(lambda: allpole_const_cuda(x, a), 5)
+        plain_ms = cuda_ms(lambda: allpole_const_plain(x, a), 2,
+                           strict=False)
+        bnd = bound(4 * (2 * n * t + n * p), 2 * p * n * t, fp64=True)
+    else:
+        g, y = x, allpole_const_cuda(x, a)
+        dx, da = allpole_const_adjoint_cuda(g, y, a)
+        dxp, dap = allpole_const_adjoint_plain(g, y, a)
+        dx64, da64 = f64(y)
+        err = max(rel_err(dx, dxp), rel_err(da, dap))
+        err64 = max(rel_err(dx, dx64), rel_err(da, da64))
+        check(err <= 1e-4 and err64 <= 1e-6, f"B2 adjoint {label}")
+        ms = cuda_ms(lambda: allpole_const_adjoint_cuda(g, y, a), 5)
+        plain_ms = cuda_ms(lambda: allpole_const_adjoint_plain(g, y, a), 2,
+                           strict=False)
+        bnd = bound(4 * (3 * n * t + 2 * n * p), 4 * p * n * t, fp64=True)
+    row = {"shapes": [[n, t], [n, p]], "launches": launches,
+           "max_abs_err": err, "err_vs_f64": err64, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+           "library_ms": None}
+    print(f"B2{' adjoint' if adjoint else ''} at {label} ({n}, {t}) p={p}: "
+          f"{ms * 1e3:.1f} us, bound {bnd[0] * 1e3:.2f} us ({bnd[1]}), plain "
+          f"{plain_ms * 1e3:.1f} us; {err:.2e} from plain, {err64:.2e} from "
+          f"float64; {launches} launches in phase options")
+    return row
+
+
+def lfilter64(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The all-pole part of ``lfilter`` in float64 on the host (scipy):
+    x (N, T) and one a (p,) shared by the rows."""
+    from scipy.signal import lfilter as sp_lfilter
+    den = np.concatenate([[1.0], a.double().cpu().numpy()])
+    return torch.from_numpy(sp_lfilter([1.0], den,
+                                       x.double().cpu().numpy(), axis=-1))
+
+
+def phase_options_kernels(shapes: dict, room_launches: dict) -> dict:
+    """B2 at the options' new shapes, each against its plain version and a
+    float64 reference: ``lfilter``'s all-pole part at the allpass room
+    filter's training rows (forward and adjoint) and serving rows, p = 16,
+    the coefficients of a seeded ``LTIComplexConjAllpassFilter``; one
+    section of ``BatchSecondOrderLPCSynth`` at GOLF-ff's windows (12800,
+    960), p = 2 (the float64 mirror ``allpole_const_scan64``), with the
+    launches of one cascade call of 11 sections."""
+    from golf_tpu_torch.models.filters import LTIComplexConjAllpassFilter
+    from golf_tpu_torch.models.lpc import BatchSecondOrderLPCSynth
+    from golf_tpu_torch.ops.dsp import coeff_product, complex2biquads
+    dev = torch.device("cuda")
+    torch.manual_seed(SEED)
+    ap = LTIComplexConjAllpassFilter()
+    with torch.no_grad():
+        mag = torch.sigmoid(ap.magnitude_logits[0]) * ap.max_abs_value
+        cos = torch.tanh(ap.cos_logits[0])
+        roots = torch.complex(mag * cos, mag * torch.sqrt(1 - cos ** 2))
+        a_full = coeff_product(complex2biquads(roots)[:, None, :])[0]
+    a16 = (a_full[1:] / a_full[0]).to(dev)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {}
+    for label, (x_shape, _) in (("lfilter_train", shapes["train"]),
+                                ("lfilter_serve", shapes["serve"])):
+        x = torch.randn(x_shape, generator=gen, device="cuda")
+        a = a16.expand(x_shape[0], 16).contiguous()
+        rows[label] = b2_row(x, a, label, room_launches[label],
+                             lfilter64(x, a16).to(dev))
+        if label == "lfilter_train":
+            # the cotangent x: dx is the filter run backwards in time, and
+            # da[j] = -sum_s y[s] dx[s + 1 + j]
+            dx64 = torch.flip(lfilter64(torch.flip(x, (1,)), a16), (1,))
+
+            def adjoint64(y, dx64=dx64):
+                yd = y.double().cpu()
+                t = yd.shape[1]
+                da = -torch.stack([(yd[:, :t - 1 - j] * dx64[:, 1 + j:])
+                                   .sum(1) for j in range(16)], -1)
+                return dx64.to(dev), da.to(dev)
+            rows["lfilter_train_adjoint"] = b2_row(
+                x, a, label, room_launches["lfilter_train_adjoint"],
+                adjoint64, adjoint=True)
+    n_ff = main_path_shapes(TRAIN_BATCH, int(TRAIN_SECONDS * SR))[
+        "allpole_const"][0][0]
+    p2 = torch.tanh(0.5 * torch.randn((2, n_ff), generator=gen,
+                                      device="cuda")) * 0.9
+    a2 = torch.stack([2 * p2[0], 0.5 * ((2 - 2 * p2[0].abs()) * p2[1]
+                                        + 2 * p2[0].abs())], -1)
+    x = torch.randn((n_ff, 960), generator=gen, device="cuda")
+    # the cascade's launches: one call at GOLF-ff's frames, 11 sections
+    frames = n_ff // TRAIN_BATCH
+    synth = BatchSecondOrderLPCSynth(240, 960).to(dev)
+    bi = torch.cat([torch.ones((TRAIN_BATCH, frames, 11, 1), device=dev),
+                    a2.reshape(TRAIN_BATCH, frames, 1, 2).expand(
+                        -1, -1, 11, -1)], -1)
+    for k in kernels.ALL:
+        k.launches = 0
+    with torch.inference_mode():
+        y = synth(torch.randn((TRAIN_BATCH, frames * 240), generator=gen,
+                              device="cuda"),
+                  torch.ones((TRAIN_BATCH, frames), device=dev), bi)
+    check(torch.isfinite(y).all().item() and
+          kernels.ALLPOLE_CONST.launches == 11 and
+          kernels.ALLPOLE_CONST.last_shapes == ((n_ff, 960), (n_ff, 2)),
+          f"cascade: 11 launches of B2 at ({n_ff}, 960) x ({n_ff}, 2), "
+          f"{kernels.ALLPOLE_CONST.launches} at "
+          f"{kernels.ALLPOLE_CONST.last_shapes}")
+    rows["cascade_p2"] = b2_row(x, a2.contiguous(), "cascade_p2",
+                                kernels.ALLPOLE_CONST.launches,
+                                allpole_const_scan64(x, a2.contiguous()))
+    return rows
+
+
+def phase_options() -> tuple:
+    """The encoder's options, the parameterisations, the allpass room
+    filters and B2 at their shapes. Returns (launches, summary, B2's
+    rows)."""
+    counts = {k.name: 0 for k in kernels.ALL}
+    summary = {}
+
+    def add(c):
+        for name, v in c.items():
+            counts[name] += v
+
+    bf16_counts, summary["bf16"] = phase_options_bf16()
+    add(bf16_counts)
+    lru_counts, summary["lru_env"] = phase_options_lru()
+    add(lru_counts)
+    param_counts, summary["params_step_ms"] = phase_options_params()
+    add(param_counts)
+    ap_counts, summary["allpass"], shapes, room_launches = \
+        phase_options_allpass()
+    add(ap_counts)
+    rows = phase_options_kernels(shapes, room_launches)
+    print(json.dumps({"options": summary}))
+    return counts, summary, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2682,6 +3316,9 @@ def main() -> int:
     lpc_counts, lpcnet = phase_lpcnet()
     add(lpc_counts)
     t0 = done("lpcnet", t0)
+    opt_counts, options, opt_rows = phase_options()
+    add(opt_counts)
+    t0 = done("options", t0)
     print(json.dumps({"recipe": {
         "disk_fit_step_ms": [t * 1e3 for t in disk_probe.times],
         "golf_fs": fs,
@@ -2769,6 +3406,13 @@ def main() -> int:
                 "ms": vr["ms"], "plain_ms": vr["plain_ms"],
                 "bound_ms": vr["bound"][0],
                 "library_ms": vr.get("library_ms")}
+        if k.name in ("allpole_const", "allpole_const_adjoint"):
+            # B2 at the options' shapes: the allpass room filter's lfilter
+            # (training, serving) and the biquad cascade
+            for key, row in opt_rows.items():
+                if key.endswith("_adjoint") == (k.name ==
+                                                "allpole_const_adjoint"):
+                    entry[key.replace("_adjoint", "")] = row
         if k.name == "allpole_const":
             entry["lpcnet"] = {
                 "shapes": lpc_row["shapes"],
@@ -2805,6 +3449,14 @@ def main() -> int:
             note = (f"; serving shapes {sv['ms'] * 1e3:.1f} us, bound "
                     f"{sv['bound_ms'] * 1e3:.1f} us, plain "
                     f"{sv['plain_ms'] * 1e3:.1f} us" + composite_note(sv))
+        for key in ("lfilter_train", "lfilter_serve", "cascade_p2"):
+            if key in e:
+                r = e[key]
+                note += (f"; {key} {tuple(r['shapes'][0])} p="
+                         f"{r['shapes'][1][1]} {r['ms'] * 1e3:.1f} us, bound "
+                         f"{r['bound_ms'] * 1e3:.2f} us, plain "
+                         f"{r['plain_ms'] * 1e3:.1f} us, {r['launches']} "
+                         f"launches")
         if "lpcnet" in e:
             lp = e["lpcnet"]
             note += (f"; LPCNet de-emphasis {lp['ms'] * 1e3:.1f} us, bound "

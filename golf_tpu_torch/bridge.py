@@ -21,6 +21,10 @@ Conversions:
   transposed (the gate order r, z, n is the same). The embedding table and
   the head's ``a`` come across as they are.
 * ``NonCausalWaveNetLayer_i`` (``WN``'s layers) -> ``layers.i``.
+* ``LRUBlock_0`` -> ``lru_block``: its ``Dense_k`` -> ``dense{k}``, its
+  ``LayerNorm_i`` -> ``norms.i`` (``LayerNorm_0`` elsewhere is ``norm``),
+  ``zi_pred_{re,im}_i`` and ``lru_i/{nu_log, theta_log, B_re, B_im, C_re,
+  C_im, D}`` under their own names.
 * LSTM: flax keeps per-gate input kernels ``i{i,f,g,o}`` without bias and
   recurrent kernels ``h{i,f,g,o}`` with bias; torch takes
   ``weight_ih = cat(i*).T``, ``weight_hh = cat(h*).T`` in gate order
@@ -43,7 +47,8 @@ from torch import nn
 
 _GATES = ("i", "f", "g", "o")
 _SCOPES = {"ConvPyramid_0": "pyramid", "LayerNorm_0": "norm",
-           "GroupNorm_0": "group_norm", "BiLSTM_0": "lstm.lstm"}
+           "GroupNorm_0": "group_norm", "BiLSTM_0": "lstm.lstm",
+           "LRUBlock_0": "lru_block"}
 _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
          "var": "running_var"}
 _GRU = {"wi": "weight_ih_l0", "wh": "weight_hh_l0"}
@@ -80,7 +85,11 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     cells: Dict[str, Dict[int, Dict[str, np.ndarray]]] = {}
     for path, arr in flat.items():
         scope = []
-        for part in path[:-1]:
+        for k, part in enumerate(path[:-1]):
+            if k and path[k - 1] == "LRUBlock_0" and \
+                    re.fullmatch(r"LayerNorm_\d+", part):
+                scope.append(f"norms.{part[10:]}")
+                continue
             scope.append(_SCOPES.get(part, re.sub(
                 r"^NonCausalWaveNetLayer_(\d+)$", r"layers.\1", part)))
         leaf = path[-1]
@@ -107,7 +116,7 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
             key = ".".join(scope[:-1] + [name])
             sd[f"{key}.{'weight' if leaf == 'kernel' else leaf}"] = _t(
                 arr.T if leaf == "kernel" else arr)
-        elif owner in ("LayerNorm_0", "GroupNorm_0"):
+        elif re.fullmatch(r"LayerNorm_\d+|GroupNorm_0", owner):
             sd[f"{'.'.join(scope)}.{_LEAF[leaf]}"] = _t(arr)
         elif leaf in _GRU:
             sd[".".join(scope + [_GRU[leaf]])] = _t(arr.T)

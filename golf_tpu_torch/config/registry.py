@@ -27,6 +27,8 @@ _ALIASES = {
     "models.hpn": f"{_PKG}.models.hpn",
     "models.mel": f"{_PKG}.models.mel",
     "models.lpcnet": f"{_PKG}.models.lpcnet",
+    "models.lpc": f"{_PKG}.models.lpc",
+    "models.lru": f"{_PKG}.models.lru",
     "loss.spec": f"{_PKG}.loss.spec",
     "ltng.ae": f"{_PKG}.tasks.ae",
     "ltng.vocoder": f"{_PKG}.tasks.vocoder",

@@ -57,6 +57,8 @@ class CudaKernel:
         self.flags = ARCH_FLAGS + BASE_FLAGS + tuple(extra_flags)
         self.launches = 0
         self.last_shapes: tuple = ()
+        # launches by operand shapes, kept until a caller clears it
+        self.by_shapes: Dict[tuple, int] = {}
         self._fn = None
 
     @property
@@ -81,7 +83,8 @@ class CudaKernel:
 
     def launch(self, *args, shapes: tuple = ()) -> None:
         """Call the C entry point; raise if the launch reported an error.
-        ``shapes`` (the operands' shapes) is kept as ``last_shapes``."""
+        ``shapes`` (the operands' shapes) is kept as ``last_shapes`` and
+        counted in ``by_shapes``."""
         if self._fn is None:
             build([self])
         rc = self._fn(*args)
@@ -90,6 +93,7 @@ class CudaKernel:
                                f"cudaError {rc}")
         self.launches += 1
         self.last_shapes = shapes
+        self.by_shapes[shapes] = self.by_shapes.get(shapes, 0) + 1
 
 
 def build(kernels: Iterable[CudaKernel], log: Optional[Dict] = None

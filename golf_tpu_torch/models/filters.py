@@ -11,7 +11,9 @@
 * ``LTVMinimumPhaseFIRFilter`` and its ``Precise`` twin: minimum-phase FIR
   from log-magnitude frames, frame-wise by FFT or sample-wise.
 * ``LTIAcousticFilter``: identity + strictly causal learned taps;
-  ``LTIRadiationFilter``: the fixed 33-tap radiation FIR.
+  ``LTIRadiationFilter``: the fixed 33-tap radiation FIR;
+  ``LTIComplexConjAllpassFilter`` and ``LTIRealCoeffAllpassFilter``:
+  learned allpass filters, ``lfilter`` (B2 on the card) on the whole clip.
 * The Interspeech24 baselines' spectral filters, all by (inverse) STFT:
   ``LTVCepFilter`` (NHV's harmonic filter), ``LTVMLSAFilter`` (MLSA,
   ``freq-domain`` or the ``multi-stage`` Taylor cascade), its variants
@@ -33,11 +35,13 @@ from torch import nn
 
 from ..core.sig import Sig
 from ..ops import stft as stft_ops
-from ..ops.allpole import allpole, allpole_const
+from ..ops.allpole import allpole, allpole_const, lfilter
 from ..ops.cepstrum import freqt, mc2sp_log, mcep, minimum_phase_response
-from ..ops.dsp import (fir_filt, get_radiation_time_filter, get_window_fn,
-                       minimum_phase_fir, minimum_phase_spectrum, rc2lpc,
-                       unfold, zero_phase_fir)
+from ..ops.dsp import (biquads2lpc, coeff_product, complex2biquads,
+                       fir_filt, get_logits2biquads,
+                       get_radiation_time_filter, get_window_fn, lsp2lpc,
+                       minimum_phase_fir, minimum_phase_spectrum,
+                       params2biquads, rc2lpc, unfold, zero_phase_fir)
 from ..ops.fftsize import conv_fft_size
 from .ctrl import Controllable
 
@@ -91,31 +95,47 @@ def _fft_frame_conv(frames: torch.Tensor, kernels: torch.Tensor, hop: int,
 class LTVMinimumPhaseFilterPrecise(LTVFilterInterface):
     """Sample-wise time-varying all-pole filter (GOLF-ss).
 
-    ctrl: (log_gain, lpc_logits) -> (exp(log_gain), LPC coefficients by
-    ``rc2lpc(tanh(logits) * max_abs_value)``. The other parameterisations
-    of ``golf_tpu`` are not ported yet.
+    ctrl: (log_gain, lpc_logits) -> (exp(log_gain), LPC coefficients) by
+    one of five stable parameterisations (``_logits2lpc``): ``rc2lpc``
+    (reflection coefficients), the biquad cascades ``coef``, ``conj`` and
+    ``real`` (two logits a section), and ``lsp2lpc`` (line spectral
+    frequencies from a softmax over order + 1 logits).
     """
+
+    PARAMETERISATIONS = ("rc2lpc", "coef", "conj", "real", "lsp2lpc")
 
     def __init__(self, lpc_order: Optional[int] = None,
                  lpc_parameterisation: str = "rc2lpc",
                  max_abs_value: float = 1.0):
         super().__init__()
-        if lpc_parameterisation != "rc2lpc":
-            raise NotImplementedError(
-                f"lpc_parameterisation {lpc_parameterisation!r} is not "
-                f"ported; only 'rc2lpc' is")
+        if lpc_parameterisation not in self.PARAMETERISATIONS:
+            raise ValueError(
+                f"Unknown lpc_parameterisation: {lpc_parameterisation}")
         self.lpc_order = lpc_order
         self.lpc_parameterisation = lpc_parameterisation
         self.max_abs_value = max_abs_value
 
     @property
     def split_sizes(self) -> Tuple[int, ...]:
-        return () if self.lpc_order is None else (1, self.lpc_order)
+        if self.lpc_order is None:
+            return ()
+        return (1, self.lpc_order
+                + (1 if self.lpc_parameterisation == "lsp2lpc" else 0))
+
+    def _logits2lpc(self, logits: torch.Tensor) -> torch.Tensor:
+        rep = self.lpc_parameterisation
+        if rep in ("coef", "conj", "real"):
+            l2b = get_logits2biquads(rep, self.max_abs_value)
+            return biquads2lpc(l2b(logits.reshape(*logits.shape[:-1], -1,
+                                                  2)))
+        if rep == "rc2lpc":
+            return rc2lpc(torch.tanh(logits) * self.max_abs_value)
+        w = torch.cumsum(torch.softmax(logits, -1), -1)
+        return lsp2lpc(torch.roll(w, 1, -1) * math.pi)[..., 1:]
 
     def ctrl(self, log_gain: Sig, lpc_logits: Sig) -> Tuple[Sig, ...]:
-        a = rc2lpc(torch.tanh(lpc_logits.data) * self.max_abs_value)
         return (Sig(torch.exp(log_gain.data), log_gain.hop),
-                Sig(a, lpc_logits.hop))
+                Sig(self._logits2lpc(lpc_logits.data), lpc_logits.hop))
 
     def forward(self, ex: Sig, gain: Sig, a: Sig) -> Sig:
         exg = ex * gain                       # hop-broadcast multiply
@@ -197,13 +217,13 @@ class LTVMinimumPhaseFIRFilterPrecise(LTVFilterInterface):
 
 class LTVMinimumPhaseFIRFilter(LTVMinimumPhaseFIRFilterPrecise):
     """Frame-wise minimum-phase FIR: causal padding, then one FFT
-    convolution a frame."""
+    convolution a frame. ``conv_method`` is kept and not read: every value
+    runs the FFT convolution, as in ``golf_tpu``."""
 
     def __init__(self, window: str = "hanning", n_mag: Optional[int] = None,
                  conv_method: str = "fft"):
         super().__init__(window, n_mag)
-        if conv_method != "fft":
-            raise NotImplementedError(f"conv_method {conv_method!r}")
+        self.conv_method = conv_method
 
     def forward(self, ex: Sig, log_mag: Sig) -> Sig:
         hop = log_mag.hop
@@ -253,13 +273,13 @@ class LTVZeroPhaseFIRFilterPrecise(LTVFilterInterface):
 
 class LTVZeroPhaseFIRFilter(LTVZeroPhaseFIRFilterPrecise):
     """Frame-wise zero-phase FIR via FFT correlation; the noise filter of
-    every shipped GOLF config."""
+    every shipped GOLF config. ``conv_method`` is kept and not read, as in
+    ``golf_tpu``."""
 
     def __init__(self, window: str = "hanning", n_mag: Optional[int] = None,
                  conv_method: str = "fft"):
         super().__init__(window, n_mag)
-        if conv_method != "fft":
-            raise NotImplementedError(f"conv_method {conv_method!r}")
+        self.conv_method = conv_method
 
     def forward(self, ex: Sig, log_mag: Sig) -> Sig:
         hop = log_mag.hop
@@ -286,12 +306,13 @@ class LTVAPZeroPhaseFIRFilter(LTVZeroPhaseFIRFilter):
 class LTIAcousticFilter(FilterInterface):
     """Learnable LTI FIR: identity + strictly causal learned taps,
     ``out[n] = x[n] + sum_k kernel[k] x[n - L + 1 + k]`` over delays
-    1..L-1, as one rfft/irfft convolution. The kernel starts at zero."""
+    1..L-1, as one rfft/irfft convolution whatever ``conv_method`` says
+    (``golf_tpu`` keeps the field and does not read it). The kernel starts
+    at zero."""
 
     def __init__(self, length: int = 128, conv_method: str = "fft"):
         super().__init__()
-        if conv_method != "fft":
-            raise NotImplementedError(f"conv_method {conv_method!r}")
+        self.conv_method = conv_method
         self.length = length
         self.kernel = nn.Parameter(torch.zeros(length - 1))
 
@@ -322,6 +343,55 @@ class LTIRadiationFilter(FilterInterface):
         xp = F.pad(ex.data, (pad, pad))[:, None, :]
         w = self.kernel.to(xp.dtype)[None, None, :]
         return Sig(F.conv1d(xp, w)[:, 0, :], 1)
+
+
+def _allpass_logits(num_roots: int) -> nn.Parameter:
+    """(1, num_roots) logits, uniform with flax's variance_scaling(gain^2,
+    fan_avg), gain 5/3 (tanh's): torch's Xavier-uniform bound."""
+    w = torch.empty(1, num_roots)
+    nn.init.xavier_uniform_(w, gain=5.0 / 3.0)
+    return nn.Parameter(w)
+
+
+def _allpass(ex: Sig, biquads: torch.Tensor) -> Sig:
+    """The allpass with denominator the sections' product a and numerator
+    a reversed, by ``lfilter``."""
+    a = coeff_product(biquads[:, None, :])[0]
+    return Sig(lfilter(ex.data, a, torch.flip(a, (0,))), 1)
+
+
+class LTIComplexConjAllpassFilter(FilterInterface):
+    """Learnable LTI allpass from ``num_roots`` conjugate pole pairs:
+    magnitude ``sigmoid * max_abs_value``, cosine ``tanh``."""
+
+    def __init__(self, num_roots: int = 8, max_abs_value: float = 0.99):
+        super().__init__()
+        self.max_abs_value = max_abs_value
+        self.magnitude_logits = _allpass_logits(num_roots)
+        self.cos_logits = _allpass_logits(num_roots)
+
+    def forward(self, ex: Sig) -> Sig:
+        mag = torch.sigmoid(self.magnitude_logits[0]) * self.max_abs_value
+        cos = torch.tanh(self.cos_logits[0])
+        sin = torch.sqrt(torch.clamp(1 - cos ** 2, min=0.0))
+        return _allpass(ex, complex2biquads(torch.complex(mag * cos,
+                                                          mag * sin)))
+
+
+class LTIRealCoeffAllpassFilter(FilterInterface):
+    """Learnable LTI allpass from ``num_roots`` stable sections
+    (``params2biquads`` of two tanh logits)."""
+
+    def __init__(self, num_roots: int = 8, max_abs_value: float = 0.99):
+        super().__init__()
+        self.max_abs_value = max_abs_value
+        self.logits1 = _allpass_logits(num_roots)
+        self.logits2 = _allpass_logits(num_roots)
+
+    def forward(self, ex: Sig) -> Sig:
+        return _allpass(ex, params2biquads(
+            torch.tanh(self.logits1[0]) * self.max_abs_value,
+            torch.tanh(self.logits2[0]) * self.max_abs_value))
 
 
 # ---------------------------------------------------------------------------

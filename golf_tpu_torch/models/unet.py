@@ -1,16 +1,25 @@
 """Spectrogram conv-pyramid encoder, the Interspeech24 backbone
 (counterpart of ``golf_tpu.models.unet``).
 
-Spectrogram -> log -> running min/max -> stacked Conv2d/BN/ReLU/MaxPool
-frequency pyramid -> flatten -> BiLSTM -> LayerNorm -> zero-init head.
-Activations are NCHW (batch, channels, freq, time); ``golf_tpu`` keeps NHWC,
-and its flatten orders features as ``freq_idx * C + c``, so the pyramid's
-output is permuted to (B, T, F, C) before the reshape.
+Spectrogram (or, with ``include_env_features``, the spectrogram and its
+harmonic and noise envelopes, ``env_features``) -> log -> running min/max
+-> stacked Conv2d/BN/ReLU/MaxPool frequency pyramid -> flatten -> BiLSTM
+(or the ``LRUBlock``) -> LayerNorm -> zero-init head. Activations are NCHW
+(batch, channels, freq, time); ``golf_tpu`` keeps NHWC, and its flatten
+orders features as ``freq_idx * C + c``, so the pyramid's output is
+permuted to (B, T, F, C) before the reshape.
+
+``compute_dtype="bfloat16"`` runs the pyramid and the BiLSTM as
+``golf_tpu`` does under it: the convolutions in bf16 on the fp32
+parameters cast down, the batch norms as flax's ``BatchNorm(dtype=bf16)``
+(statistics and normalisation in fp32, output rounded to bf16, running
+statistics in fp32), the LSTM as ``rnn.fused_bilstm_layer``; the LRU
+branch, the LayerNorm and the head stay fp32.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +28,7 @@ from torch import nn
 from ..core.sig import Sig
 from ..ops import stft as stft_ops
 from .enc import BackboneModelInterface, _running_minmax
+from .lru import LRU
 from .rnn import BiLSTM
 
 
@@ -49,13 +59,59 @@ class BatchNorm2d(nn.BatchNorm2d):
                             self.eps)
 
 
+def env_features(spec: torch.Tensor, f0_d: torch.Tensor, sample_rate: int,
+                 n_fft: int, num_harmonics: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Frame-local harmonic and noise envelope features: per frame, the
+    power spectrum at the harmonic (k f0) and inter-harmonic ((k + 0.5) f0)
+    bins, linearly remapped onto the FFT grid. spec (B, freq, T), already
+    truncated to the f0 grid; f0_d (B, T). Returns feats (B, 3, freq, T) =
+    [spec, harmonic envelope, noise envelope] and snr (B, 1, freq, T).
+    Shared by the offline encoder and the stream."""
+    spec_t = spec.transpose(1, 2)                      # (B, T, freq)
+    intervals = sample_rate / n_fft
+    freqs = torch.arange(n_fft // 2 + 1, device=spec.device,
+                         dtype=spec.dtype) * intervals
+    f0_full = torch.where(f0_d > 0, f0_d,
+                          f0_d.new_tensor(sample_rate / 2
+                                          / (num_harmonics - 1)))
+    pickup = f0_full[..., None] * torch.arange(
+        0.0, num_harmonics + 1, 0.5, device=spec.device, dtype=spec.dtype)
+    # round half to even, as jnp.round
+    idx = torch.clamp(torch.round(pickup / intervals).long(), 0,
+                      spec_t.shape[2] - 1)
+    energies = torch.gather(spec_t, 2, idx)
+    harms_energy = energies[..., ::2]
+    noise_energy = torch.cat([energies[..., :1], energies[..., 1::2]], -1)
+
+    def interp(values, remap, noise):
+        lo = torch.clamp(torch.floor(remap).long(), 0, num_harmonics - 2)
+        p = remap - lo
+        if noise:
+            p = torch.where(lo == 0, (p - 0.5) * 2, p)
+        p = torch.clamp(p, 0, 1)
+        return ((1 - p) * torch.gather(values, 2, lo)
+                + p * torch.gather(values, 2, lo + 1))
+
+    harm_env = interp(harms_energy, freqs / f0_full[..., None], False)
+    noise_env = interp(noise_energy, (freqs + f0_full[..., None] * 0.5)
+                       / f0_full[..., None], True)
+    harm_env = torch.maximum(harm_env, noise_env)
+    feats = torch.stack([spec_t, harm_env, noise_env], dim=1)
+    snr = (noise_env / (harm_env + noise_env + 1e-16)) * 2
+    return feats.transpose(2, 3), snr[:, None].transpose(2, 3)
+
+
 class ConvPyramid(nn.Module):
-    """Conv2d((2s+1, 3)) + BN + ReLU + MaxPool((s, 1)) over frequency."""
+    """Conv2d((2s+1, 3)) + BN + ReLU + MaxPool((s, 1)) over frequency, in
+    fp32 or (``dtype`` bf16) as ``golf_tpu``'s under a bf16 dtype."""
 
     def __init__(self, in_channels: int = 1,
                  channels: Sequence[int] = (16, 32, 64, 128),
-                 strides: Sequence[int] = (4, 4, 4, 4)):
+                 strides: Sequence[int] = (4, 4, 4, 4),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.strides = tuple(strides)
         ins = (in_channels,) + tuple(channels[:-1])
         self.convs = nn.ModuleList(
@@ -66,9 +122,67 @@ class ConvPyramid(nn.Module):
             BatchNorm2d(o, eps=1e-5, momentum=0.01) for o in channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        if dt is not None:
+            x = x.to(dt)
         for conv, norm, s in zip(self.convs, self.norms, self.strides):
-            x = _strided_max(F.relu(norm(conv(x))), s, axis=2)
+            if dt is None:
+                x = norm(conv(x))
+            else:
+                # flax rounds the convolution to bf16, then adds the bias
+                x = F.conv2d(x, conv.weight.to(dt), None, padding=conv.padding)
+                x = norm((x + conv.bias.to(dt)[:, None, None]).float()).to(dt)
+            x = _strided_max(F.relu(x), s, axis=2)
         return x
+
+
+class LRUBlock(nn.Module):
+    """Stacked LRU + MLP with a predicted carry-in state (``golf_tpu``'s
+    ``LRUBlock``): a bias-free input projection, then per layer LayerNorm,
+    ``zi`` from the last frame through ``zi_pred_re/im``, the LRU and an
+    MLP (tanh-approximated GELU, as flax's ``nn.gelu``); no residual. The
+    parameters carry ``golf_tpu``'s names (``dense{k}`` for ``Dense_k``)."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
+                 dropout: float = 0.0, mlp_factor: int = 4):
+        super().__init__()
+        self.num_layers = num_layers
+        self.dropout = dropout
+        self.dense0 = nn.Linear(input_size, hidden_size, bias=False)
+        self.norms = nn.ModuleList(nn.LayerNorm(hidden_size, eps=1e-6)
+                                   for _ in range(num_layers))
+        for i in range(num_layers):
+            for part in ("re", "im"):
+                self.register_parameter(
+                    f"zi_pred_{part}_{i}",
+                    nn.Parameter(torch.zeros(hidden_size, hidden_size)))
+            setattr(self, f"lru_{i}", LRU(hidden_size, hidden_size))
+            setattr(self, f"dense{1 + 2 * i}",
+                    nn.Linear(hidden_size, hidden_size * mlp_factor))
+            setattr(self, f"dense{2 + 2 * i}",
+                    nn.Linear(hidden_size * mlp_factor, hidden_size))
+
+    def layer(self, i: int, h: torch.Tensor,
+              zi: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Layer i over h (B, T, H) from the state ``zi`` (predicted from
+        the last frame when None). Returns (output, the LRU's last
+        state)."""
+        hn = self.norms[i](h)
+        if zi is None:
+            zi = hn[:, -1].to(torch.complex64) @ torch.complex(
+                getattr(self, f"zi_pred_re_{i}"),
+                getattr(self, f"zi_pred_im_{i}"))
+        y, last = getattr(self, f"lru_{i}")(hn, zi)
+        ff = F.gelu(getattr(self, f"dense{1 + 2 * i}")(y), approximate="tanh")
+        ff = getattr(self, f"dense{2 + 2 * i}")(ff)
+        return F.dropout(ff, self.dropout, self.training), last
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.dense0(x)
+        for i in range(self.num_layers):
+            h, _ = self.layer(i, h)
+        return h
 
 
 class UNetEncoder(BackboneModelInterface):
@@ -82,28 +196,42 @@ class UNetEncoder(BackboneModelInterface):
                  f0_conditioning: bool = True, use_lru: bool = False,
                  compute_dtype: Optional[str] = None):
         super().__init__()
-        if include_env_features or use_lru or compute_dtype:
-            raise NotImplementedError(
-                "env_features, the LRU block and compute_dtype are not "
-                "ported")
         self.n_fft = n_fft
         self.hop_length = hop_length
         self.f0_conditioning = f0_conditioning
-        self.pyramid = ConvPyramid(1, channels, strides)
+        self.include_env_features = include_env_features
+        self.num_harmonics = num_harmonics
+        self.sample_rate = sample_rate
+        self.use_lru = use_lru
+        # golf_tpu's compute_dtype: "bfloat16" or "bf16", else fp32
+        self.dtype = torch.bfloat16 if compute_dtype in ("bfloat16", "bf16") \
+            else None
+        env = include_env_features and f0_conditioning
+        # env features: spectrogram, two envelopes and the SNR
+        self.pyramid = ConvPyramid(4 if env else 1, channels, strides,
+                                   dtype=self.dtype)
         n_freq = n_fft // 2 + 1
         for s in strides:
             n_freq //= s
         lstm_in = n_freq * channels[-1] + (1 if f0_conditioning else 0)
-        self.lstm = BiLSTM(lstm_in, lstm_hidden_size, num_layers, dropout)
+        if use_lru:
+            self.lru_block = LRUBlock(lstm_in, lstm_hidden_size, num_layers,
+                                      dropout)
+            width = lstm_hidden_size
+        else:
+            self.lstm = BiLSTM(lstm_in, lstm_hidden_size, num_layers, dropout,
+                               dtype=self.dtype)
+            width = 2 * lstm_hidden_size
         # flax LayerNorm's epsilon is 1e-6 (torch's default is 1e-5)
-        self.norm = nn.LayerNorm(2 * lstm_hidden_size, eps=1e-6)
-        self.out_linear = self.make_out_linear(2 * lstm_hidden_size,
-                                               out_channels)
+        self.norm = nn.LayerNorm(width, eps=1e-6)
+        self.out_linear = self.make_out_linear(width, out_channels)
         self.register_buffer("log_spec_min", torch.tensor(float("inf")))
         self.register_buffer("log_spec_max", torch.tensor(float("-inf")))
 
     def features(self, x: Sig, f0: Optional[Sig], train: bool):
-        """Normalised log spectrogram (B, 1, freq, T) and the frame-rate
+        """The pyramid's input (B, C, freq, T): the normalised log
+        spectrogram (C = 1) or, with env features, the normalised log
+        spectrogram and envelopes and the SNR (C = 4); and the frame-rate
         f0 (or None). In train mode this updates the running min/max."""
         if x.hop != 1:
             raise ValueError("the encoder takes a signal at hop 1")
@@ -116,35 +244,50 @@ class UNetEncoder(BackboneModelInterface):
             f0_d = f0.set_hop_length(self.hop_length).truncate(
                 spec.shape[2]).data
             spec = spec[..., :f0_d.shape[-1]]
-        log_spec = torch.log(spec + 1e-8)[:, None]
-        return _running_minmax(self, log_spec, train), f0_d
+        snr = None
+        if self.include_env_features and self.f0_conditioning:
+            feats, snr = env_features(spec, f0_d, self.sample_rate,
+                                      self.n_fft, self.num_harmonics)
+        else:
+            feats = spec[:, None]
+        feature = _running_minmax(self, torch.log(feats + 1e-8), train)
+        if snr is not None:
+            feature = torch.cat([feature, snr], dim=1)
+        return feature, f0_d
 
     def forward(self, x: Sig, f0: Optional[Sig] = None, train: bool = False
                 ) -> Sig:
         """``train`` updates the running min/max; the batch norms and the
-        LSTM's dropout follow the module's mode. ``golf_tpu`` drives all
-        three from ``train``, so the two must agree."""
+        recurrent stack's dropout follow the module's mode. ``golf_tpu``
+        drives all three from ``train``, so the two must agree."""
         if train != self.training:
             raise ValueError(
                 f"train={train} but the encoder is in "
                 f"{'train' if self.training else 'eval'} mode; call "
                 f".train() or .eval() to match")
-        h = self.lstm(self.rows(*self.features(x, f0, train)))
+        h = self.rows(*self.features(x, f0, train))
+        if self.use_lru:
+            h = self.lru_block(h.to(self.out_linear.weight.dtype))
+        else:
+            h = self.lstm(h)
         return Sig(self.head(h), self.hop_length)
 
     def rows(self, feature: torch.Tensor, f0_d: Optional[torch.Tensor]
              ) -> torch.Tensor:
         """The recurrent stack's input (B, T, freq' C [+ 1]): the conv
-        pyramid's output flattened as ``golf_tpu`` does, and log1p(f0)."""
+        pyramid's output flattened as ``golf_tpu`` does, and log1p(f0), in
+        the compute dtype."""
         h = self.pyramid(feature)                      # (B, C, freq', T)
         b, c, fr, t = h.shape
         h = h.permute(0, 3, 2, 1).reshape(b, t, fr * c)
         if f0_d is not None:
             h = h[:, :f0_d.shape[-1]]
-            h = torch.cat([h, torch.log1p(f0_d)[..., None]], dim=-1)
+            h = torch.cat([h, torch.log1p(f0_d)[..., None].to(h.dtype)],
+                          dim=-1)
         return h
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
         """LayerNorm and the output linear over the recurrent stack's
-        output."""
-        return self.out_linear(self.norm(h))
+        output, in the parameters' dtype (fp32 under a bf16 compute
+        dtype)."""
+        return self.out_linear(self.norm(h.to(self.norm.weight.dtype)))

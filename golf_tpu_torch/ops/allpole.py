@@ -30,6 +30,9 @@ forms ``da`` in the same pass; on the CPU the adjoint stays ``golf_tpu``'s
 composite (flipped run, then p shifted dots). ``allpole_const_scan64`` and
 ``allpole_const_adjoint_scan64`` are the kernels' arithmetic in plain
 PyTorch, for the tests and ``chip_smoke.py``; no route runs them.
+
+``lpc_synthesis`` (frame-wise LPC) and ``lfilter`` (a constant IIR filter,
+its FIR part a ``conv1d``) run their all-pole part on ``allpole_const``.
 """
 
 from __future__ import annotations
@@ -588,3 +591,29 @@ def allpole_stream_plain(x: torch.Tensor, a: torch.Tensor,
     if t <= 64 or block >= t:
         return allpole_scan(x, a, zi)
     return _allpole_blocked(x, a, zi, block)
+
+
+def lpc_synthesis(source: torch.Tensor, gains: torch.Tensor,
+                  a: torch.Tensor) -> torch.Tensor:
+    """Frame-wise LPC synthesis, lfilter(x, [1, a...], [gain, 0...]):
+    source (N, T), gains (N,), a (N, p) -> (N, T), by ``allpole_const``
+    (B2 on the card)."""
+    return allpole_const((source * gains[:, None]).contiguous(),
+                         a.contiguous())
+
+
+def lfilter(x: torch.Tensor, a_coeffs: torch.Tensor,
+            b_coeffs: torch.Tensor) -> torch.Tensor:
+    """A constant IIR filter as torchaudio's ``lfilter`` (coefficients
+    shared by the rows, normalised by a0, no clamp): x (B, T), a_coeffs and
+    b_coeffs (K,). The FIR part is a ``conv1d``; the all-pole part is
+    ``allpole_const`` (B2 on the card) with a broadcast to (B, p)."""
+    a0 = a_coeffs[0]
+    b = b_coeffs / a0
+    a = a_coeffs[1:] / a0
+    k = b.shape[0]
+    xp = torch.nn.functional.pad(x, (k - 1, 0))[:, None, :]
+    fir_out = torch.nn.functional.conv1d(
+        xp, torch.flip(b, (0,)).to(x.dtype)[None, None, :])[:, 0, :]
+    a_b = a.to(x.dtype).expand(x.shape[0], a.shape[0]).contiguous()
+    return allpole_const(fir_out.contiguous(), a_b)

@@ -114,6 +114,158 @@ def rc2lpc(rc: torch.Tensor) -> torch.Tensor:
     return cur[..., 1:]
 
 
+# ---------------------------------------------------------------------------
+# Polynomial products and the biquad / LSP parameterisations
+# (golf_tpu/ops/dsp.py:165-345): the same divide-and-conquer order and the
+# same direct sums, so the rounding matches
+# ---------------------------------------------------------------------------
+
+def poly_product_pair(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
+    """Full convolution of coefficient arrays along the last dim by FFT:
+    (..., n) and (..., m) -> (..., n + m - 1)."""
+    out_len = c1.shape[-1] + c2.shape[-1] - 1
+    n = 2 * out_len
+    return torch.fft.irfft(torch.fft.rfft(c1, n=n) * torch.fft.rfft(c2, n=n),
+                           n=n)[..., :out_len]
+
+
+def _shifted_sum(terms, n_out: int) -> torch.Tensor:
+    """sum_i terms[i] placed at offset i of a length-``n_out`` last axis,
+    added in order from zero."""
+    out = None
+    for i, term in enumerate(terms):
+        placed = F.pad(term, (i, n_out - i - term.shape[-1]))
+        out = placed if out is None else out + placed
+    return out
+
+
+def _poly_product_pair_direct(c1: torch.Tensor, c2: torch.Tensor
+                              ) -> torch.Tensor:
+    """The direct full convolution: the outer product's anti-diagonals
+    summed row by row, in row order."""
+    n, m = c1.shape[-1], c2.shape[-1]
+    outer = c1[..., :, None] * c2[..., None, :]
+    return _shifted_sum([outer[..., i, :] for i in range(n)], n + m - 1)
+
+
+def coeff_product(polynomials: torch.Tensor) -> torch.Tensor:
+    """Product of N polynomials, (N, B, k) -> (B, (k - 1) N + 1): halves
+    multiplied recursively, the shorter factor second, by direct
+    convolution."""
+    n = polynomials.shape[0]
+    if n == 1:
+        return polynomials[0]
+    c1 = coeff_product(polynomials[n // 2:])
+    c2 = coeff_product(polynomials[:n // 2])
+    if c1.shape[-1] > c2.shape[-1]:
+        c1, c2 = c2, c1
+    return _poly_product_pair_direct(c2, c1)
+
+
+def complex2biquads(roots: torch.Tensor) -> torch.Tensor:
+    """Complex roots -> the sections [1, -2 Re r, |r|^2] of their conjugate
+    pairs."""
+    if not roots.is_complex():
+        raise TypeError("complex2biquads takes complex roots")
+    a1 = -2 * roots.real
+    a2 = torch.abs(roots) ** 2
+    return torch.stack([torch.ones_like(a1), a1, a2], dim=-1)
+
+
+def params2biquads(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """A stable section [1, a1, a2] from two parameters in [-1, 1]."""
+    a1 = 2 * p1
+    a1_abs = torch.abs(a1)
+    a2 = 0.5 * ((2 - a1_abs) * p2 + a1_abs)
+    return torch.stack([torch.ones_like(a1), a1, a2], dim=-1)
+
+
+def biquads2lpc(biquads: torch.Tensor) -> torch.Tensor:
+    """(..., n_sections, 3) -> (..., 2 n_sections): the sections' product
+    without its leading 1."""
+    if biquads.shape[-1] != 3:
+        raise ValueError(f"biquads must end in 3, got {tuple(biquads.shape)}")
+    lead = biquads.shape[:-2]
+    flat = biquads.reshape((-1,) + tuple(biquads.shape[-2:]))
+    prod = coeff_product(flat.transpose(0, 1))
+    return prod.reshape(tuple(lead) + (prod.shape[-1],))[..., 1:]
+
+
+def get_logits2biquads(rep_type: str, max_abs_pole: float = 0.99
+                       ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Logits (..., 2) -> stable sections (..., 3): ``coef`` (the
+    coefficients in the stability triangle), ``conj`` (a conjugate pair by
+    magnitude and cosine) or ``real`` (two real roots)."""
+    if rep_type == "coef":
+        def f(logits):
+            a1 = torch.tanh(logits[..., 0]) * max_abs_pole * 2
+            a1_abs = torch.abs(a1)
+            a2 = 0.5 * ((2 - a1_abs) * torch.tanh(logits[..., 1])
+                        * max_abs_pole + a1_abs)
+            return torch.stack([torch.ones_like(a1), a1, a2], dim=-1)
+    elif rep_type == "conj":
+        def f(logits):
+            mag = torch.sigmoid(logits[..., 0]) * max_abs_pole
+            cos = torch.tanh(logits[..., 1])
+            return torch.stack([torch.ones_like(mag), -2 * mag * cos,
+                                mag * mag], dim=-1)
+    elif rep_type == "real":
+        def f(logits):
+            z1 = torch.tanh(logits[..., 0]) * max_abs_pole
+            z2 = torch.tanh(logits[..., 1]) * max_abs_pole
+            return torch.stack([torch.ones_like(z1), -z1 - z2, z1 * z2],
+                               dim=-1)
+    else:
+        raise ValueError(f"Unknown rep_type: {rep_type}")
+    return f
+
+
+def _conv_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Full 1-D convolution along the last axis (a polynomial product), the
+    terms a * b_i added in order of i."""
+    n, m = a.shape[-1], b.shape[-1]
+    return _shifted_sum([a * b[..., i:i + 1] for i in range(m)], n + m - 1)
+
+
+def lsp2lpc(lsp: torch.Tensor) -> torch.Tensor:
+    """Line-spectral frequencies -> the LPC polynomial [1, a1..ap]. lsp
+    (..., order + 1): element 0 (the gain slot) is ignored, elements
+    1..order are the frequencies in (0, pi), ascending. Returns
+    (..., order + 1). The odd-indexed frequencies make P, the even-indexed
+    Q: P(z) = (1 - z^-1) prod, Q(z) = (1 + z^-1) prod at even order; P(z)
+    = prod, Q(z) = (1 - z^-2) prod at odd order; A = (P + Q) / 2."""
+    w = lsp[..., 1:]
+    order = w.shape[-1]
+
+    def poly_from_cos(ws):
+        c = torch.cos(ws)
+        bi = torch.stack([torch.ones_like(c), -2 * c, torch.ones_like(c)],
+                         dim=-1)
+        lead = bi.shape[:-2]
+        if bi.shape[-2] == 0:
+            return lsp.new_ones(tuple(lead) + (1,))
+        flat = bi.reshape((-1,) + tuple(bi.shape[-2:]))
+        prod = coeff_product(flat.transpose(0, 1))
+        return prod.reshape(tuple(lead) + (prod.shape[-1],))
+
+    p1 = poly_from_cos(w[..., ::2])
+    p2 = poly_from_cos(w[..., 1::2])
+    one = lsp.new_ones(p1.shape[:-1] + (1,))
+    zero = torch.zeros_like(one)
+    if order % 2 == 0:
+        d1 = torch.cat([one, zero], -1) - torch.cat([zero, one], -1)
+        d2 = torch.cat([one, zero], -1) + torch.cat([zero, one], -1)
+        big_p = _conv_last(p1, d1)
+        big_q = _conv_last(p2, d2)
+    else:
+        big_p = p1
+        big_q = _conv_last(p2, torch.cat([one, zero, -one], -1))
+    n = max(big_p.shape[-1], big_q.shape[-1])
+    big_p = F.pad(big_p, (0, n - big_p.shape[-1]))
+    big_q = F.pad(big_q, (0, n - big_q.shape[-1]))
+    return (0.5 * (big_p + big_q))[..., :order + 1]
+
+
 def levinson(r: torch.Tensor, order: int) -> torch.Tensor:
     """Levinson-Durbin: autocorrelation (..., order+1) -> LPC [1, a1..ap],
     in r's dtype, the prediction error floored at 1e-9 in each reflection

@@ -1,5 +1,5 @@
 """Exact-causal streaming encoder (counterpart of
-``golf_tpu.serve.enc_stream`` for the BiLSTM backbone).
+``golf_tpu.serve.enc_stream``).
 
 Streams the ``UNetEncoder``-backed ``VocoderParameterEncoderInterface``
 with exact forward state and a bounded backward look-ahead:
@@ -16,15 +16,30 @@ with exact forward state and a bounded backward look-ahead:
   their right edge, so rows are held back ``lookahead`` frames; offline also
   starts the backward direction from zero at the utterance's end, so
   ``flush`` is exact, and mid-stream rows differ by what the backward
-  forget gates have not yet forgotten (``backward_decay`` measures it).
+  forget gates have not yet forgotten (``backward_decay`` measures it);
+* the LRU backbone (``use_lru``) streams with no structural look-ahead: the
+  diagonal recurrence is causal, so its complex state is carried across
+  pushes and emitted rows are final at once. Only the first emission's
+  carry-in differs from offline, which predicts it from the utterance's
+  last frame: the stream predicts it from its newest frame, after waiting
+  ``lookahead`` frames for context, and the difference decays as
+  |lambda|^t. A one-push utterance equals offline;
+* the env-features front (``include_env_features``) is the offline
+  encoder's own ``features``: the spectrogram is cut to the f0 grid before
+  the frame-local envelopes are formed;
+* under ``compute_dtype`` bf16 the front runs the offline bf16 pyramid, and
+  each LSTM direction steps flax's ``OptimizedLSTMCell(dtype=bf16)``, as
+  ``golf_tpu``'s stream does: gates in bf16, the carry c and the output h
+  in fp32. The offline encoder computes its gates in fp32 (its fused
+  LSTM), so the bf16 stream follows ``golf_tpu``'s stream, not the offline
+  encoder.
 
 Algorithmic latency: ``lookahead`` frames plus the front's reach,
 n_conv_layers + ceil((n_fft / 2) / hop) frames (24 + 7 frames = 310 ms at
 hop 240 and 24 kHz). The port's BiLSTM is one bidirectional ``nn.LSTM``;
-here every layer and direction runs alone through ``torch.lstm`` on the
-module's own parameter tensors, so a checkpoint loaded into the encoder is
-what streams. The LRU backbone and the env-features front of ``golf_tpu``
-are not ported.
+here every layer and direction runs alone (in fp32 through ``torch.lstm``)
+on the module's own parameter tensors, so a checkpoint loaded into the
+encoder is what streams.
 """
 
 from __future__ import annotations
@@ -52,8 +67,7 @@ class StreamingEncoder:
         bb = encoder.backbone
         if not isinstance(bb, UNetEncoder):
             raise NotImplementedError(
-                f"streaming needs the UNetEncoder backbone with its BiLSTM "
-                f"(the LRU and env-features branches are not ported), got "
+                f"streaming needs the UNetEncoder backbone, got "
                 f"{type(bb).__name__}")
         if not bb.f0_conditioning:
             raise ValueError("streaming needs an f0-conditioned encoder")
@@ -62,9 +76,14 @@ class StreamingEncoder:
                              ".eval() first")
         self.encoder = encoder
         self.bb = bb
-        self.lstm = bb.lstm.lstm
-        self.n_layers = self.lstm.num_layers
-        self.hidden = self.lstm.hidden_size
+        self.use_lru = bb.use_lru
+        self.dtype = bb.dtype
+        if self.use_lru:
+            self.n_layers = bb.lru_block.num_layers
+        else:
+            self.lstm = bb.lstm.lstm
+            self.n_layers = self.lstm.num_layers
+            self.hidden = self.lstm.hidden_size
         self.device = bb.out_linear.weight.device
         self.hop = bb.hop_length
         self.n_fft = bb.n_fft
@@ -80,6 +99,8 @@ class StreamingEncoder:
         self._next_frame = 0        # next conv frame to produce
         self._pending: List[torch.Tensor] = []  # conv rows not yet emitted
         self._carries: List[Optional[Carry]] = [None] * self.n_layers
+        # the LRU layers' complex states (None before the first emission)
+        self._lru_states: List[Optional[torch.Tensor]] = [None] * self.n_layers
         self._done = False
 
     # ------------------------------------------------------------------
@@ -100,6 +121,8 @@ class StreamingEncoder:
         ``reverse`` runs from the right edge backwards and returns the
         outputs in time order. Returns (outputs, (h, c) after the last
         step run)."""
+        if self.dtype is not None:
+            return self._direction_cell(layer, reverse, h, carry)
         sfx = f"_l{layer}" + ("_reverse" if reverse else "")
         weights = [getattr(self.lstm, f"{n}{sfx}")
                    for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
@@ -117,6 +140,37 @@ class StreamingEncoder:
         if reverse:
             out = torch.flip(out, (1,))
         return out, (h_n, c_n)
+
+    def _direction_cell(self, layer: int, reverse: bool, h: torch.Tensor,
+                        carry: Optional[Carry] = None
+                        ) -> Tuple[torch.Tensor, Carry]:
+        """``_direction`` under a compute dtype, step by step as flax's
+        ``OptimizedLSTMCell(dtype)``: both dense products and their bias
+        rounded to the dtype, the gates in it, ``c = f c + i g`` and
+        ``h = o tanh(c)`` promoted to fp32. The carry is ((B, H), (B, H))
+        fp32."""
+        dt = self.dtype
+        sfx = f"_l{layer}" + ("_reverse" if reverse else "")
+        w_ih, w_hh, bias = (getattr(self.lstm, f"{n}{sfx}").to(dt)
+                            for n in ("weight_ih", "weight_hh", "bias_hh"))
+        xw = h.to(dt) @ w_ih.t()                     # (B, P, 4H)
+        w_h = w_hh.t()
+        if carry is None:
+            z = h.new_zeros((h.shape[0], self.hidden), dtype=torch.float32)
+            carry = (z, z)
+        h_t, c = carry
+        n = self.hidden
+        outs = [None] * h.shape[1]
+        for s in (range(h.shape[1] - 1, -1, -1) if reverse
+                  else range(h.shape[1])):
+            pre = (h_t.to(dt) @ w_h + bias) + xw[:, s]
+            i, f, o = (torch.sigmoid(pre[:, k * n:(k + 1) * n])
+                       for k in (0, 1, 3))
+            g = torch.tanh(pre[:, 2 * n:3 * n])
+            c = f.float() * c + (i * g).float()
+            h_t = o.float() * torch.tanh(c)
+            outs[s] = h_t
+        return torch.stack(outs, dim=1), (h_t, c)
 
     def _bwd_window(self, layer: int, h: torch.Tensor) -> torch.Tensor:
         """The backward direction over a window from a zero carry at its
@@ -178,6 +232,23 @@ class StreamingEncoder:
         self._pending = self._pending[n_emit:]
         return self.bb.head(h[:, :n_emit])
 
+    def _emit_lru(self, final: bool) -> Optional[torch.Tensor]:
+        """The LRU block over every pending row, from the carried states;
+        the first emission waits for ``lookahead`` + 1 rows (or the flush)
+        and predicts each layer's carry-in from its newest row."""
+        if not self._pending:
+            return None
+        if self._lru_states[0] is None and not final and \
+                len(self._pending) < self.L + 1:
+            return None
+        block = self.bb.lru_block
+        h = block.dense0(torch.stack(self._pending, dim=1).to(
+            block.dense0.weight.dtype))
+        for i in range(self.n_layers):
+            h, self._lru_states[i] = block.layer(i, h, self._lru_states[i])
+        self._pending = []
+        return self.bb.head(h)
+
     def _params(self, out: Optional[torch.Tensor]
                 ) -> Optional[Dict[str, Any]]:
         return None if out is None else \
@@ -195,7 +266,8 @@ class StreamingEncoder:
         self._x = torch.cat([self._x, as_t(x)], dim=1)
         self._f0 = torch.cat([self._f0, as_t(f0)], dim=1)
         self._advance_front(final=False)
-        return self._params(self._emit(n_keep=self.L))
+        return self._params(self._emit_lru(final=False) if self.use_lru
+                            else self._emit(n_keep=self.L))
 
     @torch.no_grad()
     def flush(self) -> Optional[Dict[str, Any]]:
@@ -205,7 +277,8 @@ class StreamingEncoder:
             raise RuntimeError("flush after flush")
         self._done = True
         self._advance_front(final=True)
-        return self._params(self._emit(n_keep=0))
+        return self._params(self._emit_lru(final=True) if self.use_lru
+                            else self._emit(n_keep=0))
 
 
 @torch.no_grad()
