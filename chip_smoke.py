@@ -147,7 +147,29 @@ Phases (any failure exits non-zero):
     p = 16, and a ``BatchSecondOrderLPCSynth`` section (12800, 960) at
     p = 2 (11 launches a call), each against its plain version and a
     float64 reference; an ``options`` JSON line;
-16. summary: a ``kernels:`` line, the card, then one JSON line with the
+16. variants: four more encoder backbones (``X2Control``,
+    ``F0EnergyEncoder``, ``UNetEncoderV2``, ``TransformerEncoder``) each
+    through ``autoencode_torch.py fit --config cfg/ae/vctk.yaml --model
+    cfg/ae/decoder/golf.yaml model.init_args.encoder_init_args.
+    backbone_type=<class>`` for 3 steps at B = 64 x 2 s from a VCTK tree
+    (launches exact, the run's peak memory), each with a B = 2 x 1 s step
+    card vs CPU; the ISMIR23 vocoder in the excitation domain
+    (``main_torch.py fit --model cfg/ae/decoder/golf.yaml
+    model.init_args.inverse_target=true``, 3 steps from an MPop600 tree: B1
+    and B3b once a step, no all-pole kernel), ``predict`` of its checkpoint
+    and a B = 2 x 1 s step card vs CPU; GOLF-ff with each of
+    ``DownsampledWeightedGlottalFlowTable``, ``WeightedGlottalFlowTable``,
+    ``UniformNoise``, ``SignFlipNoise``, ``NoiseBand(fs=24000)`` and
+    ``LTVPQMF(16, 127)`` swapped in: 2 Adam steps at B = 64 x 2 s and a
+    4 x 6 s predict (launches exact, the weighted tables' lookups counted at
+    their shapes), a B = 2 x 1 s step card vs CPU (the noise generators on
+    the same field); ``WrappedPhaseDownsampledIndexedGlottalFlowTable`` on
+    (4, 144 000) wrapped phase card vs CPU (1e-5 of max|y|); B1, B3a and B3b
+    at the weighted tables' training shapes, (64, 20, 2400) x
+    (64, 21, 2048) and (64, 200, 240) x (64, 201, 2048), each within 2e-6
+    of max|ref| of its plain version, with times, bounds and
+    ``F.grid_sample``'s; a ``variants`` JSON line;
+17. summary: a ``kernels:`` line, the card, then one JSON line with the
     kernel table; B1's and B3b's ``library_ms`` is ``F.grid_sample`` on the
     table padded with its first column, and its backward with respect to
     the table (B3a's is null: no one call returns its three outputs); B1's
@@ -158,9 +180,11 @@ Phases (any failure exits non-zero):
     vocoder phase's launches), B2's ``lpcnet`` (LPCNet's de-emphasis shape,
     the lpcnet phase's launches), and B2's and its adjoint's rows the
     options' shapes (``lfilter_train``, ``lfilter_serve``, ``cascade_p2``);
-    ``launches`` counts every phase, the vocoder's, LPCNet's and the
-    options' included;
-17. last line: ``{"ok": true, "device": {...}}``.
+    ``launches`` counts every phase, the vocoder's, LPCNet's, the
+    options' and the variants' included; B1's, B3a's and B3b's rows carry
+    ``weighted_ds`` and ``weighted`` (the weighted tables' shapes, with the
+    variants phase's launches at them);
+18. last line: ``{"ok": true, "device": {...}}``.
 Each phase's seconds are printed as it ends.
 
 Needs one CUDA device, and exits non-zero without one. Imports torch and
@@ -1458,19 +1482,26 @@ def phase_train_f0() -> dict:
 
 
 def phase_train_vs_cpu(decoder: str, state: dict = None,
-                       optimizer: dict = None, **model_args) -> dict:
+                       optimizer: dict = None, cfg: dict = None,
+                       noise_fn=None, **model_args) -> dict:
     """One training step at B = 2 x 1 s, full width, on the card and on the
     CPU: same weights (``seeded_model``'s, or ``state``), noise and random
     f0, dropout 0, train mode (cuDNN has no RNN backward in eval mode, and
     dropout draws differ by device). With ``optimizer`` (the
     ``ClippedOptimizer`` arguments) the step is also applied on both and
-    the weights after it compared."""
+    the weights after it compared. ``cfg`` replaces the model
+    configuration (its dropout set to 0), ``noise_fn`` (the batch's shape
+    -> the noise generator's field) the standard normal field."""
     dev = torch.device("cuda")
     torch.manual_seed(SEED)
-    cpu_task = build_voice_autoencoder(
-        train_model_config(decoder, 0.0, **model_args), device="cpu")
+    if cfg is None:
+        cfg = train_model_config(decoder, 0.0, **model_args)
+    else:
+        cfg = copy.deepcopy(cfg)
+        cfg["encoder_init_args"]["dropout"] = 0.0
+    cpu_task = build_voice_autoencoder(cfg, device="cpu")
     if state is None:
-        state = seeded_model(decoder, "cpu").state_dict()
+        state = seeded_model(decoder, "cpu", cfg).state_dict()
     cpu_task.load_state_dict(state)
     x, f0 = requests(TRAIN_CHECK_BATCH, TRAIN_CHECK_SECONDS)
     # white noise at -20 dB of full scale: without it most spectrogram bins
@@ -1479,11 +1510,11 @@ def phase_train_vs_cpu(decoder: str, state: dict = None,
     # differ by ~1e-2 between the card and the CPU)
     x = x + 0.1 * torch.randn(x.shape,
                               generator=torch.Generator().manual_seed(8))
-    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(7))
+    noise = (noise_fn or torch.randn)(
+        x.shape, generator=torch.Generator().manual_seed(7))
     random_f0 = torch.tensor([[90.0], [310.0]])
     cpu_task.init_running_stats(Sig(x, 1), Sig(f0, 1))
-    gpu_task = build_voice_autoencoder(
-        train_model_config(decoder, 0.0, **model_args), device="cpu")
+    gpu_task = build_voice_autoencoder(cfg, device="cpu")
     gpu_task.load_state_dict(cpu_task.state_dict())
     gpu_task.to(dev)
     grads = []
@@ -1497,27 +1528,36 @@ def phase_train_vs_cpu(decoder: str, state: dict = None,
         losses.append(loss.item())
         grads.append({n: p.grad.detach().cpu()
                       for n, p in task.named_parameters()
-                      if p.requires_grad})
+                      if p.grad is not None})
         if optimizer is not None:
             ClippedOptimizer(trainable_parameters(task), **optimizer).step()
     rel_loss = abs(losses[0] - losses[1]) / abs(losses[1])
     errs = {}
     for name, ref in grads[1].items():
         got = grads[0][name]
-        if name.startswith("encoder.backbone.pyramid.convs.") and \
-                name.endswith(".bias"):
-            # in front of a train-mode batch norm: zero in exact arithmetic,
-            # rounding noise on both sides; held against the scale of the
-            # conv's weight gradient instead
+        # zero in exact arithmetic, rounding noise on both sides: a conv's
+        # bias in front of a train-mode batch norm, and the attention's key
+        # bias (the softmax over keys is blind to it); held against the
+        # scale of the weight's gradient instead
+        blind = name.endswith(".key.bias") or (
+            name.endswith(".bias") and (
+                name.startswith("encoder.backbone.pyramid.convs.") or (
+                    name == "encoder.backbone.convs.0.bias"
+                    and "encoder.backbone.norms.0.weight" in grads[1])))
+        if blind:
             w = grads[1][name[:-len("bias")] + "weight"].abs().max()
             err = ((got - ref).abs().max() / w).item()
         else:
             err = ((got - ref).abs().max() / ref.abs().max()).item()
-        if name.startswith("encoder.backbone.pyramid."):
-            # the conv pyramid reads the log spectrogram, whose small bins
-            # carry the FFT libraries' rounding (on the CPU, against
-            # golf_tpu, a float64 spectrogram takes these errors from 1e-2
-            # to below 1e-4): held to PYRAMID_GRAD_TOL, scaled here
+        if name.startswith(("encoder.backbone.pyramid.",
+                            "encoder.backbone.convs.0.",
+                            "encoder.backbone.embed.")):
+            # the conv pyramid (or the first conv, and UNetEncoderV2's
+            # embedding in front of its pyramid) reads the log spectrogram,
+            # whose small bins carry the FFT libraries' rounding (on the
+            # CPU, against golf_tpu, a float64 spectrogram takes these
+            # errors from 1e-2 to below 1e-4): held to PYRAMID_GRAD_TOL,
+            # scaled here
             err *= TRAIN_GRAD_TOL / PYRAMID_GRAD_TOL
         errs[name] = err
     ranked = sorted(errs, key=errs.get, reverse=True)
@@ -1895,20 +1935,23 @@ def vocoder_cfg(decoder: str) -> dict:
                        f"cfg/ae/decoder/{decoder}.yaml")["model"]["init_args"]
 
 
-def vocoder_model(decoder: str, device) -> DDSPVocoder:
-    """The full-width vocoder with seeded weights; the zero-initialised head
-    and acoustic filter get small random values so the parameters are off
-    the DSP prior."""
+def vocoder_model(decoder: str, device, cfg: dict = None) -> DDSPVocoder:
+    """The full-width vocoder (``vocoder_cfg(decoder)``, or ``cfg``) with
+    seeded weights; the zero-initialised head and acoustic filter (the
+    room filter, or HPN's end filter) get small random values so the
+    parameters are off the DSP prior."""
     torch.manual_seed(SEED)
-    task = build_ddsp_vocoder(vocoder_cfg(decoder), device="cpu")
+    task = build_ddsp_vocoder(cfg or vocoder_cfg(decoder), device="cpu")
     gen = torch.Generator().manual_seed(SEED + 2)
     with torch.no_grad():
         head = task.encoder.backbone.out_linear
         head.weight.copy_(0.004 * torch.randn(head.weight.shape,
                                               generator=gen))
         head.bias.copy_(0.05 * torch.randn(head.bias.shape, generator=gen))
-        end = task.decoder.end_filter.kernel
-        end.copy_(0.01 * torch.randn(end.shape, generator=gen))
+        acoustic = getattr(task.decoder, "room_filter", None) or \
+            task.decoder.end_filter
+        acoustic.kernel.copy_(0.01 * torch.randn(acoustic.kernel.shape,
+                                                 generator=gen))
     return task.to(device)
 
 
@@ -2124,9 +2167,11 @@ def phase_vocoder_serve(out: Path) -> tuple:
                    "card_vs_cpu": rel}
 
 
-def phase_vocoder_train_vs_cpu() -> dict:
-    """One recipe training step (golf-v1, the voicing not detached) at B =
-    2 x 1 s, card against CPU, same weights and noise, train mode: the loss
+def phase_vocoder_train_vs_cpu(decoder: str = "golf-v1",
+                               cfg: dict = None) -> dict:
+    """One recipe training step (golf-v1, the voicing not detached; or
+    ``decoder`` with the configuration ``cfg``) at B = 2 x 1 s, card
+    against CPU, same weights and noise, train mode: the loss
     within 1e-4 relative; every gradient within 1e-3 of its max-abs of the
     CPU's, or, where the CPU's float32 gradient itself strays further than
     that from a float64 CPU run (the voicing's gradient through the
@@ -2134,7 +2179,7 @@ def phase_vocoder_train_vs_cpu() -> dict:
     the float64 gradient or twice the CPU's distance from it (two float32
     evaluations of the same sum in other orders)."""
     dev = torch.device("cuda")
-    cpu_task = vocoder_model("golf-v1", "cpu")
+    cpu_task = vocoder_model(decoder, "cpu", cfg)
     x, f0 = requests(TRAIN_CHECK_BATCH, TRAIN_CHECK_SECONDS)
     # white noise at -20 dB of full scale keeps the mel bins off the floor
     x = x + 0.1 * torch.randn(x.shape,
@@ -2145,9 +2190,9 @@ def phase_vocoder_train_vs_cpu() -> dict:
     grads, losses = {}, {}
     for label, task, d, dtype in (
             ("cpu", cpu_task, torch.device("cpu"), torch.float32),
-            ("card", vocoder_model("golf-v1", "cpu").to(dev), dev,
+            ("card", vocoder_model(decoder, "cpu", cfg).to(dev), dev,
              torch.float32),
-            ("cpu64", vocoder_model("golf-v1", "cpu").double(),
+            ("cpu64", vocoder_model(decoder, "cpu", cfg).double(),
              torch.device("cpu"), torch.float64)):
         task.load_state_dict(state)
         task.train()
@@ -2157,9 +2202,10 @@ def phase_vocoder_train_vs_cpu() -> dict:
                                      Sig(f0.to(d, dtype), 1), **kw)
         loss.backward()
         losses[label] = loss.item()
+        # (in the inverse mode the room filter takes no gradient)
         grads[label] = {n: p.grad.detach().cpu().double()
                         for n, p in task.named_parameters()
-                        if p.requires_grad}
+                        if p.grad is not None}
     rel_loss = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
     errs, failed = {}, []
     for name, ref in grads["cpu"].items():
@@ -2173,7 +2219,7 @@ def phase_vocoder_train_vs_cpu() -> dict:
                                                  2 * cpu64):
             failed.append(name)
     ranked = sorted(errs, key=lambda n: errs[n][0], reverse=True)
-    print(f"vocoder train golf-v1: B={TRAIN_CHECK_BATCH} x "
+    print(f"vocoder train {decoder}: B={TRAIN_CHECK_BATCH} x "
           f"{TRAIN_CHECK_SECONDS:.0f} s, card vs CPU: loss "
           f"{losses['card']:.6f} vs {losses['cpu']:.6f} (rel {rel_loss:.2e}, tolerance 1e-4; "
           f"float64 {losses['cpu64']:.6f}); largest gradient errors (card "
@@ -2410,9 +2456,10 @@ def phase_lpcnet_vs_cpu() -> dict:
         finally:
             torch.backends.cudnn.enabled = cudnn
         losses[label] = loss.item()
+        # (in the inverse mode the room filter takes no gradient)
         grads[label] = {n: p.grad.detach().cpu().double()
                         for n, p in task.named_parameters()
-                        if p.requires_grad}
+                        if p.grad is not None}
 
     def gaps(a: str, b: str) -> dict:
         return {n: ((grads[a][n] - ref).abs().max()
@@ -3234,6 +3281,370 @@ def phase_options() -> tuple:
     return counts, summary, rows
 
 
+# ---------------------------------------------------------------------------
+# phase "variants": four more encoder backbones, the inverse
+# (excitation-domain) mode, the decoder modules no shipped config names,
+# and B1, B3a and B3b at the weighted wavetables' shapes
+# ---------------------------------------------------------------------------
+
+BACKBONES = ("models.mel.X2Control", "models.enc.F0EnergyEncoder",
+             "models.unet.UNetEncoderV2", "models.unet.TransformerEncoder")
+VARIANT_STEPS = 2
+# golf.yaml's LF table arguments
+_LF = {k: _HARM["init_args"][k] for k in (
+    "table_type", "normalize_method", "align_peak", "trainable", "min_R_d",
+    "max_R_d", "lf_v2", "points")}
+# GOLF-ff's decoder with one module swapped: (slot, config node)
+VARIANTS = {
+    "DownsampledWeightedGlottalFlowTable": ("harm_oscillator", {
+        "class_path": "models.synth.DownsampledWeightedGlottalFlowTable",
+        "init_args": {"hop_rate": 10, "in_channels": 64, "table_size": 100,
+                      **_LF}}),
+    "WeightedGlottalFlowTable": ("harm_oscillator", {
+        "class_path": "models.synth.WeightedGlottalFlowTable",
+        "init_args": {"table_size": 100, **_LF}}),
+    "UniformNoise": ("noise_generator", {
+        "class_path": "models.noise.UniformNoise"}),
+    "SignFlipNoise": ("noise_generator", {
+        "class_path": "models.noise.SignFlipNoise"}),
+    "NoiseBand": ("noise_generator", {
+        "class_path": "models.noise.NoiseBand", "init_args": {"fs": 24000}}),
+    "LTVPQMF": ("noise_filter", {
+        "class_path": "models.filters.LTVPQMF",
+        "init_args": {"n_mag": 16, "filter_order": 127}}),
+}
+# the weighted tables' lookup shapes at training (B = 64 x 2 s) and
+# serving (B = 4 x 6 s): (ph, tables)
+WEIGHTED_SHAPES = {
+    "DownsampledWeightedGlottalFlowTable": {
+        "train": ((64, 20, 2400), (64, 21, 2048)),
+        "serve": ((4, 60, 2400), (4, 61, 2048))},
+    "WeightedGlottalFlowTable": {
+        "train": ((64, 200, 240), (64, 201, 2048)),
+        "serve": ((4, 600, 240), (4, 601, 2048))},
+}
+WEIGHTED_KEYS = {"DownsampledWeightedGlottalFlowTable": "weighted_ds",
+                 "WeightedGlottalFlowTable": "weighted"}
+# B1, B3a and B3b at the new shapes, of max|ref| of their plain versions
+WEIGHTED_LOOKUP_TOL = 2e-6
+
+
+def backbone_config(backbone: str) -> dict:
+    """``model_config("golf")`` with the vctk encoder's arguments on
+    another backbone (each takes those its signature names)."""
+    cfg = model_config("golf")
+    cfg["encoder_init_args"]["backbone_type"] = backbone
+    return cfg
+
+
+def variant_config(name: str) -> dict:
+    cfg = model_config("golf")
+    slot, node = VARIANTS[name]
+    cfg["decoder"]["init_args"][slot] = copy.deepcopy(node)
+    return cfg
+
+
+def variant_noise(name: str):
+    """The noise generator's field for a card-vs-CPU step, from the
+    batch's shape: uniform [0, 1), one uniform [-1, 1) a sequence, the
+    noise bands' offsets, else standard normal."""
+    if name == "UniformNoise":
+        return lambda shape, generator: torch.rand(shape, generator=generator)
+    if name == "SignFlipNoise":
+        return lambda shape, generator: torch.rand(
+            shape[:1], generator=generator) * 2 - 1
+    if name == "NoiseBand":
+        return lambda shape, generator: torch.randint(
+            0, 32768, (shape[0], 1024), generator=generator)
+    return None
+
+
+def phase_variants_encoders(tree: Path, out: Path) -> tuple:
+    """Each backbone through ``autoencode_torch.py fit --config
+    cfg/ae/vctk.yaml --model cfg/ae/decoder/golf.yaml
+    model.init_args.encoder_init_args.backbone_type=<class>`` from the VCTK
+    tree, DISK_STEPS steps at B = 64 x 2 s (B1, B3b, B2 and B2's adjoint
+    once a step, B3a never), with the run's peak memory; one B = 2 x 1 s
+    step card vs CPU. Returns (launches, summary)."""
+    counts = {k.name: 0 for k in kernels.ALL}
+    summary = {}
+    for backbone in BACKBONES:
+        name = backbone.rsplit(".", 1)[1]
+        argv = ["fit", *disk_args(tree, "cfg/ae/decoder/golf.yaml",
+                                  out / name),
+                f"model.init_args.encoder_init_args.backbone_type={backbone}",
+                f"trainer.max_steps={DISK_STEPS}"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with StepProbe() as probe:
+            c = cli_run(argv)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        probe.check_steps(f"variants fit {name}", FF_STEP,
+                          absent=("lookup_res",))
+        print(f"variants fit {name}: peak memory over the run {peak:.2f} "
+              f"GiB")
+        for k, v in c.items():
+            counts[k] += v
+        summary[name] = {"step_ms": [t * 1e3 for t in probe.times],
+                         "peak_gib": peak,
+                         "vs_cpu": phase_train_vs_cpu(
+                             "golf", cfg=backbone_config(backbone))}
+        if name == "UNetEncoderV2":
+            summary[name]["mask_flips"] = harmonic_mask_flips()
+    return counts, summary
+
+
+def harmonic_mask_flips() -> dict:
+    """``UNetEncoderV2``'s harmonic mask on the card and on the CPU from
+    the training batch's f0 (B = 64 x 2 s at hop 240): the entries that
+    differ (a bin on the 0.25 or 0.75 edge of a harmonic can flip)."""
+    from golf_tpu_torch.models.unet import UNetEncoderV2
+    enc = UNetEncoderV2(1, hop_length=240)
+    _, f0 = requests(TRAIN_BATCH, TRAIN_SECONDS)
+    f0_d = Sig(f0, 1).set_hop_length(240).data
+    n_freq = enc.n_fft // 2 + 1
+    card = enc.harmonic_mask(n_freq, f0_d.cuda()).cpu()
+    cpu = enc.harmonic_mask(n_freq, f0_d)
+    flips = {"differ": int((card != cpu).sum()), "of": cpu.numel()}
+    print(f"variants UNetEncoderV2: harmonic mask card vs CPU on "
+          f"{tuple(cpu.shape)}: {flips['differ']} of {flips['of']} entries "
+          f"differ")
+    return flips
+
+
+def phase_variants_inverse(tree: Path, out: Path) -> tuple:
+    """The ISMIR23 vocoder in the excitation domain:
+    ``main_torch.py fit --model cfg/ae/decoder/golf.yaml
+    model.init_args.inverse_target=true`` from the MPop600 tree, DISK_STEPS
+    steps at B = 64 x 2 s (B1 and B3b once a step at (64, 20, 9600) x
+    (64, 21, 2048): the detached f0's phase needs no gradient; no all-pole
+    kernel: the end filter runs its inverse FIR, the room filter not at
+    all), then ``predict`` of that checkpoint on Synthetic data (the
+    forward decoder: B1 and B2), and one B = 2 x 1 s step card vs CPU.
+    Returns (launches, summary)."""
+    over = [f"data.init_args.wav_dir={tree}",
+            "model.init_args.inverse_target=true"]
+    argv = ["fit", "--model", "cfg/ae/decoder/golf.yaml", *over,
+            "--run_dir", str(out / "inverse"), f"trainer.max_steps={DISK_STEPS}"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.ALL:
+        k.by_shapes.clear()
+    with StepProbe() as probe:
+        counts = cli_run(argv, VOCODER_CONFIG)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    probe.check_steps("variants inverse fit", ("lookup", "lookup_dtab"),
+                      absent=("lookup_res", "allpole_const",
+                              "allpole_const_adjoint", "allpole_tv",
+                              "allpole_tv_adjoint"))
+    # the training steps' shapes (the validation's batches are smaller)
+    lookup = ((TRAIN_BATCH, 20, 9600), (TRAIN_BATCH, 21, 2048))
+    for k in (kernels.LOOKUP, kernels.LOOKUP_DTAB):
+        check(k.by_shapes.get(lookup, 0) == DISK_STEPS,
+              f"variants inverse fit: {k.name} at {lookup} "
+              f"{k.by_shapes.get(lookup, 0)} times")
+    ckpt = out / "inverse" / "ckpt" / "last"
+    check(ckpt.exists(), "inverse-mode checkpoint written")
+    pred_dir = out / "inverse_predict"
+    pred_counts = cli_run(
+        ["predict", "--model", "cfg/ae/decoder/golf.yaml",
+         "model.init_args.inverse_target=true",
+         "data.class_path=ltng.data.Synthetic", "data.init_args.n_items=64",
+         "--ckpt_path", str(ckpt), "--run_dir", str(pred_dir)],
+        VOCODER_CONFIG)
+    wavs = sorted((pred_dir / "predictions").glob("*.wav"))
+    ys = [wavfile.read(str(w))[1] for w in wavs]
+    print(f"variants inverse: fit peak memory {peak:.2f} GiB; predict of "
+          f"its checkpoint wrote {len(wavs)} wavs; launches {pred_counts}")
+    check(len(wavs) == 8 and all(np.isfinite(y).all() for y in ys),
+          "inverse-mode checkpoint predicts finite audio")
+    check(pred_counts["lookup"] >= 1 and pred_counts["allpole_const"] >= 1,
+          "the forward decoder ran B1 and B2 in predict")
+    for k, v in pred_counts.items():
+        counts[k] += v
+    summary = {"fit_step_ms": [t * 1e3 for t in probe.times],
+               "fit_peak_gib": peak,
+               "vs_cpu": phase_vocoder_train_vs_cpu(
+                   "golf", {**vocoder_cfg("golf"), "inverse_target": True})}
+    return counts, summary
+
+
+def phase_variants_decoders() -> tuple:
+    """GOLF-ff with each module of VARIANTS swapped in, at full width:
+    VARIANT_STEPS Adam steps at B = 64 x 2 s (B1, B3b, B2 and B2's adjoint
+    exactly once a step; for the weighted tables at their own shapes,
+    counted by shape), a 4 x 6 s predict (B1 and B2 once), and one
+    B = 2 x 1 s step card vs CPU. Returns (launches, summary, the weighted
+    tables' launches by shape)."""
+    dev = torch.device("cuda")
+    counts = {k.name: 0 for k in kernels.ALL}
+    summary = {}
+    by_shape = {}
+    x, f0 = requests(BATCH, SECONDS)
+    xs, f0s = Sig(x.to(dev), 1), Sig(f0.to(dev), 1)
+    for name in VARIANTS:
+        task = seeded_model("golf", dev, variant_config(name))
+        if name == "NoiseBand":
+            # variant_noise draws offsets in [0, 32768)
+            check(task.decoder.noise_generator.bands.shape == (1024, 32768),
+                  "the noise bands at fs 24000")
+        for k in kernels.ALL:
+            k.by_shapes.clear()
+        rec = train_steps({name: task}, VARIANT_STEPS, "variants")[name]
+        check_exact(f"variants {name} steps", rec["counts"], FF_STEP,
+                    VARIANT_STEPS)
+        task.eval()
+        for k in kernels.ALL:
+            k.launches = 0
+        with torch.inference_mode():
+            task.predict_step(xs, f0s,
+                              generator=torch.Generator(dev).manual_seed(SEED))
+            y, secs = timed(lambda: task.predict_step(
+                xs, f0s, generator=torch.Generator(dev).manual_seed(SEED))[0])
+        pc = {k.name: k.launches for k in kernels.ALL}
+        check_exact(f"variants {name} predict", pc,
+                    {"lookup": 1, "allpole_const": 1}, 2)
+        check(torch.isfinite(y.data).all().item() and
+              y.shape[1] > 0.99 * SECONDS * SR, f"variants {name} predict")
+        if name in WEIGHTED_SHAPES:
+            want = WEIGHTED_SHAPES[name]
+            got = {"lookup": kernels.LOOKUP.by_shapes.get(want["train"], 0),
+                   "lookup_dtab": kernels.LOOKUP_DTAB.by_shapes.get(
+                       want["train"], 0),
+                   "lookup_serve": kernels.LOOKUP.by_shapes.get(
+                       want["serve"], 0)}
+            print(f"variants {name}: launches at {want}: {got}")
+            check(got == {"lookup": VARIANT_STEPS,
+                          "lookup_dtab": VARIANT_STEPS,
+                          "lookup_serve": 2},
+                  f"variants {name}: the lookups ran at the weighted shapes")
+            by_shape[name] = got
+        for c in (rec["counts"], pc):
+            for k, v in c.items():
+                counts[k] += v
+        print(f"variants {name}: predict 4 x 6 s {secs * 1e3:.1f} ms "
+              f"(after a first call)")
+        summary[name] = {"step_ms": rec["step_ms"],
+                         "peak_gib": rec["peak_gib"],
+                         "predict_ms": secs * 1e3,
+                         "vs_cpu": phase_train_vs_cpu(
+                             "golf", cfg=variant_config(name),
+                             noise_fn=variant_noise(name))}
+        del task
+        torch.cuda.empty_cache()
+    return counts, summary, by_shape
+
+
+def phase_variants_wrapped() -> tuple:
+    """``WrappedPhaseDownsampledIndexedGlottalFlowTable`` (golf.yaml's LF
+    arguments, 100 tables of 2048 points) on (4, 144 000) wrapped phase and
+    (4, 601, 64) hidden frames at hop 240: B1 once, at (4, 60, 2400) x
+    (4, 61, 2048); card vs the CPU's plain lookup within 1e-5 of max|y|.
+    Returns (launches, summary)."""
+    from golf_tpu_torch.models.synth import \
+        WrappedPhaseDownsampledIndexedGlottalFlowTable as Wrapped
+    dev = torch.device("cuda")
+    torch.manual_seed(SEED)
+    cpu = Wrapped(hop_rate=10, in_channels=64, table_size=100, **_LF)
+    card = copy.deepcopy(cpu).to(dev)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    t = int(SECONDS * SR)
+    f0 = 120.0 + 100.0 * torch.rand((BATCH, 1), generator=gen)
+    wrapped = torch.remainder(torch.cumsum(
+        (f0 / SR).double().expand(BATCH, t), dim=1), 1).float()
+    h = torch.randn((BATCH, t // 240 + 1, 64), generator=gen)
+    with torch.inference_mode():
+        ctrl = card.ctrl(Sig(h.to(dev), 240))
+        for k in kernels.ALL:
+            k.launches = 0
+        y, secs = timed(lambda: card(Sig(wrapped.to(dev), 1), *ctrl))
+        counts = {k.name: k.launches for k in kernels.ALL}
+        shapes = kernels.LOOKUP.last_shapes
+        ref = cpu(Sig(wrapped, 1), *cpu.ctrl(Sig(h, 240))).data
+    rel = ((y.data.cpu() - ref).abs().max() / ref.abs().max()).item()
+    print(f"variants wrapped-phase table: out {tuple(y.shape)}, "
+          f"{secs * 1e3:.2f} ms, launches {counts} at {shapes}; card vs CPU "
+          f"{rel:.2e} of max|y| (tolerance 1e-5)")
+    check(counts == {**{k.name: 0 for k in kernels.ALL}, "lookup": 1} and
+          shapes == ((BATCH, 60, 2400), (BATCH, 61, 2048)),
+          "wrapped-phase table launched B1 once at its shape")
+    check(rel <= 1e-5 and torch.isfinite(y.data).all().item(),
+          "wrapped-phase table card vs CPU")
+    return counts, {"ms": secs * 1e3, "vs_cpu": rel}
+
+
+def weighted_lookup_rows(name: str, launches: dict) -> dict:
+    """B1, B3a and B3b at a weighted table's training shape against their
+    plain versions (``phase_kernels``; each within 2e-6 of max|ref|), with
+    times, bounds and the library's; ``launches`` at that shape in phase
+    variants (B3a none: the phase of the true f0 needs no gradient)."""
+    ph_shape, tab_shape = WEIGHTED_SHAPES[name]["train"]
+    rows = phase_kernels({"lookup": (ph_shape, tab_shape)},
+                         ("lookup", "lookup_res", "lookup_dtab"),
+                         label=WEIGHTED_KEYS[name])
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ph, tables, hop = lookup_inputs(gen, {"lookup": (ph_shape, tab_shape)})
+    ref = lk.lookup_blocks_plain(ph, tables, hop).abs().max().item()
+    g = torch.randn(ph.shape, generator=gen, device="cuda")
+    dref = lk.lookup_dtab_plain(ph, g, hop, *tab_shape[1:]).abs().max().item()
+    out = {}
+    for kname, scale in (("lookup", ref), ("lookup_res", ref),
+                         ("lookup_dtab", dref)):
+        r = rows[kname]
+        rel = r["err"] / scale
+        check(rel <= WEIGHTED_LOOKUP_TOL, f"{kname} at {name}'s shape: "
+              f"{rel:.2e} of max|ref|")
+        out[kname] = {
+            "shapes": [list(ph_shape), list(tab_shape)],
+            "launches": launches.get(kname, 0), "max_abs_err": r["err"],
+            "rel_err": rel, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": (r.get("library_ms") if kname == "lookup" else
+                           rows["lookup"].get("dtab_library_ms")
+                           if kname == "lookup_dtab" else None)}
+        if "split" in r:
+            out[kname]["split"] = r["split"]
+        lib = out[kname]["library_ms"]
+        print(f"{kname} at {name}'s shape {out[kname]['shapes']}: "
+              f"{r['ms'] * 1e3:.2f} us, bound {r['bound'][0] * 1e3:.2f} us, "
+              f"plain {r['plain_ms'] * 1e3:.1f} us, library "
+              f"{'null' if lib is None else f'{lib * 1e3:.1f} us'}, "
+              f"{rel:.2e} of max|ref|, {out[kname]['launches']} launches")
+    return out
+
+
+def phase_variants() -> tuple:
+    """The four backbones, the inverse mode, the decoder variants, the
+    wrapped-phase table and the lookups at the weighted tables' shapes.
+    Returns (launches, summary, {name: {kernel: row}})."""
+    counts = {k.name: 0 for k in kernels.ALL}
+    summary = {}
+
+    def add(c):
+        for name, v in c.items():
+            counts[name] += v
+
+    Path("runs").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_var_",
+                                     dir="runs") as tmp:
+        vctk, mpop, out = (Path(tmp) / "vctk", Path(tmp) / "mpop600",
+                           Path(tmp) / "runs")
+        write_vctk_tree(vctk)
+        write_mpop_tree(mpop)
+        c, summary["encoders"] = phase_variants_encoders(vctk, out)
+        add(c)
+        c, summary["inverse"] = phase_variants_inverse(mpop, out)
+        add(c)
+    c, summary["decoders"], by_shape = phase_variants_decoders()
+    add(c)
+    c, summary["wrapped_phase"] = phase_variants_wrapped()
+    add(c)
+    rows = {WEIGHTED_KEYS[name]: weighted_lookup_rows(name, launches)
+            for name, launches in by_shape.items()}
+    print(json.dumps({"variants": summary}))
+    return counts, summary, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3319,6 +3730,9 @@ def main() -> int:
     opt_counts, options, opt_rows = phase_options()
     add(opt_counts)
     t0 = done("options", t0)
+    var_counts, variants, var_rows = phase_variants()
+    add(var_counts)
+    t0 = done("variants", t0)
     print(json.dumps({"recipe": {
         "disk_fit_step_ms": [t * 1e3 for t in disk_probe.times],
         "golf_fs": fs,
@@ -3413,6 +3827,10 @@ def main() -> int:
                 if key.endswith("_adjoint") == (k.name ==
                                                 "allpole_const_adjoint"):
                     entry[key.replace("_adjoint", "")] = row
+        for key, by_kernel in var_rows.items():
+            # B1, B3a and B3b at the weighted wavetables' shapes
+            if k.name in by_kernel:
+                entry[key] = by_kernel[k.name]
         if k.name == "allpole_const":
             entry["lpcnet"] = {
                 "shapes": lpc_row["shapes"],
@@ -3449,11 +3867,14 @@ def main() -> int:
             note = (f"; serving shapes {sv['ms'] * 1e3:.1f} us, bound "
                     f"{sv['bound_ms'] * 1e3:.1f} us, plain "
                     f"{sv['plain_ms'] * 1e3:.1f} us" + composite_note(sv))
-        for key in ("lfilter_train", "lfilter_serve", "cascade_p2"):
+        for key in ("lfilter_train", "lfilter_serve", "cascade_p2",
+                    "weighted_ds", "weighted"):
             if key in e:
                 r = e[key]
-                note += (f"; {key} {tuple(r['shapes'][0])} p="
-                         f"{r['shapes'][1][1]} {r['ms'] * 1e3:.1f} us, bound "
+                shape = f"p={r['shapes'][1][1]}" if key.startswith(
+                    ("lfilter", "cascade")) else f"x {tuple(r['shapes'][1])}"
+                note += (f"; {key} {tuple(r['shapes'][0])} {shape} "
+                         f"{r['ms'] * 1e3:.1f} us, bound "
                          f"{r['bound_ms'] * 1e3:.2f} us, plain "
                          f"{r['plain_ms'] * 1e3:.1f} us, {r['launches']} "
                          f"launches")

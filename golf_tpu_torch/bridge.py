@@ -21,6 +21,18 @@ Conversions:
   transposed (the gate order r, z, n is the same). The embedding table and
   the head's ``a`` come across as they are.
 * ``NonCausalWaveNetLayer_i`` (``WN``'s layers) -> ``layers.i``.
+* ``Embed_0`` (``UNetEncoderV2``'s harmonic-mask embedding): ``embedding``
+  -> ``embed.weight``.
+* ``TransformerEncoderBackbone`` (a scope holding
+  ``MultiHeadDotProductAttention_0``), with L attention layers:
+  ``MultiHeadDotProductAttention_i`` -> ``layers.i``, whose ``query``,
+  ``key`` and ``value`` kernels (c, heads, head_dim) become ``Linear``
+  weights (heads head_dim, c) and biases (heads, head_dim) flat, and whose
+  ``out`` kernel (heads, head_dim, c) becomes (c, heads head_dim);
+  ``Dense_{2i}``, ``Dense_{2i+1}`` -> ``layers.i.ff1``, ``.ff2``;
+  ``LayerNorm_{2i}``, ``LayerNorm_{2i+1}`` -> ``layers.i.norm1``,
+  ``.norm2``; ``LayerNorm_{2L}`` -> ``final_norm`` and ``LayerNorm_{2L+1}``
+  -> ``norm``.
 * ``LRUBlock_0`` -> ``lru_block``: its ``Dense_k`` -> ``dense{k}``, its
   ``LayerNorm_i`` -> ``norms.i`` (``LayerNorm_0`` elsewhere is ``norm``),
   ``zi_pred_{re,im}_i`` and ``lru_i/{nu_log, theta_log, B_re, B_im, C_re,
@@ -48,7 +60,7 @@ from torch import nn
 _GATES = ("i", "f", "g", "o")
 _SCOPES = {"ConvPyramid_0": "pyramid", "LayerNorm_0": "norm",
            "GroupNorm_0": "group_norm", "BiLSTM_0": "lstm.lstm",
-           "LRUBlock_0": "lru_block"}
+           "LRUBlock_0": "lru_block", "Embed_0": "embed"}
 _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
          "var": "running_var"}
 _GRU = {"wi": "weight_ih_l0", "wh": "weight_hh_l0"}
@@ -76,6 +88,44 @@ def _lstm_cell(cell: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             "bias_ih": _t(np.zeros_like(b_hh)), "bias_hh": _t(b_hh)}
 
 
+def _attention_scopes(flat: Mapping[tuple, np.ndarray]) -> Dict[tuple, int]:
+    """The scopes of ``TransformerEncoderBackbone``s: path prefix -> its
+    number of attention layers."""
+    scopes: Dict[tuple, int] = {}
+    for path in flat:
+        for k, part in enumerate(path):
+            m = re.fullmatch(r"MultiHeadDotProductAttention_(\d+)", part)
+            if m:
+                scopes[path[:k]] = max(scopes.get(path[:k], 0),
+                                       int(m.group(1)) + 1)
+    return scopes
+
+
+def _attention_leaf(path: tuple, arr: np.ndarray, n_layers: int):
+    """(name under the backbone, tensor) of a leaf of a transformer
+    backbone's attention stack, or None for its other leaves."""
+    part, leaf = path[0], path[-1]
+    m = re.fullmatch(r"(MultiHeadDotProductAttention|Dense|LayerNorm)_(\d+)",
+                     part)
+    if m is None:
+        return None
+    kind, i = m.group(1), int(m.group(2))
+    if kind == "MultiHeadDotProductAttention":
+        proj = path[1]
+        if leaf == "kernel":
+            arr = arr.reshape(-1, arr.shape[-1]) if proj == "out" else \
+                arr.reshape(arr.shape[0], -1)
+            return f"layers.{i}.{proj}.weight", _t(arr.T)
+        return f"layers.{i}.{proj}.bias", _t(arr.reshape(-1))
+    if kind == "Dense":
+        name = f"layers.{i // 2}.ff{i % 2 + 1}"
+        return (f"{name}.weight", _t(arr.T)) if leaf == "kernel" else \
+            (f"{name}.bias", _t(arr))
+    name = f"layers.{i // 2}.norm{i % 2 + 1}" if i < 2 * n_layers else \
+        "final_norm" if i == 2 * n_layers else "norm"
+    return f"{name}.{_LEAF[leaf]}", _t(arr)
+
+
 def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     """Convert ``golf_tpu`` VoiceAutoEncoder variables to a state_dict."""
     flat = {}
@@ -83,7 +133,18 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         flat.update(_flatten(variables.get(coll, {})))
     sd: Dict[str, torch.Tensor] = {}
     cells: Dict[str, Dict[int, Dict[str, np.ndarray]]] = {}
+    attention = _attention_scopes(flat)
     for path, arr in flat.items():
+        hit = next(((p, n) for p, n in attention.items()
+                    if path[:len(p)] == p and len(path) > len(p) + 1), None)
+        if hit is not None:
+            prefix, n_layers = hit
+            named = _attention_leaf(path[len(prefix):], arr, n_layers)
+            if named is not None:
+                key = ".".join([_SCOPES.get(p, p) for p in prefix]
+                               + [named[0]])
+                sd[key] = named[1]
+                continue
         scope = []
         for k, part in enumerate(path[:-1]):
             if k and path[k - 1] == "LRUBlock_0" and \
@@ -120,6 +181,8 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
             sd[f"{'.'.join(scope)}.{_LEAF[leaf]}"] = _t(arr)
         elif leaf in _GRU:
             sd[".".join(scope + [_GRU[leaf]])] = _t(arr.T)
+        elif owner == "Embed_0":
+            sd[".".join(scope + ["weight"])] = _t(arr)
         elif leaf == "glottal_table":
             sd[".".join(scope + ["table"])] = _t(arr)
         else:                  # acoustic filter kernels, running min/max

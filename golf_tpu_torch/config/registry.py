@@ -3,7 +3,8 @@
 
 Reference-style class paths (``models.sf.X``, ``ltng.ae.X``) and
 ``golf_tpu.*`` paths are aliased onto this package, so the shipped
-``cfg/`` files work as they are. ``${dotted.path}`` interpolation and
+``cfg/`` files work as they are; the reference's
+``models.unet.TransformerEncoder`` is ``TransformerEncoderBackbone``. ``${dotted.path}`` interpolation and
 ``a.b=value`` overrides follow the JAX package. PyYAML is imported only
 where a YAML file or an override value is parsed.
 """
@@ -37,6 +38,13 @@ _ALIASES = {
     "ltng.data": f"{_PKG}.tasks.data",
 }
 
+_CLASS_RENAMES = {
+    # the reference's class, whose name collides with torch's
+    # TransformerEncoder
+    f"{_PKG}.models.unet.TransformerEncoder":
+        f"{_PKG}.models.unet.TransformerEncoderBackbone",
+}
+
 _INTERP_RE = re.compile(r"^\$\{([^}]+)\}$")
 
 
@@ -44,7 +52,8 @@ def resolve_class_path(path: str) -> str:
     mod, _, cls = path.rpartition(".")
     if mod.startswith("golf_tpu."):
         mod = _PKG + mod[len("golf_tpu"):]
-    return f"{_ALIASES.get(mod, mod)}.{cls}"
+    full = f"{_ALIASES.get(mod, mod)}.{cls}"
+    return _CLASS_RENAMES.get(full, full)
 
 
 def import_object(path: str) -> Any:

@@ -10,6 +10,7 @@
   ``LTVAPZeroPhaseFIRFilter`` its aperiodicity variant.
 * ``LTVMinimumPhaseFIRFilter`` and its ``Precise`` twin: minimum-phase FIR
   from log-magnitude frames, frame-wise by FFT or sample-wise.
+* ``LTVPQMF``: a PQMF analysis bank with a gain a band, summed.
 * ``LTIAcousticFilter``: identity + strictly causal learned taps;
   ``LTIRadiationFilter``: the fixed 33-tap radiation FIR;
   ``LTIComplexConjAllpassFilter`` and ``LTIRealCoeffAllpassFilter``:
@@ -36,7 +37,8 @@ from torch import nn
 from ..core.sig import Sig
 from ..ops import stft as stft_ops
 from ..ops.allpole import allpole, allpole_const, lfilter
-from ..ops.cepstrum import freqt, mc2sp_log, mcep, minimum_phase_response
+from ..ops.cepstrum import (freqt, mc2sp_log, mcep, minimum_phase_response,
+                            pqmf_analysis, pqmf_filters)
 from ..ops.dsp import (biquads2lpc, coeff_product, complex2biquads,
                        fir_filt, get_logits2biquads,
                        get_radiation_time_filter, get_window_fn, lsp2lpc,
@@ -51,7 +53,10 @@ class FilterInterface(Controllable):
 
 
 class LTVFilterInterface(FilterInterface):
-    pass
+    def reverse(self, ex: Sig, y: Sig, *params):
+        """The inverse (excitation-domain) mode: ``ex`` scaled as the
+        forward scales it, and ``y`` run through the inverse filter."""
+        raise NotImplementedError
 
 
 def _overlap_add(frames: torch.Tensor, window: torch.Tensor, hop: int,
@@ -143,6 +148,16 @@ class LTVMinimumPhaseFilterPrecise(LTVFilterInterface):
         t = min(exg.steps, a_up.steps)
         return Sig(allpole(exg.data[:, :t].contiguous(),
                            a_up.data[:, :t].contiguous()), 1)
+
+    def reverse(self, ex: Sig, y: Sig, gain: Sig, a: Sig
+                ) -> Tuple[Sig, Sig]:
+        """(ex * gain, y through the FIR [1, a] of every sample): the
+        target in the excitation domain. Inherited by GOLF-ff, whose
+        inverse is sample-wise too, as in ``golf_tpu``."""
+        a_up = a.reduce_hop_length().data
+        fir = torch.cat([torch.ones_like(a_up[..., :1]), a_up], dim=-1)
+        t = min(y.steps, fir.shape[1])
+        return ex * gain, Sig(fir_filt(y.data[:, :t], fir[:, :t]), 1)
 
 
 class LTVMinimumPhaseFilter(LTVMinimumPhaseFilterPrecise):
@@ -358,6 +373,33 @@ def _allpass(ex: Sig, biquads: torch.Tensor) -> Sig:
     a reversed, by ``lfilter``."""
     a = coeff_product(biquads[:, None, :])[0]
     return Sig(lfilter(ex.data, a, torch.flip(a, (0,))), 1)
+
+
+class LTVPQMF(LTVFilterInterface):
+    """A PQMF analysis bank of ``n_mag`` bands (``pqmf_filters``,
+    ``filter_order`` + 1 taps; ``alpha`` <= 0 means 100 dB), each band
+    scaled by its own exp(log_gain) at the frame hop, then summed."""
+
+    def __init__(self, n_mag: int = 16, filter_order: int = 127,
+                 alpha: float = 0.0):
+        super().__init__()
+        self.n_mag = n_mag
+        bank = pqmf_filters(n_mag, filter_order, alpha if alpha > 0 else 100.0)
+        self.register_buffer("filters", torch.from_numpy(bank),
+                             persistent=False)
+
+    @property
+    def split_sizes(self) -> Tuple[int, ...]:
+        return (self.n_mag,)
+
+    def ctrl(self, x: Sig) -> Tuple[Sig, ...]:
+        return (x,)
+
+    def forward(self, ex: Sig, log_gain: Sig) -> Sig:
+        bands = pqmf_analysis(ex.data, self.filters.to(ex.dtype))
+        gain = Sig(torch.exp(log_gain.data), log_gain.hop)
+        filtered = Sig(bands.transpose(1, 2), 1) * gain
+        return Sig(filtered.data.sum(dim=2), 1)
 
 
 class LTIComplexConjAllpassFilter(FilterInterface):

@@ -1,8 +1,9 @@
 """Mel frame-rate backbones (counterpart of ``golf_tpu.models.mel``):
-``Mel2Control``, the encoder of the ISMIR23 vocoder and of LPCNet, and the
+``Mel2Control``, the encoder of the ISMIR23 vocoder and of LPCNet, the
 other frame nets a ``frame_decoder`` may name, ``LPCFrameNet`` and the
-non-causal WaveNet ``WN``. Each takes its ``out_channels`` at construction
-(``golf_tpu`` passes them at call time). ``X2Control`` is not ported."""
+non-causal WaveNet ``WN``, and ``X2Control``, the same stack on the raw
+wave's log spectrogram and log1p(f0). Each takes its ``out_channels`` at
+construction (``golf_tpu`` passes them at call time)."""
 
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.sig import Sig
-from .enc import BackboneModelInterface
+from ..ops import stft as stft_ops
+from .enc import BackboneModelInterface, _running_minmax, check_mode
 from .rnn import BiLSTM
 
 
@@ -41,17 +43,48 @@ class Mel2Control(BackboneModelInterface):
                 train: bool = False) -> Sig:
         """``train`` drives the LSTM's dropout in ``golf_tpu``, the
         module's mode here: the two must agree."""
-        if train != self.training:
-            raise ValueError(
-                f"train={train} but the encoder is in "
-                f"{'train' if self.training else 'eval'} mode; call "
-                f".train() or .eval() to match")
-        x = mels.data.transpose(1, 2)                  # (B, C, T)
-        x = self.convs[0](x)
+        check_mode(self, train)
+        return Sig(self.stack(mels.data), mels.hop)
+
+    def stack(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, in_channels) -> the head's (B, T, out_channels)."""
+        x = self.convs[0](x.transpose(1, 2))           # (B, C, T)
         x = F.leaky_relu(self.group_norm(x), 0.01)
         x = self.convs[1](x).transpose(1, 2)           # (B, T, C)
-        h = self.norm(self.lstm(x))
-        return Sig(self.out_linear(h), mels.hop)
+        return self.out_linear(self.norm(self.lstm(x)))
+
+
+class X2Control(Mel2Control):
+    """``Mel2Control``'s stack on the raw wave: its log power spectrogram
+    (n_fft // 2 + 1 bins at ``hop_length``), normalised by the running
+    min/max buffers ``log_spec_min``/``_max``, with log1p(f0) as one more
+    channel; f0 is required."""
+
+    def __init__(self, out_channels: int, n_fft: int = 1024,
+                 hop_length: int = 256, hidden_channels: int = 128,
+                 num_layers: int = 1, dropout: float = 0.0):
+        super().__init__(out_channels, n_fft // 2 + 2, hidden_channels,
+                         num_layers, dropout)
+        self.n_fft = n_fft
+        self.hop_length = hop_length
+        self.register_buffer("log_spec_min", torch.tensor(float("inf")))
+        self.register_buffer("log_spec_max", torch.tensor(float("-inf")))
+
+    def features(self, x: Sig, f0: Sig, train: bool) -> torch.Tensor:
+        """The stack's input (B, T, bins + 1); in train mode this updates
+        the running min/max."""
+        spec = stft_ops.spectrogram(x.data, self.n_fft, self.hop_length,
+                                    power=2.0, center=True)
+        h = _running_minmax(self, torch.log(spec + 1e-8), train)
+        h = h.transpose(1, 2)                          # (B, T, bins)
+        f0_d = f0.set_hop_length(self.hop_length).truncate(h.shape[1]).data
+        h = h[:, :f0_d.shape[1]]
+        return torch.cat([h, torch.log1p(f0_d)[..., None]], dim=-1)
+
+    def forward(self, x: Sig, f0: Optional[Sig] = None,
+                train: bool = False) -> Sig:
+        check_mode(self, train)
+        return Sig(self.stack(self.features(x, f0, train)), self.hop_length)
 
 
 class LPCFrameNet(BackboneModelInterface):

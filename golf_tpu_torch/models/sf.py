@@ -1,9 +1,12 @@
 """Source-filter synthesizer, the GOLF topology (counterpart of
-``golf_tpu.models.sf``), forward branch.
+``golf_tpu.models.sf``).
 
 Glottal source (hard-gated by voicing at 0.5 when given), plus filtered
 noise, through the time-varying all-pole ``end_filter`` and the LTI
-``room_filter``.
+``room_filter``. With a ``target`` the synthesizer runs in the excitation
+domain instead: the end filter's ``reverse`` scales the source and
+inverse-filters the target, the room filter is not run, and the pair
+(source, inverse-filtered target) is returned.
 """
 
 from __future__ import annotations
@@ -41,9 +44,7 @@ class SourceFilterSynth(Synth):
                 room_filter_params: Tuple[Sig, ...] = (),
                 voicing: Optional[Sig] = None, target: Optional[Sig] = None,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None, **other_params) -> Sig:
-        if target is not None:
-            raise NotImplementedError("inverse (target) mode is not ported")
+                noise: Optional[torch.Tensor] = None, **other_params):
         harm_osc = self.harm_oscillator(phase, *harm_oscillator_params)
         if voicing is not None:
             harm_osc = harm_osc * sig_where(voicing > 0.5, voicing, 0.0)
@@ -52,6 +53,8 @@ class SourceFilterSynth(Synth):
         src = harm_osc + self.noise_filter(noise_sig, *noise_filter_params)
         if self.subtract_harmonics:
             src = src - self.noise_filter(harm_osc, *noise_filter_params)
+        if target is not None:
+            return self.end_filter.reverse(src, target, *end_filter_params)
         out = self.end_filter(src, *end_filter_params)
         if self.room_filter is None:
             return out

@@ -4,7 +4,11 @@ glottal-flow wavetables and the additive sine banks.
 The wavetable oscillator integrates a normalized-frequency phase (f0/sr) in
 the phase's dtype (fp32 on every path; a test runs fp64) with the wrapped
 cumsum, optionally at an oversampled rate, looks the wrapped phase up in a
-per-frame blend of LF glottal-pulse tables, and decimates. The sine banks
+per-frame blend of LF glottal-pulse tables, and decimates. The indexed
+tables blend two neighbouring tables by a scalar index a frame; the
+weighted ones mix all of them by a softmax a frame (``weight @ table``);
+``WrappedPhaseDownsampledIndexedGlottalFlowTable`` takes a phase that is
+already wrapped. The sine banks
 take harmonic k's phase as k times one wrapped cumsum of the base phase.
 """
 
@@ -119,6 +123,32 @@ class IndexedGlottalFlowTable(GlottalFlowTable):
         return y
 
 
+class WeightedGlottalFlowTable(GlottalFlowTable):
+    """A softmax mix over all ``table_size`` tables a frame: the frame's
+    table is ``weight @ table`` ((B, frames, table_size) x (table_size,
+    points)), looked up at the wrapped cumsum of the phase (no
+    oversampling)."""
+
+    @property
+    def split_sizes(self) -> Tuple[int, ...]:
+        return (self.table.shape[0],)
+
+    def ctrl(self, logits: Sig) -> Tuple[Sig, ...]:
+        return (Sig(torch.softmax(logits.data, dim=2), logits.hop),)
+
+    def forward(self, phase: Sig, table_select_weight: Sig,
+                phase_offset: Optional[Sig] = None) -> Sig:
+        if table_select_weight.ndim != 3:
+            raise ValueError("table_select_weight must be (B, frames, "
+                             "table_size)")
+        weighted = Sig(table_select_weight.data @ self.table,
+                       table_select_weight.hop)
+        wrapped = wrapped_cumsum(phase.reduce_hop_length().data)
+        if phase_offset is not None:
+            wrapped = torch.remainder(wrapped + phase_offset.data, 1)
+        return self.generate(Sig(wrapped, 1), weighted)
+
+
 class Downsampler(nn.Module):
     """AvgPool(hop_rate) -> Linear -> GLU -> Linear over (B, T, C)."""
 
@@ -156,6 +186,36 @@ class DownsampledIndexedGlottalFlowTable(IndexedGlottalFlowTable):
     def ctrl(self, h: Sig) -> Tuple[Sig, ...]:
         out = self.model(h.data)[..., 0]
         return (Sig(torch.sigmoid(out), h.hop * self.hop_rate),)
+
+
+class WrappedPhaseDownsampledIndexedGlottalFlowTable(
+        DownsampledIndexedGlottalFlowTable):
+    """``DownsampledIndexedGlottalFlowTable`` on a phase already wrapped to
+    [0, 1) at hop 1: no cumsum and no oversampling."""
+
+    def forward(self, wrapped_phase: Sig, table_select_weight: Sig,
+                phase_offset: Optional[Sig] = None) -> Sig:
+        return self.generate(wrapped_phase,
+                             self._interp_tables(table_select_weight))
+
+
+class DownsampledWeightedGlottalFlowTable(WeightedGlottalFlowTable):
+    """Hidden frames -> ``Downsampler`` with ``table_size`` outputs ->
+    softmax table weights at a ``hop_rate`` times coarser hop."""
+
+    def __init__(self, hop_rate: int = 10, in_channels: int = 64, **kwargs):
+        super().__init__(**kwargs)
+        self.hop_rate = hop_rate
+        self.in_channels = in_channels
+        self.model = Downsampler(hop_rate, in_channels, self.table.shape[0])
+
+    @property
+    def split_sizes(self) -> Tuple[int, ...]:
+        return (self.in_channels,)
+
+    def ctrl(self, h: Sig) -> Tuple[Sig, ...]:
+        return (Sig(torch.softmax(self.model(h.data), dim=-1),
+                    h.hop * self.hop_rate),)
 
 
 class HarmonicOscillator(OscillatorInterface):

@@ -15,19 +15,30 @@ parameters cast down, the batch norms as flax's ``BatchNorm(dtype=bf16)``
 (statistics and normalisation in fp32, output rounded to bf16, running
 statistics in fp32), the LSTM as ``rnn.fused_bilstm_layer``; the LRU
 branch, the LayerNorm and the head stay fp32.
+
+``UNetEncoderV2`` adds a learned embedding of a harmonic mask (the bins
+within a quarter of a harmonic of f0) to the pyramid's input.
+``TransformerEncoderBackbone`` replaces the pyramid by one strided conv
+and four post-norm self-attention layers over frequency within each frame
+(flax's ``MultiHeadDotProductAttention`` with its dropout mask shared by
+every sequence and head), then a max-pool over frequency and the BiLSTM.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import math
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.sig import Sig
+from ..core.sig import Sig, true_divide
 from ..ops import stft as stft_ops
-from .enc import BackboneModelInterface, _running_minmax
+from torch.utils.checkpoint import checkpoint
+
+from .enc import BackboneModelInterface, _running_minmax, check_mode
 from .lru import LRU
 from .rnn import BiLSTM
 
@@ -185,6 +196,13 @@ class LRUBlock(nn.Module):
         return h
 
 
+def _flat_rows(h: torch.Tensor) -> torch.Tensor:
+    """(B, C, freq, T) -> (B, T, freq C), flattened as ``golf_tpu``'s NHWC
+    (feature ``freq_idx * C + c``)."""
+    b, c, fr, t = h.shape
+    return h.permute(0, 3, 2, 1).reshape(b, t, fr * c)
+
+
 class UNetEncoder(BackboneModelInterface):
     def __init__(self, out_channels: int, n_fft: int = 1024,
                  hop_length: int = 256,
@@ -260,11 +278,7 @@ class UNetEncoder(BackboneModelInterface):
         """``train`` updates the running min/max; the batch norms and the
         recurrent stack's dropout follow the module's mode. ``golf_tpu``
         drives all three from ``train``, so the two must agree."""
-        if train != self.training:
-            raise ValueError(
-                f"train={train} but the encoder is in "
-                f"{'train' if self.training else 'eval'} mode; call "
-                f".train() or .eval() to match")
+        check_mode(self, train)
         h = self.rows(*self.features(x, f0, train))
         if self.use_lru:
             h = self.lru_block(h.to(self.out_linear.weight.dtype))
@@ -277,9 +291,7 @@ class UNetEncoder(BackboneModelInterface):
         """The recurrent stack's input (B, T, freq' C [+ 1]): the conv
         pyramid's output flattened as ``golf_tpu`` does, and log1p(f0), in
         the compute dtype."""
-        h = self.pyramid(feature)                      # (B, C, freq', T)
-        b, c, fr, t = h.shape
-        h = h.permute(0, 3, 2, 1).reshape(b, t, fr * c)
+        h = _flat_rows(self.pyramid(feature))
         if f0_d is not None:
             h = h[:, :f0_d.shape[-1]]
             h = torch.cat([h, torch.log1p(f0_d)[..., None].to(h.dtype)],
@@ -291,3 +303,217 @@ class UNetEncoder(BackboneModelInterface):
         output, in the parameters' dtype (fp32 under a bf16 compute
         dtype)."""
         return self.out_linear(self.norm(h.to(self.norm.weight.dtype)))
+
+
+class UNetEncoderV2(BackboneModelInterface):
+    """``UNetEncoder`` (without its options) whose pyramid also reads an
+    ``embed_size`` embedding of the harmonic mask: bin k at frame t is in
+    it when k sr / n_fft / f0 is above 0.75 and within 0.25 of an integer.
+    f0 is required; the spectrogram is cut to its frames."""
+
+    def __init__(self, out_channels: int, sr: int = 24000, embed_size: int = 8,
+                 n_fft: int = 1024, hop_length: int = 256,
+                 channels: Sequence[int] = (16, 32, 64, 128),
+                 strides: Sequence[int] = (4, 4, 4, 4),
+                 lstm_hidden_size: int = 128, num_layers: int = 1,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.sr = sr
+        self.n_fft = n_fft
+        self.hop_length = hop_length
+        self.embed = nn.Embedding(2, embed_size)
+        self.pyramid = ConvPyramid(1 + embed_size, channels, strides)
+        n_freq = n_fft // 2 + 1
+        for s in strides:
+            n_freq //= s
+        self.lstm = BiLSTM(n_freq * channels[-1] + 1, lstm_hidden_size,
+                           num_layers, dropout)
+        self.norm = nn.LayerNorm(2 * lstm_hidden_size, eps=1e-6)
+        self.out_linear = self.make_out_linear(2 * lstm_hidden_size,
+                                               out_channels)
+        self.register_buffer("log_spec_min", torch.tensor(float("inf")))
+        self.register_buffer("log_spec_max", torch.tensor(float("-inf")))
+
+    def features(self, x: Sig, f0: Sig, train: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The normalised log spectrogram (B, 1, freq, T) cut to the f0
+        frames, and the frame-rate f0 (B, T); in train mode this updates
+        the running min/max."""
+        spec = stft_ops.spectrogram(x.data, self.n_fft, self.hop_length,
+                                    power=2.0, center=True)
+        feature = _running_minmax(self, torch.log(spec + 1e-8)[:, None],
+                                  train)
+        f0_d = f0.set_hop_length(self.hop_length).truncate(
+            feature.shape[3]).data
+        return feature[..., :f0_d.shape[1]], f0_d
+
+    def harmonic_mask(self, n_freq: int, f0_d: torch.Tensor) -> torch.Tensor:
+        """(B, freq, T) bool, in ``golf_tpu``'s order of operations: the
+        bin's frequency (k sr, then divided by n_fft), over max(f0, 1e-6),
+        then its fraction (exact in both)."""
+        freqs = true_divide(
+            (torch.arange(n_freq, device=f0_d.device) * self.sr).to(
+                f0_d.dtype), self.n_fft)
+        harms_index = freqs[None, :, None] / torch.clamp(
+            f0_d[:, None, :], min=1e-6)
+        frac = torch.remainder(harms_index, 1)
+        return ((frac < 0.25) | (frac > 0.75)) & (harms_index > 0.75)
+
+    def forward(self, x: Sig, f0: Optional[Sig] = None,
+                train: bool = False) -> Sig:
+        check_mode(self, train)
+        feature, f0_d = self.features(x, f0, train)
+        mask = self.harmonic_mask(feature.shape[2], f0_d)
+        embed = self.embed(mask.long()).permute(0, 3, 1, 2)
+        h = _flat_rows(self.pyramid(torch.cat([feature, embed], dim=1)))
+        h = torch.cat([h, torch.log1p(f0_d)[..., None]], dim=-1)
+        h = self.norm(self.lstm(h))
+        return Sig(self.out_linear(h), self.hop_length * x.hop)
+
+
+def sinusoidal(min_scale: float = 1.0, max_scale: float = 10000.0,
+               shape: Tuple[int, int] = (512, 512)) -> np.ndarray:
+    """1-D sinusoidal positional embedding (max_len, features), float32:
+    sines in the first half of the features, cosines in the second (host
+    numpy, copied from ``golf_tpu``)."""
+    max_len, features = shape
+    position = np.arange(max_len)[:, None]
+    scale_factor = -math.log(max_scale / min_scale) / (features // 2 - 1)
+    div_term = min_scale * np.exp(np.arange(features // 2) * scale_factor)
+    rads = position * div_term
+    pe = np.zeros((max_len, features), np.float32)
+    pe[:, : features // 2] = np.sin(rads)
+    pe[:, features // 2:] = np.cos(rads)
+    return pe
+
+
+# sequences of an attention layer's chunk: (1024, 4, 257, 257) fp32
+# attention weights are 1.08 GB
+ATTN_CHUNK = 1024
+
+
+class AttentionLayer(nn.Module):
+    """flax's ``MultiHeadDotProductAttention`` (``query``, ``key``,
+    ``value`` and ``out`` projections with biases, the query divided by
+    sqrt(head_dim)), then post-norm: LayerNorm(h + attention), a ReLU MLP
+    of 4 c, LayerNorm(h + MLP)."""
+
+    def __init__(self, channels: int, nhead: int):
+        super().__init__()
+        self.nhead = nhead
+        self.query, self.key, self.value, self.out = (
+            nn.Linear(channels, channels) for _ in range(4))
+        self.norm1 = nn.LayerNorm(channels, eps=1e-6)
+        self.ff1 = nn.Linear(channels, 4 * channels)
+        self.ff2 = nn.Linear(4 * channels, channels)
+        self.norm2 = nn.LayerNorm(channels, eps=1e-6)
+
+    def forward(self, h: torch.Tensor, keep: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+        """h (N, L, c); ``keep`` the (L, L) dropout multiplier (kept / keep
+        probability) shared by all N sequences and heads, or None."""
+        n, length, c = h.shape
+        d = c // self.nhead
+
+        def heads(proj):
+            return proj(h).view(n, length, self.nhead, d).transpose(1, 2)
+
+        q = true_divide(heads(self.query), math.sqrt(d))
+        w = torch.softmax(q @ heads(self.key).transpose(-1, -2), dim=-1)
+        if keep is not None:
+            w = w * keep
+        a = (w @ heads(self.value)).transpose(1, 2).reshape(n, length, c)
+        h = self.norm1(h + self.out(a))
+        return self.norm2(h + self.ff2(F.relu(self.ff1(h))))
+
+
+class TransformerEncoderBackbone(BackboneModelInterface):
+    """The normalised log spectrogram -> Conv2d (``kernel_size``, stride
+    ``stride`` over frequency) -> batch norm -> leaky ReLU (0.2) ->
+    sinusoidal positions -> ``num_attn_layers`` ``AttentionLayer``s over
+    the frequency tokens of each frame -> LayerNorm -> max-pool over
+    frequency (``maxpool_stride``) -> with log1p(f0), BiLSTM -> LayerNorm ->
+    the zero-initialised head. f0 is required. ``dropout`` drops attention
+    weights (one (L, L) mask a layer, as flax's ``broadcast_dropout``) and
+    the BiLSTM's inter-layer outputs.
+
+    The attention runs ``ATTN_CHUNK`` sequences at a time, and when a
+    gradient is needed each chunk's layers are recomputed in the backward
+    (``torch.utils.checkpoint``): at B = 64 x 2 s of vctk the 12 864
+    sequences' attention weights would take ~27 GB a layer to keep."""
+
+    def __init__(self, out_channels: int, n_fft: int = 1024,
+                 hop_length: int = 256, emb_channels: int = 32,
+                 kernel_size: Sequence[int] = (5, 3), stride: int = 2,
+                 maxpool_stride: int = 64, nhead: int = 4,
+                 num_attn_layers: int = 4, lstm_hidden_size: int = 128,
+                 dropout: float = 0.1, num_layers: int = 1):
+        super().__init__()
+        self.n_fft = n_fft
+        self.hop_length = hop_length
+        self.maxpool_stride = maxpool_stride
+        self.dropout = dropout
+        k1, k2 = kernel_size
+        self.convs = nn.ModuleList([nn.Conv2d(
+            1, emb_channels, (k1, k2), stride=(stride, 1),
+            padding=(k1 // 2, k2 // 2))])
+        self.norms = nn.ModuleList([BatchNorm2d(emb_channels, eps=1e-5,
+                                                momentum=0.01)])
+        n_freq = (n_fft // 2 + 1 + 2 * (k1 // 2) - k1) // stride + 1
+        self.register_buffer("pe", torch.from_numpy(sinusoidal(
+            shape=(n_freq, emb_channels))), persistent=False)
+        self.layers = nn.ModuleList(AttentionLayer(emb_channels, nhead)
+                                    for _ in range(num_attn_layers))
+        self.final_norm = nn.LayerNorm(emb_channels, eps=1e-6)
+        self.lstm = BiLSTM((n_freq // maxpool_stride) * emb_channels + 1,
+                           lstm_hidden_size, num_layers, dropout)
+        self.norm = nn.LayerNorm(2 * lstm_hidden_size, eps=1e-6)
+        self.out_linear = self.make_out_linear(2 * lstm_hidden_size,
+                                               out_channels)
+        self.register_buffer("log_spec_min", torch.tensor(float("inf")))
+        self.register_buffer("log_spec_max", torch.tensor(float("-inf")))
+
+    def features(self, x: Sig, f0: Optional[Sig], train: bool
+                 ) -> torch.Tensor:
+        """The normalised log spectrogram (B, 1, freq, T); in train mode
+        this updates the running min/max."""
+        if x.hop != 1:
+            raise ValueError("the encoder takes a signal at hop 1")
+        spec = stft_ops.spectrogram(x.data, self.n_fft, self.hop_length,
+                                    power=2.0, center=True)
+        return _running_minmax(self, torch.log(spec + 1e-8)[:, None], train)
+
+    def dropout_masks(self, length: int, device) -> List[Optional[torch.Tensor]]:
+        """One (L, L) multiplier a layer in train mode with dropout, drawn
+        from the default generator as the BiLSTM's dropout is; else None."""
+        if not self.training or self.dropout <= 0:
+            return [None] * len(self.layers)
+        keep = 1.0 - self.dropout
+        return [(torch.rand((length, length), device=device) < keep).float()
+                / keep for _ in self.layers]
+
+    def attend(self, h: torch.Tensor, *keeps) -> torch.Tensor:
+        for layer, keep in zip(self.layers, keeps):
+            h = layer(h, keep)
+        return self.final_norm(h)
+
+    def forward(self, x: Sig, f0: Optional[Sig] = None,
+                train: bool = False) -> Sig:
+        check_mode(self, train)
+        feature = self.convs[0](self.features(x, f0, train))
+        feature = F.leaky_relu(self.norms[0](feature), 0.2)
+        b, c, fr, t = feature.shape
+        h = feature.permute(0, 3, 2, 1).reshape(b * t, fr, c) + self.pe
+        keeps = self.dropout_masks(fr, h.device)
+        recompute = torch.is_grad_enabled() and h.requires_grad
+        h = torch.cat([
+            checkpoint(self.attend, part, *keeps, use_reentrant=False)
+            if recompute else self.attend(part, *keeps)
+            for part in h.split(ATTN_CHUNK)])
+        h = _strided_max(h.reshape(b, t, fr, c), self.maxpool_stride, axis=2)
+        h = h.reshape(b, t, -1)
+        f0_d = f0.set_hop_length(self.hop_length).truncate(h.shape[1]).data
+        h = torch.cat([h[:, :f0_d.shape[1]], torch.log1p(f0_d)[..., None]],
+                      dim=-1)
+        h = self.norm(self.lstm(h))
+        return Sig(self.out_linear(h), self.hop_length)

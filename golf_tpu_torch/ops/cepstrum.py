@@ -1,8 +1,8 @@
 """Mel-cepstral analysis and synthesis, and the LPC <-> reflection
 coefficient <-> log-area-ratio chain (counterpart of the ``freqt``,
 ``mcep``, ``mc2sp_log``, ``minimum_phase_response``, ``lpc2rc``,
-``rc2lar``, ``lar2rc`` and ``lpc_from_frames`` part of
-``golf_tpu.ops.cepstrum``).
+``rc2lar``, ``lar2rc``, ``lpc_from_frames``, ``pqmf_filters`` and
+``pqmf_analysis`` part of ``golf_tpu.ops.cepstrum``).
 
 * ``freqt``: Oppenheim frequency transform (all-pass warping) of cepstra.
 * ``mcep``: mel-cepstrum of amplitude-spectrum frames: the warped real
@@ -14,9 +14,11 @@ coefficient <-> log-area-ratio chain (counterpart of the ``freqt``,
 * ``lpc_from_frames``: windowed frames -> [gain, a1..ap] by the
   autocorrelation and ``levinson`` (LPCNet's ground-truth LPC);
   ``lpc2rc`` (step-down), ``rc2lar`` and ``lar2rc``.
+* ``pqmf_filters``: the cosine-modulated (pseudo-QMF) analysis bank, host
+  scipy; ``pqmf_analysis``: its non-decimated "same"-padded convolution.
 
-The design-time matrices (``_freqt_matrix``, ``_warped_cos_basis``) are
-host-side numpy, copied from ``golf_tpu``.
+The design-time matrices (``_freqt_matrix``, ``_warped_cos_basis``) and
+the PQMF bank are host-side numpy, copied from ``golf_tpu``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from scipy.signal import firwin, kaiser_beta
 
 from .dsp import levinson, minimum_phase_spectrum, mirror_spectrum
 
@@ -176,3 +180,31 @@ def lpc_from_frames(frames: torch.Tensor, order: int,
     err = r[..., 0] + torch.sum(a[..., 1:] * r[..., 1:], dim=-1)
     gain = torch.sqrt(torch.clamp(err, min=1e-12))
     return torch.cat([gain[..., None], a[..., 1:]], dim=-1)
+
+
+def pqmf_filters(n_bands: int, filter_order: int,
+                 alpha: float = 100.0) -> np.ndarray:
+    """Pseudo-QMF analysis filters (n_bands, filter_order + 1), float32: a
+    Kaiser-windowed prototype low-pass at pi / (2 n_bands) (``alpha`` the
+    stop-band attenuation in dB, 0 for no window), cosine-modulated."""
+    taps = filter_order
+    beta = kaiser_beta(alpha) if alpha > 0 else 0.0
+    cutoff = 0.5 / n_bands
+    proto = firwin(taps + 1, cutoff, window=("kaiser", beta))
+    k = np.arange(taps + 1)
+    filters = np.zeros((n_bands, taps + 1))
+    for b in range(n_bands):
+        phase = (-1) ** b * np.pi / 4
+        filters[b] = 2 * proto * np.cos(
+            (2 * b + 1) * np.pi / (2 * n_bands) * (k - taps / 2) + phase)
+    return filters.astype(np.float32)
+
+
+def pqmf_analysis(x: torch.Tensor, filters: torch.Tensor) -> torch.Tensor:
+    """Non-decimated analysis x (B, T) -> (B, n_bands, T): each band the
+    true convolution of x with its filter, "same"-padded ((taps - 1) // 2
+    on the left); ``conv1d`` correlates, so the bank is flipped."""
+    taps = filters.shape[-1]
+    pad_l = (taps - 1) // 2
+    xp = F.pad(x, (pad_l, taps - 1 - pad_l))[:, None]
+    return F.conv1d(xp, torch.flip(filters, (-1,))[:, None])

@@ -6,10 +6,12 @@ Log-mel features normalised by running min/max buffers
 -> harmonic-plus-noise decoder. The loss is MSS plus the masked L1 (with
 ``l1_loss_weight``), the log-f0 L1 and the voicing cross-entropy, with
 switches that detach the f0 and the voicing; with ``train_with_true_f0``
-the voiced frames synthesise from the given f0. The test step resynthesises
-on the device, re-estimates the f0 on the host (DIO) and scores its cents
-error; predict runs 6 s chunks with 0.3 s linear crossfades.
-``inverse_target`` is not ported.
+the voiced frames synthesise from the given f0. With ``inverse_target``
+(a ``SourceFilterSynth`` decoder) the losses live in the excitation
+domain: the decoder's scaled source against the target through the end
+filter's inverse. The test step resynthesises on the device, re-estimates
+the f0 on the host (DIO) and scores its cents error; predict runs 6 s
+chunks with 0.3 s linear crossfades.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..core.sig import Sig, true_divide
 from ..models.ctrl import Synth
+from ..models.sf import SourceFilterSynth
 from ..models.enc import VocoderParameterEncoderInterface, _running_minmax
 from ..ops.stft import melspectrogram
 from .ae import bce_with_logits, build_encoder, decode, f0_log_l1
@@ -74,11 +77,11 @@ class DDSPVocoder(nn.Module):
                  voicing_loss_weight: float = 1.0,
                  inverse_target: bool = False):
         super().__init__()
-        if inverse_target:
+        if inverse_target and not isinstance(decoder, SourceFilterSynth):
             raise NotImplementedError(
-                "inverse_target is not ported: it needs the end filter's "
-                "inverse mode (golf_tpu's SourceFilterSynth), and golf_tpu's "
-                "HarmonicPlusNoiseSynth returns no inverse signal")
+                f"inverse_target needs a SourceFilterSynth decoder, whose end "
+                f"filter has an inverse mode; {type(decoder).__name__} "
+                f"returns no inverse signal (golf_tpu fails there too)")
         self.decoder = decoder
         self.encoder = encoder
         self.feature_trsfm = feature_trsfm
@@ -91,6 +94,7 @@ class DDSPVocoder(nn.Module):
         self.l1_loss_weight = l1_loss_weight
         self.f0_loss_weight = f0_loss_weight
         self.voicing_loss_weight = voicing_loss_weight
+        self.inverse_target = inverse_target
 
     def cycles(self, f0_in_hz: torch.Tensor) -> torch.Tensor:
         """The phase increment a sample, f0 / sample_rate, divided on the
@@ -147,9 +151,16 @@ class DDSPVocoder(nn.Module):
         if voicing is not None:
             params["voicing"] = Sig(voicing, voicing_logits.hop)
 
-        x_hat = decode(self.decoder, params, generator, noise)[0].data
-        t = min(x_hat.shape[-1], xd.shape[-1])
-        x_hat, x_cmp = x_hat[:, :t], xd[:, :t]
+        if self.inverse_target:
+            (x_hat, x_cmp), _ = decode(self.decoder,
+                                       params | {"target": Sig(xd, 1)},
+                                       generator, noise)
+            x_hat, x_cmp = x_hat.data, x_cmp.data
+        else:
+            x_hat = decode(self.decoder, params, generator, noise)[0].data
+            x_cmp = xd
+        t = min(x_hat.shape[-1], x_cmp.shape[-1])
+        x_hat, x_cmp = x_hat[:, :t], x_cmp[:, :t]
         m = mask[:, :t].to(x_hat.dtype)
         loss = self.criterion(x_hat, x_cmp)
         l1 = torch.sum(m * torch.abs(x_hat - x_cmp)) / torch.clamp(

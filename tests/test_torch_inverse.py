@@ -1,0 +1,357 @@
+"""The inverse (excitation-domain) mode of the port against golf_tpu's, on
+the CPU: ``LTVMinimumPhaseFilterPrecise.reverse`` (inherited by GOLF-ff's
+``LTVMinimumPhaseFilter``) and the ``NotImplementedError`` of the other
+time-varying filters; ``SourceFilterSynth(target=...)`` with
+``golf.yaml``'s and ``golf-precise.yaml``'s decoders; the ISMIR23
+vocoder's ``inverse_target`` training step with ``golf.yaml`` (the
+widths of ``tests/test_torch_vocoder.py``: 24 mels, a 16 x 2 Mel2Control,
+B = 2 x 0.5 s) and ``main_torch.py fit`` in that mode for 2 steps.
+
+Tolerances: the inverse filter and the decoders' pairs within 1e-5 of
+max|y| (sums in another order), but the source's within 1e-4, as
+``tests/test_torch_decoder.py`` holds the decoders (the wrapped phase's
+scans); the loss and its metrics within 1e-5 relative; every gradient
+within 1e-3 of its max-abs."""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from golf_tpu.config.registry import instantiate as j_instantiate
+from golf_tpu.config.registry import load_config as j_load_config
+from golf_tpu.core.sig import Sig as JSig
+from golf_tpu.models import filters as jf
+from golf_tpu.models.noise import StandardNormalNoise as JNoise
+from golf_tpu.tasks import vocoder as jvoc
+from golf_tpu_torch.bridge import flax_to_state_dict, load_flax_variables
+from golf_tpu_torch.config.registry import instantiate as t_instantiate
+from golf_tpu_torch.config.registry import load_config as t_load_config
+from golf_tpu_torch.core.sig import Sig as TSig
+from golf_tpu_torch.models import filters as tf
+from golf_tpu_torch.ops import lookup as tlk
+from golf_tpu_torch.tasks import vocoder as tvoc
+from tests.test_torch_vocoder import (batch, fast_jit, j_cfg, np_tree,
+                                      t_cfg, within)
+from tests.test_torch_vocoder_task import (CLI_ARGS, jax_variables,
+                                           _train_apply)
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+B, T, HOP = 2, 7200, 240
+OUT_TOL = 1e-5
+SOURCE_TOL = 1e-4
+LOSS_TOL = 1e-5
+GRAD_TOL = 1e-3
+RNGS = {"noise": jax.random.key(3), "dropout": jax.random.key(4)}
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _rel(got, ref):
+    got = got.detach().numpy() if torch.is_tensor(got) else np.asarray(got)
+    ref = np.asarray(ref)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+# ---------------------------------------------------------------------------
+# the end filters' reverse
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cls", ["LTVMinimumPhaseFilterPrecise",
+                                 "LTVMinimumPhaseFilter"])
+def test_reverse_matches_golf_tpu(cls):
+    """(ex * gain, the target through the FIR [1, a] of every sample) from
+    the end filter's ctrl: both signals, and the gradients of the
+    excitation, the target and the ctrl logits."""
+    rng = np.random.default_rng(0)
+    frames = T // HOP + 1
+    ex = rng.standard_normal((B, T)).astype(np.float32)
+    y = rng.standard_normal((B, T - 100)).astype(np.float32)
+    lg = (0.3 * rng.standard_normal((B, frames))).astype(np.float32)
+    lo = (0.3 * rng.standard_normal((B, frames, 22))).astype(np.float32)
+    jmod = getattr(jf, cls)(lpc_order=22)
+
+    def run(e, yy, g_, l_):
+        def body(m):
+            src, inv = m.reverse(JSig(e, 1), JSig(yy, 1),
+                                 *m.ctrl(JSig(g_, HOP), JSig(l_, HOP)))
+            return src.data, inv.data
+        return jmod.apply({}, method=body)
+
+    (src_ref, inv_ref), vjp = jax.vjp(run, *map(jnp.asarray, (ex, y, lg, lo)))
+    g1 = rng.standard_normal(src_ref.shape).astype(np.float32)
+    g2 = rng.standard_normal(inv_ref.shape).astype(np.float32)
+    refs = vjp((jnp.asarray(g1), jnp.asarray(g2)))
+    tmod = getattr(tf, cls)(lpc_order=22)
+    ins = [_t(a).requires_grad_(True) for a in (ex, y, lg, lo)]
+    src, inv = tmod.reverse(TSig(ins[0], 1), TSig(ins[1], 1),
+                            *tmod.ctrl(TSig(ins[2], HOP), TSig(ins[3], HOP)))
+    assert src.hop == 1 and inv.hop == 1
+    ((src.data * _t(g1)).sum() + (inv.data * _t(g2)).sum()).backward()
+    assert _rel(src.data, src_ref) <= OUT_TOL
+    assert _rel(inv.data, inv_ref) <= OUT_TOL
+    for t_in, ref in zip(ins, refs):
+        assert _rel(t_in.grad, ref) <= GRAD_TOL
+
+
+@pytest.mark.parametrize("cls", ["LTVZeroPhaseFIRFilter", "LTVPQMF",
+                                 "LTVMinimumPhaseFIRFilter"])
+def test_other_filters_have_no_reverse(cls):
+    """``LTVFilterInterface.reverse`` raises in both packages."""
+    ex = np.zeros((B, 960), np.float32)
+    with pytest.raises(NotImplementedError):
+        getattr(jf, cls)().apply({}, method=lambda m: m.reverse(
+            JSig(ex, 1), JSig(ex, 1)))
+    with pytest.raises(NotImplementedError):
+        getattr(tf, cls)().reverse(TSig(_t(ex), 1), TSig(_t(ex), 1))
+
+
+# ---------------------------------------------------------------------------
+# SourceFilterSynth(target=...)
+# ---------------------------------------------------------------------------
+
+def _raw(frames, sig_cls, to):
+    r = np.random.default_rng(3)
+
+    def s(shape, scale, shift=0.0):
+        return sig_cls(to((r.standard_normal(shape) * scale + shift)
+                          .astype(np.float32)), HOP)
+
+    return {
+        "harm_oscillator_params": (s((B, frames, 64), 0.5),),
+        "noise_generator_params": (),
+        "noise_filter_params": (s((B, frames, 256), 0.3, -2.0),),
+        "end_filter_params": (s((B, frames), 0.2), s((B, frames, 22), 0.2)),
+        "room_filter_params": (),
+    }
+
+
+def _body(m, ph, rw, target):
+    return m(ph, **m.apply_ctrl(rw), target=target)
+
+
+@pytest.mark.parametrize("name", ["golf", "golf-precise"])
+def test_source_filter_target_matches_golf_tpu(name, monkeypatch):
+    """With a target the decoder returns (the scaled source, the target
+    through the end filter's inverse); the all-pole filters and the room
+    filter do not run (in the port their plain versions are made to
+    raise)."""
+    path = f"cfg/ae/decoder/{name}.yaml"
+    j_dec = j_instantiate(j_load_config(path)["decoder"])
+    t_dec = t_instantiate(t_load_config([path])["decoder"])
+    frames = T // HOP + 1
+    f0 = 150.0 + 60.0 * np.sin(np.linspace(0, 9.0, T))[None] * np.ones((B, 1))
+    phase = (f0 / 24000.0).astype(np.float32)
+    target = np.random.default_rng(5).standard_normal((B, T)).astype(
+        np.float32)
+    j_raw = _raw(frames, JSig, jnp.asarray)
+    variables = jax.jit(lambda ph, rw: j_dec.init(
+        {"params": jax.random.key(0), "noise": jax.random.key(1)},
+        JSig(ph, 1), rw, None, method=_body))(jnp.asarray(phase), j_raw)
+    r = np.random.default_rng(4)
+    variables = {**variables, "params": jax.tree_util.tree_map(
+        lambda a: jnp.asarray(r.standard_normal(a.shape).astype(np.float32)
+                              * 0.1), variables["params"])}
+    (src_j, inv_j), state = jax.jit(lambda v, ph, rw, tg: j_dec.apply(
+        v, JSig(ph, 1), rw, JSig(tg, 1), rngs={"noise": jax.random.key(2)},
+        method=_body, mutable=["intermediates"],
+        capture_intermediates=lambda mdl, _: isinstance(mdl, JNoise)))(
+            variables, jnp.asarray(phase), j_raw, jnp.asarray(target))
+    noise = np.array(state["intermediates"]["noise_generator"]["__call__"][0]
+                     .data)
+
+    def refuse(*a, **k):
+        raise AssertionError("an all-pole filter ran in the inverse mode")
+
+    from golf_tpu_torch.models import filters as port_filters
+    monkeypatch.setattr(port_filters, "allpole", refuse)
+    monkeypatch.setattr(port_filters, "allpole_const", refuse)
+    monkeypatch.setattr(port_filters, "lfilter", refuse)
+    t_dec.room_filter.forward = refuse
+    load_flax_variables(t_dec, np_tree(variables))
+    with torch.no_grad():
+        src, inv = t_dec(TSig(_t(phase), 1),
+                         **t_dec.apply_ctrl(_raw(frames, TSig,
+                                                 torch.from_numpy)),
+                         target=TSig(_t(target), 1),
+                         noise=torch.from_numpy(noise))
+    assert _rel(src.data, src_j.data) <= SOURCE_TOL
+    assert _rel(inv.data, inv_j.data) <= OUT_TOL
+
+
+# ---------------------------------------------------------------------------
+# DDSPVocoder(inverse_target=True)
+# ---------------------------------------------------------------------------
+
+def _inverse_cfg(cfg_fn):
+    return {**cfg_fn("golf"), "inverse_target": True}
+
+
+@pytest.fixture(scope="module")
+def jax_inverse_step():
+    return run_jax_inverse_step()
+
+
+def run_jax_inverse_step():
+    """golf_tpu's inverse-mode training step with golf.yaml: the loss, its
+    metrics, the gradients, the seeded variables and the noise drawn."""
+    x, f0 = batch()
+    # white noise at -20 dB of full scale, as chip_smoke.py's card-vs-CPU
+    # steps add: at batch()'s -30 dB some mel bins are near silent, the
+    # log amplifies their float32 rounding, and every float32 gradient
+    # strays from a float64 run of the port by up to 9e-3 of its max-abs
+    # (golf_tpu's by 1e-3); here both stay within 2e-5 of it
+    x = (x + 0.1 * np.random.default_rng(12).standard_normal(x.shape)
+         ).astype(np.float32)
+    task = jvoc.build_ddsp_vocoder(_inverse_cfg(j_cfg))
+    # the forward task's init: golf_tpu's inverse-mode init never calls the
+    # room filter, so its kernel would be missing (see
+    # test_predict_after_an_inverse_init)
+    variables = jax_variables(jvoc.build_ddsp_vocoder(j_cfg("golf")), x, f0)
+    # the voicing logit's bias raised, so that the voicing passes the gate
+    # (0.5) in most frames and the harmonic source takes a gradient
+    head = variables["params"]["encoder"]["backbone"]["out_linear"]
+    head = {**head, "bias": head["bias"].at[1].set(2.0)}
+    variables["params"]["encoder"]["backbone"]["out_linear"] = head
+
+    def loss_fn(params, others):
+        (loss, metrics), mutated = _train_apply(
+            task, {**others, "params": params}, x, f0, RNGS,
+            mutable=["stats", "intermediates"],
+            capture_intermediates=lambda mdl, _: isinstance(mdl, JNoise))
+        return loss, (metrics, mutated)
+
+    others = {k: v for k, v in variables.items() if k != "params"}
+    (loss, (metrics, mutated)), grads = fast_jit(jax.value_and_grad(
+        loss_fn, has_aux=True))(variables["params"], others)
+    noise = np.array(mutated["intermediates"]["decoder"]["noise_generator"]
+                     ["__call__"][0].data)
+    return {"x": x, "f0": f0, "variables": variables, "noise": noise,
+            "loss": float(loss),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": grads}
+
+
+def test_inverse_training_step_matches_golf_tpu(jax_inverse_step,
+                                                monkeypatch):
+    """The excitation-domain loss (MSS, masked L1, log-f0 and voicing
+    losses) and every trainable parameter's gradient against golf_tpu's;
+    no all-pole filter runs, and the lookup's forward is B1's plain twin
+    (the phase of the detached f0 needs no gradient)."""
+    step = jax_inverse_step
+    calls = {"fwd": 0, "res": 0}
+
+    def counted(name, fn):
+        def run(*a):
+            calls[name] += 1
+            return fn(*a)
+        return run
+
+    def refuse(*a, **k):
+        raise AssertionError("an all-pole filter ran in the inverse mode")
+
+    from golf_tpu_torch.models import filters as port_filters
+    monkeypatch.setattr(port_filters, "allpole", refuse)
+    monkeypatch.setattr(port_filters, "allpole_const", refuse)
+    monkeypatch.setattr(tlk, "PLAIN_OPS", tlk.LookupOps(
+        counted("fwd", tlk.lookup_blocks_plain),
+        counted("res", tlk.lookup_res_plain), tlk.lookup_dtab_plain))
+    task = tvoc.build_ddsp_vocoder(_inverse_cfg(t_cfg), device="cpu")
+    assert task.inverse_target
+    load_flax_variables(task, np_tree(step["variables"]))
+    task.train()
+    loss, metrics = task.training_step(
+        TSig(_t(step["x"]), 1), TSig(_t(step["f0"]), 1),
+        noise=torch.from_numpy(step["noise"]))
+    loss.backward()
+    assert abs(loss.item() - step["loss"]) <= LOSS_TOL * abs(step["loss"])
+    assert set(metrics) == set(step["metrics"])
+    for k, v in step["metrics"].items():
+        assert abs(metrics[k].item() - v) <= LOSS_TOL * abs(v), k
+    assert calls == {"fwd": 1, "res": 0}
+    ref = flax_to_state_dict({"params": np_tree(step["grads"])})
+    named = {k: p for k, p in task.named_parameters() if p.requires_grad}
+    assert set(named) == {k for k in ref if "bias_ih" not in k}
+    # the room filter does not run: no gradient in the port, zeros in
+    # golf_tpu's
+    assert named.pop("decoder.room_filter.kernel").grad is None
+    assert not ref["decoder.room_filter.kernel"].any()
+    for k, p in sorted(named.items()):
+        within(p.grad, ref[k], GRAD_TOL, k)
+
+
+def test_inverse_loss_differs_from_the_forward_loss(jax_inverse_step):
+    """The same weights and batch without ``inverse_target``: another loss
+    (the end filter and the room filter run)."""
+    step = jax_inverse_step
+    losses = []
+    for inverse in (True, False):
+        task = tvoc.build_ddsp_vocoder(
+            {**t_cfg("golf"), "inverse_target": inverse}, device="cpu")
+        load_flax_variables(task, np_tree(step["variables"]))
+        with torch.no_grad():
+            losses.append(task.training_step(
+                TSig(_t(step["x"]), 1), TSig(_t(step["f0"]), 1),
+                noise=torch.from_numpy(step["noise"]))[0].item())
+    assert np.isfinite(losses).all() and losses[0] != losses[1]
+
+
+def test_predict_after_an_inverse_init():
+    """golf_tpu's task initialised in the inverse mode (as its Trainer does,
+    by a training step) has no room-filter kernel, so its forward predict
+    fails (ROADMAP.md, section C); the port's room filter holds its
+    zero-initialised kernel from construction, and the port predicts."""
+    x, f0 = batch()
+    task = jvoc.build_ddsp_vocoder(_inverse_cfg(j_cfg))
+    variables = jax_variables(task, x, f0)
+    assert "room_filter" not in variables["params"]["decoder"]
+    from flax.errors import ScopeParamNotFoundError
+    with pytest.raises(ScopeParamNotFoundError):
+        task.apply(variables, JSig(x, 1), rngs={"noise": jax.random.key(0)},
+                   method=lambda m, xs: m.predict_step(xs)[0].data)
+    port = tvoc.build_ddsp_vocoder(_inverse_cfg(t_cfg), device="cpu")
+    assert not port.decoder.room_filter.kernel.any()
+    port.init_running_stats(TSig(_t(x), 1), TSig(_t(f0), 1))
+    port.eval()
+    with torch.inference_mode():
+        y, _ = port.predict_step(TSig(_t(x), 1))
+    assert y.shape[0] == B and torch.isfinite(y.data).all()
+
+
+def test_main_torch_fit_in_the_inverse_mode(tmp_path):
+    """``main_torch.py fit`` of cfg/vocoder.yaml + golf.yaml with
+    ``inverse_target=true`` on Synthetic data, 2 steps on the CPU (a finite
+    validation loss, in the excitation domain too, at step 2), then
+    ``predict`` of its checkpoint (the forward decoder) writes finite
+    audio."""
+    args = [a if a != "cfg/ae/decoder/golf-v1.yaml" else
+            "cfg/ae/decoder/golf.yaml" for a in CLI_ARGS]
+    run_dir = tmp_path / "fit"
+    done = subprocess.run(
+        [sys.executable, "main_torch.py", "fit", *args,
+         "model.init_args.inverse_target=true", "trainer.max_steps=2",
+         "--run_dir", str(run_dir)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-2000:]
+    recs = [json.loads(ln) for ln in open(run_dir / "metrics.jsonl")]
+    assert recs[-1]["step"] == 2 and np.isfinite(recs[-1]["val_loss"])
+    done = subprocess.run(
+        [sys.executable, "main_torch.py", "predict", *args,
+         "model.init_args.inverse_target=true", "--ckpt_path",
+         str(run_dir / "ckpt" / "last"), "--run_dir", str(tmp_path / "p")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-2000:]
+    from golf_tpu_torch.utils.wav import read_wav
+    y, _ = read_wav(str(tmp_path / "p" / "predictions" / "item0000.wav"))
+    assert y.shape == (12000,) and np.isfinite(y).all()
