@@ -169,7 +169,34 @@ Phases (any failure exits non-zero):
     (64, 21, 2048) and (64, 200, 240) x (64, 201, 2048), each within 2e-6
     of max|ref| of its plain version, with times, bounds and
     ``F.grid_sample``'s; a ``variants`` JSON line;
-17. summary: a ``kernels:`` line, the card, then one JSON line with the
+17. tools (last, on the VCTK tree of phase disk): the host libraries
+    (``native/worldlite.cpp``, ``native/pesq862.cpp``) built by ``g++``
+    into ``golf_tpu_torch/kernels/build/``, the PESQ label that runs;
+    ``test_rtf_torch`` for golf.yaml and golf-precise.yaml at full vctk
+    width on a 6 s clip, ``--num 10``: analysis and synthesis ms, RTF, x
+    real time, the launch floor, B1 and B2 (GOLF-ff) or B1 and B4 (GOLF-ss)
+    exactly once a synthesis at ``main_path_shapes(1, 144000)``, the
+    synthesis card vs CPU within 1e-3 of max|y|, and B1, B2 and B4 held
+    against their plain versions at those shapes; ``harm_and_noise_torch``
+    on the test split (B1 once a chunk, B2 twice a chunk), each wav card
+    vs CPU within 1e-3 of max|y|;
+    ``eval_pesq_torch`` of the split against its harmonic branch (the
+    scores of the card's and the CPU's resampling within 1e-6);
+    ``biquads_torch`` card vs CPU (the same keys, 1e-4 relative);
+    ``scripts/wav2f0_torch.py``: dio, native and swipe ``.pv`` card ==
+    CPU bit for bit, penn's voicing alike on at least 99% of frames;
+    PitchNet on the card tracks 110/220/330 Hz sawtooths (voiced above
+    0.9, median error under 30 cents) and gates noise (above 90%);
+    ``fad_torch`` with logmel, vggish and dac (``--weights random``) on
+    the split against its harmonic branch, each embedding of one file card
+    vs CPU within 1e-4 of max-abs, DAC's time a 5 s window and its peak
+    memory; CREPE (B = 64 x 2 s, train mode; gradients against a float64
+    CPU run, within 1e-3 or twice the CPU float32's distance), TTSPN (its
+    defaults, the same dropout masks) over TopNGenerator's tokens, and the
+    one-way LSTM, each card vs CPU (loss 1e-4 relative, gradients 1e-3 of
+    max-abs; the CPU's reference runs with oneDNN off); a ``tools`` JSON
+    line;
+18. summary: a ``kernels:`` line, the card, then one JSON line with the
     kernel table; B1's and B3b's ``library_ms`` is ``F.grid_sample`` on the
     table padded with its first column, and its backward with respect to
     the table (B3a's is null: no one call returns its three outputs); B1's
@@ -183,8 +210,9 @@ Phases (any failure exits non-zero):
     ``launches`` counts every phase, the vocoder's, LPCNet's, the
     options' and the variants' included; B1's, B3a's and B3b's rows carry
     ``weighted_ds`` and ``weighted`` (the weighted tables' shapes, with the
-    variants phase's launches at them);
-18. last line: ``{"ok": true, "device": {...}}``.
+    variants phase's launches at them); B1's, B2's and B4's rows carry
+    ``rtf`` (test_rtf_torch's shapes, the tools phase's launches there);
+19. last line: ``{"ok": true, "device": {...}}``.
 Each phase's seconds are printed as it ends.
 
 Needs one CUDA device, and exits non-zero without one. Imports torch and
@@ -196,6 +224,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import inspect
 import io
 import json
 import re
@@ -214,6 +243,10 @@ from golf_tpu_torch import kernels
 from golf_tpu_torch.config.registry import (convert2samplewise, instantiate,
                                             load_config)
 from golf_tpu_torch.core.sig import Sig, linear_upsample
+from golf_tpu_torch.models import dac
+from golf_tpu_torch.models.crepe import CREPE
+from golf_tpu_torch.models.rnn import LSTM
+from golf_tpu_torch.models.tspn import TopNGenerator, TTSPNEncoder
 from golf_tpu_torch.ops import lookup as lk
 from golf_tpu_torch.ops.allpole import (allpole, allpole_const,
                                         allpole_const_adjoint_cuda,
@@ -234,7 +267,7 @@ from golf_tpu_torch.ops.dsp import rc2lpc
 from golf_tpu_torch.serve import GOLFStream, StreamingEncoder, chunk_ctrl
 from golf_tpu_torch.tasks import cli
 from golf_tpu_torch.tasks.ae import VoiceAutoEncoder, build_voice_autoencoder
-from golf_tpu_torch.tasks.data import SyntheticVoiceDataset
+from golf_tpu_torch.tasks.data import InferenceDataset, SyntheticVoiceDataset
 from golf_tpu_torch.tasks.lpcnet import (LPCNetVocoder, build_lpcnet_vocoder,
                                          deemphasis, gumbel_noise)
 from golf_tpu_torch.tasks.vocoder import (DDSPVocoder, build_ddsp_vocoder,
@@ -243,6 +276,14 @@ from golf_tpu_torch.tasks.world_ae import build_world_autoencoder
 from golf_tpu_torch.train import checkpoint as ckpt_lib
 from golf_tpu_torch.train.loop import (ClippedOptimizer, Trainer,
                                        trainable_parameters)
+from golf_tpu_torch.utils import native, pesq862, pitchnet
+from golf_tpu_torch.utils.wav import read_wav
+
+import biquads_torch
+import eval_pesq_torch
+import fad_torch
+import harm_and_noise_torch as t_hn
+import test_rtf_torch
 
 SEED = 0
 SR = 24000
@@ -3645,6 +3686,503 @@ def phase_variants() -> tuple:
     return counts, summary, rows
 
 
+# ---------------------------------------------------------------------------
+# phase "tools": the host libraries, the real-time factor, the evaluation
+# tools, the pitch tools and the set-prediction modules
+# ---------------------------------------------------------------------------
+
+TOOLS_SECONDS = 6.0          # test_rtf.py's clip
+TOOLS_NUM = 10               # its timed runs
+SERVE_TOL = 1e-3             # served audio card vs CPU, of max|y| (PERF.md §2)
+BIQUAD_TOL = 1e-4            # biquads_torch's arrays card vs CPU, relative
+PENN_AGREE = 0.99            # penn's frames voiced alike on card and CPU
+EMBED_TOL = 1e-4             # FAD embeddings card vs CPU, of max-abs
+LOSS_TOL = 1e-4              # a model's loss card vs CPU, relative
+MODEL_SECONDS = 2.0          # CREPE's batch: B = 64 x 2 s
+MODEL_BATCH = 64
+TSPN_TOKENS = 10             # TopNGenerator's default top_n
+RTF_PATH = {"golf": {"lookup": 1, "allpole_const": 1},
+            "golf-precise": {"lookup": 1, "allpole_tv": 1}}
+
+
+def _script(name: str):
+    """A module of ``scripts/`` by file name."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def zero_counts() -> None:
+    for k in kernels.ALL:
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    return {k.name: k.launches for k in kernels.ALL}
+
+
+def tools_build() -> dict:
+    """The two host libraries from ``native/*.cpp`` into
+    ``golf_tpu_torch/kernels/build/``; the PESQ label that will run."""
+    t0 = time.perf_counter()
+    libs = {src: native.build_host_library(src)
+            for src in ("worldlite.cpp", "pesq862.cpp")}
+    seconds = time.perf_counter() - t0
+    for src, lib in libs.items():
+        check(lib.exists() and lib.parent == kernels.BUILD,
+              f"native/{src} built into {kernels.BUILD}")
+    pesq862.library()
+    label = eval_pesq_torch.label()
+    print(f"tools: host libraries built in {seconds:.1f} s: "
+          f"{', '.join(p.name for p in libs.values())}; PESQ label "
+          f"{label}")
+    check(label == ("PESQ" if eval_pesq_torch.HAS_PESQ
+                    else "PESQ(p862-native)"), f"PESQ label {label}")
+    return {"build_s": seconds, "pesq_label": label}
+
+
+def tools_rtf(decoder: str, shapes: dict) -> tuple:
+    """``test_rtf_torch.measure`` on the full-width vctk model with
+    ``decoder``, seeded weights, a 6 s clip, 10 timed runs; the kernels'
+    launches from 0 over it; the synthesis card vs CPU on the same noise."""
+    dev = torch.device("cuda")
+    task = seeded_model(decoder, dev).eval()
+    x_np, f0_np = test_rtf_torch.clip(SR, TOOLS_SECONDS)
+    zero_counts()
+    res = test_rtf_torch.measure(task, x_np, f0_np, SR, TOOLS_NUM)
+    counts = read_counts()
+    print(f"rtf {decoder} (vctk, seeded weights, {TOOLS_SECONDS:.0f} s, "
+          f"--num {TOOLS_NUM}):")
+    test_rtf_torch.report(res)
+    per = RTF_PATH[decoder]
+    check(res["launches_per_synthesis"] == per,
+          f"rtf {decoder}: launches per synthesis "
+          f"{res['launches_per_synthesis']} == {per}")
+    # one counted synthesis, one warm-up, TOOLS_NUM timed
+    for k in kernels.ALL:
+        want = per.get(k.name, 0) * (TOOLS_NUM + 2)
+        check(counts[k.name] == want,
+              f"rtf {decoder}: {k.name} launched {counts[k.name]}, not "
+              f"{want}")
+        if k.name in per:
+            check(k.last_shapes == shapes[k.name],
+                  f"rtf {decoder}: {k.name} shapes {k.last_shapes} == "
+                  f"{shapes[k.name]}")
+
+    cpu_task = seeded_model(decoder, "cpu")
+    cpu_task.load_state_dict({k: v.cpu() for k, v in
+                              task.state_dict().items()})
+    cpu_task.eval()
+    ys = []
+    for t in (task, cpu_task):
+        d = next(t.parameters()).device
+        xs = Sig(torch.from_numpy(x_np).to(d), 1)
+        f0s = Sig(torch.from_numpy(f0_np).to(d), 1)
+        raw = {k: v for k, v in test_rtf_torch.analysis(t, xs, f0s).items()
+               if k.endswith("_params")}
+        if not ys:
+            noise = torch.randn(x_np.shape,
+                                generator=torch.Generator().manual_seed(7))
+        ys.append(test_rtf_torch.synthesis(
+            t, raw, t.cycles(f0s), noise=noise.to(d)).data.cpu())
+    rel = rel_err(ys[0], ys[1])
+    print(f"rtf {decoder}: synthesis of the 6 s clip, card vs CPU: max err "
+          f"/ max|y| {rel:.3e} (tolerance {SERVE_TOL:g}, serving's)")
+    check(torch.isfinite(ys[0]).all().item() and rel <= SERVE_TOL,
+          f"rtf {decoder} card vs CPU")
+    res["vs_cpu"] = rel
+    return counts, res
+
+
+def tools_harm_noise(tree: Path, out: Path) -> tuple:
+    """``harm_and_noise_torch`` on the VCTK tree's test split with the
+    seeded golf.yaml model: B1 once a chunk, B2 twice (the end filter on
+    each branch); each written wav against the CPU's run on the same
+    weights and noise."""
+    dev = torch.device("cuda")
+    task = seeded_model("golf", dev).eval()
+    zero_counts()
+    t0 = time.perf_counter()
+    rels = t_hn.run(task, SR, str(tree), str(out))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    ds = InferenceDataset(str(tree), "test")
+    chunk, fade = int(6.0 * SR), int(1.0 * SR)
+    n_chunks = sum(max(1, (max(len(ds[i][0]) - chunk, 0) + chunk - fade - 1)
+                       // (chunk - fade) + 1) for i in range(len(ds)))
+    want = {"lookup": n_chunks, "allpole_const": 2 * n_chunks}
+    print(f"harm_and_noise: {len(rels)} files, {n_chunks} chunks of 6 s in "
+          f"{seconds:.2f} s, launches {counts}")
+    check(len(rels) == len(ds) == 2 * len(DISK_TEST),
+          f"harm_and_noise wrote {len(rels)} files")
+    check_exact("harm_and_noise", counts, want, 1)
+
+    cpu_task = seeded_model("golf", "cpu")
+    cpu_task.load_state_dict({k: v.cpu() for k, v in
+                              task.state_dict().items()})
+    cpu_task.eval()
+    noise = t_hn.noise_field(cpu_task, chunk, "cpu")
+    worst = 0.0
+    for i in range(len(ds)):
+        x, f0, rel = ds[i]
+        ref = t_hn.utterance(cpu_task, x, f0, chunk, fade, noise)
+        for branch, r in zip(("harm", "noise"), ref):
+            got, sr = read_wav(str(out / branch / rel))
+            r = np.clip(r, -1.0, 1.0).astype(np.float32)
+            check(sr == SR and got.shape == r.shape and np.isfinite(got).all(),
+                  f"harm_and_noise {branch}/{rel}")
+            worst = max(worst, float(np.abs(got - r).max()
+                                     / np.abs(r).max()))
+    print(f"harm_and_noise: every harm and noise wav, card vs CPU: max err "
+          f"/ max|y| {worst:.3e} (tolerance {SERVE_TOL:g})")
+    check(worst <= SERVE_TOL, "harm_and_noise card vs CPU")
+    return counts, {"files": len(rels), "chunks": n_chunks, "s": seconds,
+                    "vs_cpu": worst}
+
+
+def tools_pesq(tree: Path, harm_dir: Path) -> dict:
+    """``eval_pesq_torch`` of the test split against its harmonic
+    resynthesis, resampled on the card and on the CPU."""
+    t0 = time.perf_counter()
+    scores = eval_pesq_torch.evaluate(tree, harm_dir, device="cuda")
+    seconds = time.perf_counter() - t0
+    cpu = eval_pesq_torch.evaluate(tree, harm_dir, device="cpu")
+    gap = float(np.abs(scores - cpu).max())
+    print(f"{eval_pesq_torch.label()}: {scores.mean():.3f} +/- "
+          f"{scores.std():.3f} (n={len(scores)}) in {seconds:.2f} s; card "
+          f"vs CPU resampling: max score gap {gap:.2e} (tolerance 1e-6)")
+    check(len(scores) == 2 * len(DISK_TEST) and np.isfinite(scores).all()
+          and ((scores > 0.5) & (scores < 5.0)).all(), "PESQ scores")
+    check(gap <= 1e-6, "PESQ card vs CPU")
+    return {"label": eval_pesq_torch.label(), "mean": float(scores.mean()),
+            "std": float(scores.std()), "n": len(scores), "s": seconds,
+            "vs_cpu": gap}
+
+
+def tools_biquads(tree: Path, out: Path) -> dict:
+    """``biquads_torch`` on one test file, card vs CPU."""
+    wav_path = sorted((tree / DISK_TEST[0]).glob("*.wav"))[0]
+    wav, _ = read_wav(str(wav_path))
+    task = seeded_model("golf", "cuda").eval()
+    got = biquads_torch.extract(task, wav)
+    cpu_task = seeded_model("golf", "cpu")
+    cpu_task.load_state_dict({k: v.cpu() for k, v in
+                              task.state_dict().items()})
+    ref = biquads_torch.extract(cpu_task.eval(), wav, init_stats=False)
+    np.savez(out, **got)
+    keys = sorted(np.load(out).files)
+    errs = {k: float(np.abs(got[k] - ref[k]).max() / np.abs(ref[k]).max())
+            for k in ref}
+    print(f"biquads: {keys}, shapes "
+          f"{ {k: list(v.shape) for k, v in got.items()} }; card vs CPU "
+          f"relative {errs} (tolerance {BIQUAD_TOL:g})")
+    check(keys == sorted(ref) and {"gain", "lpc", "table_weight"} <= set(keys),
+          f"biquads keys {keys}")
+    check(max(errs.values()) <= BIQUAD_TOL, "biquads card vs CPU")
+    return errs
+
+
+def tools_wav2f0(tree: Path, work: Path) -> dict:
+    """``scripts/wav2f0_torch.py``: the host methods on two test files and
+    ``penn`` on all of them, on the card and on the CPU."""
+    w2f = _script("wav2f0_torch")
+    wavs = sorted(p for spk in DISK_TEST for p in (tree / spk).glob("*.wav"))
+    out = {}
+    for method in ("dio", "native", "swipe"):
+        pv = {}
+        t0 = time.perf_counter()
+        for device in ("cuda", "cpu"):
+            d = work / f"{method}-{device}"
+            d.mkdir(parents=True, exist_ok=True)
+            for w in wavs[:2]:
+                w2f.process((w, d / w.with_suffix(".pv").name, 65.0, 1047.0,
+                             method, device))
+            pv[device] = [(d / w.with_suffix(".pv").name).read_bytes()
+                          for w in wavs[:2]]
+        same = pv["cuda"] == pv["cpu"]
+        out[method] = {"same": same, "s": time.perf_counter() - t0}
+        print(f"wav2f0 {method}: 2 files, .pv card == CPU bit for bit: "
+              f"{same}")
+        check(same, f"wav2f0 {method} card vs CPU")
+    d = work / "penn"
+    for w in wavs:
+        (d / w.parent.name).mkdir(parents=True, exist_ok=True)
+        shutil.copy(w, d / w.parent.name / w.name)
+    t0 = time.perf_counter()
+    check(w2f.main([str(d), "--method", "penn", "--device", "cuda"]) == 0,
+          "wav2f0 penn")
+    seconds = time.perf_counter() - t0
+    agree, voiced = [], []
+    for w in wavs:
+        got = np.loadtxt(d / w.parent.name / w.with_suffix(".pv").name)
+        x, sr = read_wav(str(w))
+        ref = w2f.estimate(x, sr, 65.0, 1047.0, "penn", "cpu")
+        agree.append(np.equal(got > 0, ref > 0).mean())
+        voiced.append((got > 0).mean())
+    print(f"wav2f0 penn: {len(wavs)} files on the card in {seconds:.2f} s; "
+          f"frames voiced alike on card and CPU {min(agree):.4f} at worst "
+          f"(at least {PENN_AGREE}); voiced share {np.mean(voiced):.3f}")
+    check(min(agree) >= PENN_AGREE, "wav2f0 penn card vs CPU")
+    out["penn"] = {"agree": float(min(agree)), "s": seconds}
+    return out
+
+
+def tools_pitchnet() -> dict:
+    """PitchNet on the card tracks 110, 220 and 330 Hz sawtooths and gates
+    noise (tests/test_pitchnet.py's checks)."""
+    t = np.arange(SR) / SR
+    rng = np.random.default_rng(1)
+    out = {}
+    for f0_true in (110.0, 220.0, 330.0):
+        x = sum(np.sin(2 * np.pi * k * f0_true * t) / k for k in range(1, 9))
+        x += 0.01 * rng.standard_normal(len(t))
+        f0, _ = pitchnet.predict(x.astype(np.float32), SR, device="cuda")
+        mid = f0[20:-20]
+        v = mid > 0
+        cents = float(np.median(1200 * np.abs(np.log2(mid[v] / f0_true)))) \
+            if v.any() else float("inf")
+        out[f"{f0_true:.0f}"] = {"voiced": float(v.mean()), "cents": cents}
+        check(v.mean() > 0.9 and cents < 30,
+              f"pitchnet {f0_true} Hz: voiced {v.mean():.3f}, median "
+              f"{cents:.1f} cents")
+    f0, _ = pitchnet.predict(rng.standard_normal(SR // 2).astype(np.float32),
+                             SR, device="cuda")
+    out["noise_gated"] = float((f0 == 0).mean())
+    print(f"pitchnet on the card: {out}")
+    check(out["noise_gated"] > 0.9, "pitchnet gates noise")
+    return out
+
+
+def tools_fad(ref_dir: Path, eval_dir: Path) -> dict:
+    """``fad_torch`` with each embedder on the card over the two trees (the
+    CLI, in this process), and each embedding of one file card vs CPU;
+    DAC's time a 5 s window and its peak memory."""
+    wav, sr = read_wav(str(sorted(eval_dir.glob("**/*.wav"))[0]))
+    out = {}
+    for name in ("logmel", "vggish", "dac"):
+        w = None if name == "logmel" else "random"
+        weights = ["--weights", w] if w else []
+        embs = [fad_torch.make_embedder(name, w, SR, d)[0]
+                for d in ("cuda", "cpu")]
+        e_gpu, e_cpu = (e.embed(wav, sr) for e in embs)
+        err = float(np.abs(e_gpu - e_cpu).max() / np.abs(e_cpu).max())
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = fad_torch.main([str(ref_dir), str(eval_dir), "--embedder",
+                                 name, *weights, "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        report = buf.getvalue().strip().splitlines()
+        out[name] = {"embed_shape": list(e_gpu.shape), "vs_cpu": err,
+                     "cli_s": seconds, "mean": report[-1]}
+        print(f"fad {name} {' '.join(weights)}: embeddings "
+              f"{tuple(e_gpu.shape)} card vs CPU {err:.3e} of max-abs "
+              f"(tolerance {EMBED_TOL:g}); the CLI in {seconds:.2f} s:")
+        for line in report:
+            print(f"  {line}")
+        check(rc == 0 and report[-1].startswith("mean ")
+              and len(report) == len(DISK_TEST) + 2, f"fad_torch {name}")
+        check(err <= EMBED_TOL, f"fad {name} card vs CPU")
+        if name == "dac":
+            model = embs[0].model
+            x = torch.from_numpy(dac.dac_windows(wav, sr)[:1])[:, None].cuda()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: model(x), 5, strict=False)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            out[name].update(ms_per_window=ms, peak_gib=peak)
+            print(f"fad dac: {ms:.2f} ms a 5 s window (CUDA events, 5 "
+                  f"calls), peak {peak:.2f} GiB")
+    return out
+
+
+def model_step(model, inputs, w, **kwargs):
+    """(loss, gradients by name) of sum(model(*inputs) * w) / w.numel()."""
+    model.zero_grad()
+    out = model(*inputs, **kwargs)
+    y = out.data if isinstance(out, Sig) else out
+    loss = (y * w).sum() / w.numel()
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().cpu() for n, p in
+                         model.named_parameters() if p.grad is not None}
+
+
+def _to(inputs, kwargs, device=None, dtype=None):
+    """The inputs (tensors or Sigs) and keyword tensor lists on ``device``
+    and in ``dtype``."""
+    def move(t):
+        return t.to(device=device, dtype=dtype)
+    return ([move(i) if torch.is_tensor(i) else Sig(move(i.data), i.hop)
+             for i in inputs],
+            {k: [move(m) for m in v] if isinstance(v, list) else v
+             for k, v in kwargs.items()})
+
+
+def card_vs_cpu(name: str, make, inputs, w, zero_bias=(),
+                arbiter64=False, **kwargs) -> dict:
+    """One forward and backward of ``make()`` in train mode (``train=True``
+    where its forward takes it) on the card, timed after a warm-up call,
+    and on the CPU, the same weights and inputs: the loss within LOSS_TOL
+    relative and each gradient within TRAIN_GRAD_TOL of its max-abs of the
+    CPU's. With ``arbiter64`` (a network whose float32 gradients stray far
+    from float64 on either device) the gradients are held in float64 on
+    both devices instead, each within TRAIN_GRAD_TOL, and the card's
+    float32 gradients, against the CPU's float64, may stray no further than
+    twice the CPU float32's worst (or TRAIN_GRAD_TOL). A bias whose name
+    holds one of ``zero_bias`` (a conv's before a train-mode batch norm,
+    the attention's key bias: zero gradient in exact arithmetic) is held
+    against its weight's gradient scale."""
+    torch.manual_seed(SEED)
+    model = make()
+    gen = torch.Generator().manual_seed(SEED + 2)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.requires_grad and not p.any():     # zero-initialised ones
+                p.copy_(0.05 * torch.randn(p.shape, generator=gen))
+    model.train()
+    cpu_model = copy.deepcopy(model)
+    model = model.cuda()
+    if "train" in inspect.signature(model.forward).parameters:
+        kwargs = {**kwargs, "train": True}
+    dev_in, dev_kw = _to(inputs, kwargs, "cuda")
+    w_dev = w.cuda()
+    model_step(model, dev_in, w_dev, **dev_kw)
+    torch.cuda.reset_peak_memory_stats()
+    (loss_g, grads_g), seconds = timed(
+        lambda: model_step(model, dev_in, w_dev, **dev_kw))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # oneDNN's float32 conv1d backward is wrong at stride 2 on odd lengths
+    # (CREPE's last conv, (64, 256, 95): 0.46 of max-abs); the CPU's
+    # reference runs PyTorch's own kernels
+    with torch.backends.mkldnn.flags(enabled=False):
+        loss_c, grads_c = model_step(cpu_model, inputs, w, **kwargs)
+    pairs = {"f32": (grads_g, grads_c)}
+    if arbiter64:
+        in64, kw64 = _to(inputs, kwargs, dtype=torch.float64)
+        cpu64 = model_step(copy.deepcopy(cpu_model).double(), in64,
+                           w.double(), **kw64)[1]
+        in64, kw64 = _to(inputs, kwargs, "cuda", torch.float64)
+        card64 = model_step(copy.deepcopy(model).double(), in64,
+                            w_dev.double(), **kw64)[1]
+        pairs = {"f64": (card64, cpu64), "card32": (grads_g, cpu64),
+                 "cpu32": (grads_c, cpu64)}
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    errs = {}
+    for key, (got, ref) in pairs.items():
+        check(set(got) == set(ref), f"{name}: the same gradients")
+        for n in ref:
+            scale = ref[n[:-len("bias")] + "weight"] \
+                if n.endswith("bias") and any(z in n for z in zero_bias) \
+                else ref[n]
+            errs.setdefault(key, {})[n] = float(
+                (got[n].double() - ref[n].double()).abs().max()
+                / scale.abs().max().double())
+    held = "f64" if arbiter64 else "f32"
+    worst = max(errs[held].values())
+    ranked = sorted(errs[held], key=errs[held].get, reverse=True)[:3]
+    note = ""
+    if arbiter64:
+        w32, c32 = max(errs["card32"].values()), max(errs["cpu32"].values())
+        note = (f"; float32 against the CPU's float64: card {w32:.2e}, CPU "
+                f"{c32:.2e} at worst (the card at most twice the CPU's)")
+        check(w32 <= max(TRAIN_GRAD_TOL, 2 * c32),
+              f"{name}: the card's float32 gradients")
+    print(f"{name}, train mode: forward and backward {seconds * 1e3:.2f} "
+          f"ms on the card, peak {peak:.2f} GiB; card vs CPU loss "
+          f"{loss_err:.2e} (tolerance {LOSS_TOL:g}); "
+          f"{len(errs[held])} {'float64 ' if arbiter64 else ''}gradients "
+          f"card vs CPU {worst:.2e} of max-abs at worst ("
+          + ", ".join(f"{n} {errs[held][n]:.2e}" for n in ranked)
+          + f"; tolerance {TRAIN_GRAD_TOL:g}){note}")
+    check(np.isfinite(loss_g) and loss_err <= LOSS_TOL
+          and worst <= TRAIN_GRAD_TOL, f"{name} card vs CPU")
+    out = {"ms": seconds * 1e3, "peak_gib": peak, "loss_err": loss_err,
+           "grad_err": worst}
+    if arbiter64:
+        out.update(f32_card_vs_f64=w32, f32_cpu_vs_f64=c32)
+    return out
+
+
+def crepe_frames(t: int) -> int:
+    """CREPE's output frames for t samples (each conv padded by k // 2)."""
+    for k, s in zip((512, 64, 64, 64, 64, 64), (4, 4, 4, 4, 2, 2)):
+        t = (t + 2 * (k // 2) - k) // s + 1
+    return t
+
+
+def tools_models() -> dict:
+    """CREPE at B = 64 x 2 s in train mode (batch statistics), TTSPN (its
+    defaults: d 128, 4 heads, 2 layers, dropout 0.1 on the same masks on
+    both devices) over TopNGenerator's 10 tokens and 200 frames, and the
+    one-way LSTM (256 x 1) on those frames, each card vs CPU."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    t = int(MODEL_SECONDS * SR)
+    frames = t // 240
+    x = 0.3 * torch.randn((MODEL_BATCH, t), generator=gen)
+    crepe_out = 8
+    # float32 gradients stray up to ~5e-2 of max-abs from float64 on either
+    # device here: they are held in float64
+    out = {"crepe": card_vs_cpu(
+        "CREPE (B = 64 x 2 s)", lambda: CREPE(crepe_out), [Sig(x, 1)],
+        torch.randn((MODEL_BATCH, crepe_frames(t), crepe_out),
+                    generator=gen), zero_bias=("convs.",), arbiter64=True)}
+    memory = torch.randn((MODEL_BATCH, frames, 128), generator=gen)
+    topn = TopNGenerator()
+    with torch.no_grad():
+        tokens_gpu = copy.deepcopy(topn).cuda()(memory.cuda()).cpu()
+        tokens = topn(memory)
+    check(torch.equal(tokens_gpu, tokens),
+          "TopNGenerator picks the same embeddings on card and CPU")
+    keeps = [((torch.rand((TSPN_TOKENS, frames), generator=gen) < 0.9)
+              .float() / 0.9) for _ in range(2)]
+    out["tspn"] = card_vs_cpu(
+        "TTSPNEncoder (B = 64, 10 tokens x 200 frames)", TTSPNEncoder,
+        [tokens, memory], torch.randn((MODEL_BATCH, TSPN_TOKENS, 2),
+                                      generator=gen), zero_bias=(".key.",),
+        keeps=keeps)
+    out["lstm"] = card_vs_cpu(
+        "LSTM (256 x 1, B = 64 x 200 frames)", lambda: LSTM(128, 256),
+        [memory], torch.randn((MODEL_BATCH, frames, 256), generator=gen))
+    return out
+
+
+def phase_tools(tree: Path, out: Path, shapes: dict) -> tuple:
+    """The tools phase on the VCTK tree of phase disk; ``shapes`` are the
+    kernels' operands in test_rtf's synthesis. Returns (the launches of
+    its kernel paths, a summary, the kernel rows at ``shapes``, the
+    launches of each decoder's test_rtf run)."""
+    summary = {"build": tools_build()}
+    counts = {k.name: 0 for k in kernels.ALL}
+    rtf_counts = {}
+    for decoder in RTF_PATH:
+        c, summary[f"rtf_{decoder}"] = tools_rtf(decoder, shapes)
+        rtf_counts[decoder] = c
+        for name, n in c.items():
+            counts[name] += n
+    rows = phase_kernels(shapes, label="rtf")
+    for name in ("lookup", "allpole_const", "allpole_tv"):
+        r = rows[name]
+        print(f"[rtf] {name} {shapes[name]}: {r['ms'] * 1e3:.2f} us, bound "
+              f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][1]}), plain "
+              f"{r['plain_ms'] * 1e3:.1f} us"
+              + (f", F.grid_sample {r['library_ms'] * 1e3:.2f} us"
+                 if r.get("library_ms") else ""))
+    c, summary["harm_and_noise"] = tools_harm_noise(tree, out / "hn")
+    for name, n in c.items():
+        counts[name] += n
+    summary["pesq"] = tools_pesq(tree, out / "hn" / "harm")
+    summary["biquads"] = tools_biquads(tree, out / "biquads.npz")
+    summary["wav2f0"] = tools_wav2f0(tree, out / "wav2f0")
+    summary["pitchnet"] = tools_pitchnet()
+    summary["fad"] = tools_fad(tree, out / "hn" / "harm")
+    summary["models"] = tools_models()
+    return counts, summary, rows, rtf_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3700,27 +4238,29 @@ def main() -> int:
         add(phase_test(decoder))
     t0 = done("test", t0)
     Path("runs").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir="runs") as tmp:
-        tree, out = Path(tmp) / "vctk", Path(tmp) / "runs"
-        sizes = write_vctk_tree(tree)
-        print(f"disk: a VCTK tree of {sizes} segments of 2 s at overlap 1.5")
-        disk_counts, ckpt, disk_probe = phase_disk(tree, out)
-        add(disk_counts)
-        t0 = done("disk", t0)
-        fs_counts, fs = phase_fs(tree, ckpt, out)
-        add(fs_counts)
-        t0 = done("fs", t0)
-        ft_counts, ft_probe = phase_finetune(tree, ckpt, out)
-        add(ft_counts)
-        t0 = done("finetune", t0)
-        base_counts, baselines = phase_baselines()
-        add(base_counts)
-        cli_counts, baselines["cli"] = phase_baselines_cli(tree, out)
-        add(cli_counts)
-        t0 = done("baselines", t0)
-        pw_counts, pyworld = phase_pyworld(tree, out)
-        add(pw_counts)
-        t0 = done("pyworld", t0)
+    # the VCTK tree of phase disk, kept for phase tools
+    disk_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_", dir="runs")
+    tmp = disk_tmp.name
+    tree, out = Path(tmp) / "vctk", Path(tmp) / "runs"
+    sizes = write_vctk_tree(tree)
+    print(f"disk: a VCTK tree of {sizes} segments of 2 s at overlap 1.5")
+    disk_counts, ckpt, disk_probe = phase_disk(tree, out)
+    add(disk_counts)
+    t0 = done("disk", t0)
+    fs_counts, fs = phase_fs(tree, ckpt, out)
+    add(fs_counts)
+    t0 = done("fs", t0)
+    ft_counts, ft_probe = phase_finetune(tree, ckpt, out)
+    add(ft_counts)
+    t0 = done("finetune", t0)
+    base_counts, baselines = phase_baselines()
+    add(base_counts)
+    cli_counts, baselines["cli"] = phase_baselines_cli(tree, out)
+    add(cli_counts)
+    t0 = done("baselines", t0)
+    pw_counts, pyworld = phase_pyworld(tree, out)
+    add(pw_counts)
+    t0 = done("pyworld", t0)
     voc_counts, vocoder = phase_vocoder()
     add(voc_counts)
     t0 = done("vocoder", t0)
@@ -3733,6 +4273,12 @@ def main() -> int:
     var_counts, variants, var_rows = phase_variants()
     add(var_counts)
     t0 = done("variants", t0)
+    rtf_shapes = main_path_shapes(1, int(TOOLS_SECONDS * SR))
+    tools_counts, tools, rtf_rows, rtf_counts = phase_tools(
+        tree, out / "tools", rtf_shapes)
+    add(tools_counts)
+    disk_tmp.cleanup()
+    t0 = done("tools", t0)
     print(json.dumps({"recipe": {
         "disk_fit_step_ms": [t * 1e3 for t in disk_probe.times],
         "golf_fs": fs,
@@ -3743,6 +4289,7 @@ def main() -> int:
         name: base_counts[name] + cli_counts[name] for name in base_counts}}}))
     print(json.dumps({"lpcnet": {**lpcnet, "launches": lpc_counts}}))
     print(json.dumps({"pyworld": {**pyworld, "launches": pw_counts}}))
+    print(json.dumps({"tools": {**tools, "launches": tools_counts}}))
 
     replaces = {"lookup": "golf_tpu/ops/lookup_pallas.py:107",
                 "lookup_res": "golf_tpu/ops/lookup_pallas.py:222",
@@ -3831,6 +4378,17 @@ def main() -> int:
             # B1, B3a and B3b at the weighted wavetables' shapes
             if k.name in by_kernel:
                 entry[key] = by_kernel[k.name]
+        if k.name in ("lookup", "allpole_const", "allpole_tv"):
+            # test_rtf_torch's synthesis of one 6 s clip (phase tools)
+            rr = rtf_rows[k.name]
+            entry["rtf"] = {
+                "shapes": [list(s) for s in rtf_shapes[k.name]],
+                "launches": sum(c[k.name] for c in rtf_counts.values()),
+                "launches_per_synthesis": 1,
+                "max_abs_err": rr["err"], "ms": rr["ms"],
+                "plain_ms": rr["plain_ms"], "bound_ms": rr["bound"][0],
+                "bound_by": rr["bound"][1],
+                "library_ms": rr.get("library_ms")}
         if k.name == "allpole_const":
             entry["lpcnet"] = {
                 "shapes": lpc_row["shapes"],
@@ -3868,7 +4426,7 @@ def main() -> int:
                     f"{sv['bound_ms'] * 1e3:.1f} us, plain "
                     f"{sv['plain_ms'] * 1e3:.1f} us" + composite_note(sv))
         for key in ("lfilter_train", "lfilter_serve", "cascade_p2",
-                    "weighted_ds", "weighted"):
+                    "weighted_ds", "weighted", "rtf"):
             if key in e:
                 r = e[key]
                 shape = f"p={r['shapes'][1][1]}" if key.startswith(

@@ -4,8 +4,11 @@ Input: the JAX task's variables as nested dicts of numpy arrays, with the
 collections ``params``, ``stats`` and ``batch_stats`` (as
 ``jax.tree_util.tree_map(np.asarray, variables)`` gives them). Output: a
 ``state_dict`` for ``golf_tpu_torch.tasks.ae.VoiceAutoEncoder``,
-``golf_tpu_torch.tasks.vocoder.DDSPVocoder`` or
-``golf_tpu_torch.tasks.lpcnet.LPCNetVocoder``.
+``golf_tpu_torch.tasks.vocoder.DDSPVocoder``,
+``golf_tpu_torch.tasks.lpcnet.LPCNetVocoder`` or a backbone such as
+``models.crepe.CREPE`` (``flax_to_state_dict``), or for one of the
+standalone modules of ``models/pitchnet.py``, ``models/rnn.py`` and
+``models/tspn.py`` (their own functions).
 
 Conversions:
 * Conv: flax ``(kh, kw, in, out)`` -> torch ``(out, in, kh, kw)``, and
@@ -42,6 +45,15 @@ Conversions:
   ``weight_ih = cat(i*).T``, ``weight_hh = cat(h*).T`` in gate order
   i, f, g, o, ``bias_hh = cat(h*.bias)`` and ``bias_ih = 0``.
   ``OptimizedLSTMCell_{2l}`` is layer l, ``_{2l+1}`` its reverse.
+* CREPE (``models/crepe.py``): ``Conv_i``, ``BatchNorm_i`` and
+  ``out_linear`` by the rules above (``convs.i``, ``norms.i``).
+* The standalone modules, each by its own function below: ``PitchNet``
+  (``Conv_i`` -> ``convs.i``, ``LayerNorm_i`` -> ``norms.i``, ``Dense_0`` ->
+  ``dense``); the one-way ``LSTM`` (``OptimizedLSTMCell_i`` is layer i,
+  with no reverse, in ``lstm``); ``TopNGenerator`` (``embeddings`` as it
+  is, ``Dense_0`` -> ``proj``); ``TTSPNEncoder`` (``TTSPNEncoderLayer_i``
+  -> ``layers.i`` by the transformer backbone's attention rules,
+  ``BiLSTM_0`` -> ``lstm.lstm``, ``Dense_0`` -> ``head``).
 * State: the acoustic filter's kernel, the running min/max
   (``stats/log_spec_{min,max}``, the vocoder's ``stats/feature_trsfm/
   log_mel_{min,max}``) and the glottal table (``batch_stats/
@@ -195,11 +207,84 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def load_flax_variables(module: nn.Module, variables: Mapping) -> None:
+def _params(variables: Mapping) -> Dict[str, Mapping]:
+    return variables.get("params", variables)
+
+
+def _dense(arrays: Mapping, name: str) -> Dict[str, torch.Tensor]:
+    return {f"{name}.weight": _t(np.asarray(arrays["kernel"]).T),
+            f"{name}.bias": _t(arrays["bias"])}
+
+
+def pitchnet_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``golf_tpu.models.pitchnet.PitchNet``'s variables (or the params
+    alone) -> ``models.pitchnet.PitchNet``'s state_dict, float32."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaves in _params(variables).items():
+        kind, _, idx = name.rpartition("_")
+        if kind == "Conv":
+            sd[f"convs.{idx}.weight"] = _t(
+                np.asarray(leaves["kernel"]).transpose(2, 1, 0))
+            sd[f"convs.{idx}.bias"] = _t(leaves["bias"])
+        elif kind == "LayerNorm":
+            sd[f"norms.{idx}.weight"] = _t(leaves["scale"])
+            sd[f"norms.{idx}.bias"] = _t(leaves["bias"])
+        elif name == "Dense_0":
+            sd.update(_dense(leaves, "dense"))
+        else:
+            raise KeyError(f"unexpected PitchNet parameter {name}")
+    return sd
+
+
+def lstm_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``golf_tpu.models.rnn.LSTM``'s variables -> ``models.rnn.LSTM``'s
+    state_dict: ``OptimizedLSTMCell_i`` is layer i of ``lstm``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, cell in _params(variables).items():
+        m = re.fullmatch(r"OptimizedLSTMCell_(\d+)", name)
+        if m is None:
+            raise KeyError(f"unexpected LSTM parameter {name}")
+        flat = {"/".join(k): v for k, v in _flatten(cell).items()}
+        for key, tensor in _lstm_cell(flat).items():
+            sd[f"lstm.{key}_l{m.group(1)}"] = tensor
+    return sd
+
+
+def topn_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``golf_tpu.models.tspn.TopNGenerator`` -> ``models.tspn.
+    TopNGenerator``: the stored embeddings as they are, ``Dense_0`` ->
+    ``proj``."""
+    p = _params(variables)
+    return {"embeddings": _t(p["embeddings"]), **_dense(p["Dense_0"], "proj")}
+
+
+def tspn_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``golf_tpu.models.tspn.TTSPNEncoder`` -> ``models.tspn.
+    TTSPNEncoder``: ``TTSPNEncoderLayer_i`` -> ``layers.i`` (the query,
+    key, value and out projections, ``ff1``, ``ff2``, ``norm1``,
+    ``norm2``), ``BiLSTM_0`` -> ``lstm.lstm``, ``Dense_0`` -> ``head``."""
+    sd: Dict[str, torch.Tensor] = {}
+    rest = {}
+    for name, sub in _params(variables).items():
+        m = re.fullmatch(r"TTSPNEncoderLayer_(\d+)", name)
+        if m is None:
+            rest[name] = sub
+            continue
+        for path, arr in _flatten(sub).items():
+            key, tensor = _attention_leaf(path, arr, 1)
+            sd[key.replace("layers.0.", f"layers.{m.group(1)}.", 1)] = tensor
+    sd.update(_dense(rest.pop("Dense_0"), "head"))
+    sd.update(flax_to_state_dict({"params": rest}))
+    return sd
+
+
+def load_flax_variables(module: nn.Module, variables: Mapping,
+                        convert=flax_to_state_dict) -> None:
     """Load converted variables into ``module`` strictly: every key of the
     module must come from the variables, except the batch norms' step
-    counters, which flax does not keep."""
-    sd = flax_to_state_dict(variables)
+    counters, which flax does not keep. ``convert`` is the conversion:
+    ``flax_to_state_dict`` or one of the standalone modules' functions."""
+    sd = convert(variables)
     own = module.state_dict()
     for key, value in own.items():
         if key.endswith("num_batches_tracked") and key not in sd:

@@ -30,6 +30,8 @@ _ALIASES = {
     "models.lpcnet": f"{_PKG}.models.lpcnet",
     "models.lpc": f"{_PKG}.models.lpc",
     "models.lru": f"{_PKG}.models.lru",
+    "models.crepe": f"{_PKG}.models.crepe",
+    "models.tspn": f"{_PKG}.models.tspn",
     "loss.spec": f"{_PKG}.loss.spec",
     "ltng.ae": f"{_PKG}.tasks.ae",
     "ltng.vocoder": f"{_PKG}.tasks.vocoder",

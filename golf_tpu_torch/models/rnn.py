@@ -1,4 +1,5 @@
-"""Recurrent backbone (counterpart of ``golf_tpu.models.rnn.BiLSTM``).
+"""Recurrent layers (counterpart of ``golf_tpu.models.rnn``): ``BiLSTM``,
+the encoders' backbone, and the one-way ``LSTM``.
 
 A bidirectional ``nn.LSTM`` (cuDNN on the GPU). The gate order (i, f, g, o)
 and activations are those of flax's ``OptimizedLSTMCell``; the bridge
@@ -137,3 +138,24 @@ class BiLSTM(nn.Module):
             if layer < self.lstm.num_layers - 1:
                 h = F.dropout(h, self.lstm.dropout, self.training)
         return h
+
+
+class LSTM(nn.Module):
+    """The one-way LSTM (counterpart of ``golf_tpu.models.rnn.LSTM``): a
+    unidirectional ``nn.LSTM`` (cuDNN fp32 on the GPU) with flax's gates
+    and its one bias, on the h side (``bias_ih_*`` stays zero and does not
+    train); ``dropout`` between layers in train mode."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.lstm = nn.LSTM(input_size, hidden_size, num_layers=num_layers,
+                            batch_first=True,
+                            dropout=dropout if num_layers > 1 else 0.0)
+        for name, prm in self.lstm.named_parameters():
+            if name.startswith("bias_ih"):
+                nn.init.zeros_(prm)
+                prm.requires_grad_(False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.lstm(x)[0]

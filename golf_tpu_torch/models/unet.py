@@ -408,21 +408,26 @@ class AttentionLayer(nn.Module):
         self.ff2 = nn.Linear(4 * channels, channels)
         self.norm2 = nn.LayerNorm(channels, eps=1e-6)
 
-    def forward(self, h: torch.Tensor, keep: Optional[torch.Tensor]
-                ) -> torch.Tensor:
-        """h (N, L, c); ``keep`` the (L, L) dropout multiplier (kept / keep
-        probability) shared by all N sequences and heads, or None."""
+    def forward(self, h: torch.Tensor, keep: Optional[torch.Tensor],
+                memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """h (N, L, c) the queries; the keys and values from ``memory``
+        (N, S, c) when given (cross-attention, as flax's ``attn(x,
+        memory)``), else from h; ``keep`` the (L, S) dropout multiplier
+        (kept / keep probability) shared by all N sequences and heads, or
+        None."""
         n, length, c = h.shape
         d = c // self.nhead
+        kv = h if memory is None else memory
 
-        def heads(proj):
-            return proj(h).view(n, length, self.nhead, d).transpose(1, 2)
+        def heads(proj, src):
+            return proj(src).view(n, src.shape[1], self.nhead,
+                                  d).transpose(1, 2)
 
-        q = true_divide(heads(self.query), math.sqrt(d))
-        w = torch.softmax(q @ heads(self.key).transpose(-1, -2), dim=-1)
+        q = true_divide(heads(self.query, h), math.sqrt(d))
+        w = torch.softmax(q @ heads(self.key, kv).transpose(-1, -2), dim=-1)
         if keep is not None:
             w = w * keep
-        a = (w @ heads(self.value)).transpose(1, 2).reshape(n, length, c)
+        a = (w @ heads(self.value, kv)).transpose(1, 2).reshape(n, length, c)
         h = self.norm1(h + self.out(a))
         return self.norm2(h + self.ff2(F.relu(self.ff1(h))))
 

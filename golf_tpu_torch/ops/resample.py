@@ -1,9 +1,14 @@
-"""Anti-aliased decimation (counterpart of ``golf_tpu.ops.resample``)."""
+"""Anti-aliased decimation (counterpart of ``golf_tpu.ops.resample``), and
+``resample_poly``, scipy's polyphase resampler on the device (the tools'
+resampling: ``scripts/resample_dir_torch.py``, ``eval_pesq_torch.py``)."""
 
 from __future__ import annotations
 
+from math import gcd
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .fftsize import conv_fft_size
 
@@ -60,3 +65,39 @@ def decimate(x: torch.Tensor, q: int, kernel: np.ndarray | None = None
     kf = torch.fft.rfft(kk, n=nfft, dim=-1)            # (q, F)
     conv = torch.fft.irfft(torch.sum(xf * kf, dim=-2), n=nfft, dim=-1)
     return conv[..., z:z + out_len]
+
+
+def _output_len(len_h: int, in_len: int, up: int, down: int) -> int:
+    return ((in_len - 1) * up + len_h - 1) // down + 1
+
+
+def resample_poly(x: np.ndarray, up: int, down: int, device) -> np.ndarray:
+    """``scipy.signal.resample_poly(x, up, down)`` for a 1-D signal, its
+    upfirdn as one float64 ``conv1d`` on ``device``."""
+    from scipy.signal import firwin
+
+    g = gcd(up, down)
+    up, down = up // g, down // g
+    x = np.asarray(x, np.float64)
+    if up == down == 1:
+        return x.copy()
+    n_in = x.shape[0]
+    n_out = n_in * up // down + bool(n_in * up % down)
+    max_rate = max(up, down)
+    half_len = 10 * max_rate
+    h = firwin(2 * half_len + 1, 1.0 / max_rate,
+               window=("kaiser", 5.0)) * up
+    n_pre_pad = down - half_len % down
+    n_post_pad = 0
+    n_pre_remove = (half_len + n_pre_pad) // down
+    while _output_len(len(h) + n_pre_pad + n_post_pad, n_in, up,
+                      down) < n_out + n_pre_remove:
+        n_post_pad += 1
+    h = np.concatenate([np.zeros(n_pre_pad), h, np.zeros(n_post_pad)])
+    xt = torch.from_numpy(x).to(device)
+    xu = xt.new_zeros((n_in - 1) * up + 1)
+    xu[::up] = xt
+    ht = torch.from_numpy(h[::-1].copy()).to(device)
+    y = F.conv1d(xu[None, None], ht[None, None], padding=len(h) - 1)[0, 0]
+    y = y[::down][n_pre_remove:n_pre_remove + n_out]
+    return y.cpu().numpy()

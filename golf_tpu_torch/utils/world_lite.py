@@ -1,12 +1,14 @@
 """WORLD analysis and synthesis on the host (counterpart of
-``golf_tpu.utils.world_lite``, copied as it is; its YIN variant and
-``get_f0`` are not ported). Pure numpy in float64:
+``golf_tpu.utils.world_lite``, copied as it is). Pure numpy in float64:
 
 * ``dio``: log-spaced lowpass channels, four event sequences a channel,
   the most stable candidate, then contour cleaning and a spectral
   refinement. The vocoder's and LPCNet's test steps score the f0 they
   re-estimate from the synthesised audio; ``golf_tpu``'s default
-  ``utils.native.dio`` (``method="dio"``) is this function.
+  ``utils.native.dio`` (``method="dio"``) is this function; ``get_f0``
+  calls it with pyworld's signature.
+* ``dio_yin``: the YIN (CMND) estimator a frame, the numpy twin of
+  ``native/worldlite.cpp``'s ``wl_dio``.
 * ``cheaptrick``, ``d4c`` and ``synthesize``: the spectral envelope, the
   band aperiodicity and the resynthesis of the WORLD baseline
   (``tasks/world_ae.py``); ``synthesize`` draws its noise from a numpy
@@ -186,6 +188,65 @@ def _refine_f0(x: np.ndarray, fs: int, f0: np.ndarray,
         if 0.7 * cf0 < refined < 1.35 * cf0:
             out[i] = refined
     return out
+
+
+def dio_yin(x: np.ndarray, fs: int, f0_floor: float = 65.0,
+            f0_ceil: float = 1047.0, frame_period: float = 5.0,
+            channels_in_octave: float = 2.0,
+            threshold: float = 0.15) -> Tuple[np.ndarray, np.ndarray]:
+    """Round-1 YIN (CMND) estimator, kept as the fast bulk-data-prep path
+    (the native C++ kernel implements this one)."""
+    x = np.asarray(x, np.float64)
+    hop = int(fs * frame_period / 1000)
+    tau_min = max(2, int(fs / f0_ceil))
+    tau_max = int(fs / f0_floor)
+    win = 2 * tau_max
+    n_frames = len(x) // hop + 1
+    f0 = np.zeros(n_frames)
+    xp = np.pad(x, (0, win + tau_max + 1))
+    for i in range(n_frames):
+        seg = xp[i * hop: i * hop + win]
+        f0[i] = _yin_pitch(seg, fs, tau_min, tau_max, threshold)
+    t = np.arange(n_frames) * frame_period / 1000
+    return f0, t
+
+
+def _yin_pitch(seg: np.ndarray, fs: int, tau_min: int, tau_max: int,
+               threshold: float) -> float:
+    w = len(seg) // 2
+    n = len(seg)
+    # YIN cross term r(tau) = sum_{i<w} seg[i] * seg[i+tau], via FFT
+    fa = np.fft.rfft(seg[:w], 2 * n)
+    fb = np.fft.rfft(seg, 2 * n)
+    cc = np.fft.irfft(np.conj(fa) * fb)[:w + 1]
+    cum = np.cumsum(seg ** 2)
+    pow0 = cum[w - 1]
+    pow_tau = cum[w - 1 + np.arange(w + 1)] - np.concatenate(
+        [[0], cum[np.arange(w)]])
+    d = pow0 + pow_tau - 2 * cc
+    d = np.maximum(d, 0)
+    # cumulative mean normalized difference
+    denom = np.cumsum(d[1:]) / np.arange(1, w + 1)
+    cmnd = np.ones(w + 1)
+    cmnd[1:] = d[1:] / np.maximum(denom, 1e-12)
+    tau_max = min(tau_max, w - 1)
+    below = np.where(cmnd[tau_min:tau_max] < threshold)[0]
+    if below.size:
+        tau = tau_min + below[0]
+        # walk to local minimum
+        while tau + 1 < tau_max and cmnd[tau + 1] < cmnd[tau]:
+            tau += 1
+    else:
+        tau = tau_min + int(np.argmin(cmnd[tau_min:tau_max]))
+        if cmnd[tau] > 0.5:
+            return 0.0
+    # parabolic interpolation
+    if 1 <= tau < w - 1:
+        a, b, c = cmnd[tau - 1], cmnd[tau], cmnd[tau + 1]
+        denom2 = a - 2 * b + c
+        if abs(denom2) > 1e-12:
+            tau = tau + 0.5 * (a - c) / denom2
+    return fs / tau if tau > 0 else 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -401,3 +462,12 @@ def synthesize(f0: np.ndarray, sp: np.ndarray, ap: np.ndarray, fs: int,
     # normalize by its square root to recover the target noise PSD
     y = y + yn / np.sqrt(np.maximum(wsum, 1e-6))
     return y.astype(np.float64)
+
+
+def get_f0(x: np.ndarray, fs: int, f0_floor: float = 65.0,
+           f0_ceil: float = 1047.0, frame_period: float = 5.0,
+           channels_in_octave: float = 2.0):
+    """pyworld-``get_f0`` partial equivalent (``models/utils.py:596-602``)."""
+    return dio(x, fs, f0_floor=f0_floor, f0_ceil=f0_ceil,
+               frame_period=frame_period,
+               channels_in_octave=channels_in_octave)
