@@ -6,8 +6,8 @@
 Phases (any failure exits non-zero):
 1. environment: versions, the card's name and power limit; TF32 off (for
    every phase, the train phase's step times included);
-2. build: the seven CUDA kernel entry points of the serving and training
-   paths (four sources, one ``nvcc`` each, started together), from
+2. build: the eight CUDA kernel entry points of the serving, training and
+   sharded paths (four sources, one ``nvcc`` each, started together), from
    ``golf_tpu_torch/kernels/csrc``, and ``tools/lookup_unsplit.cu`` beside
    them, with ``ptxas``'s registers and spills;
 3. kernels vs their plain PyTorch versions, on the card, at the shapes the
@@ -196,7 +196,25 @@ Phases (any failure exits non-zero):
     one-way LSTM, each card vs CPU (loss 1e-4 relative, gradients 1e-3 of
     max-abs; the CPU's reference runs with oneDNN off); a ``tools`` JSON
     line;
-18. summary: a ``kernels:`` line, the card, then one JSON line with the
+18. parallel: data-parallel and time-sharded training at full vctk width
+    (2 s segments, dropout 0, seeded weights): ranks spawned on the one
+    card over gloo (NCCL refuses two ranks on one device; the tensors and
+    every kernel stay on the card, gloo carries the collectives' CUDA
+    tensors through the host, and every time printed is gloo on one
+    card); B4's initial-state entry and the summary entry
+    (``golf_allpole_tv_summary``) at the shards' shapes, (64|32|16,
+    24 000), and B2 at a GOLF-ff shard's frames (6400, 960), each against
+    its plain version and float64; the single-process card step of each
+    case, then DP 2 x 1 (GOLF-ss and GOLF-ff, B = 64), time 1 x 2 (both,
+    B = 64) and time 2 x 2 (GOLF-ss, B = 32, four ranks), each rank's loss
+    within 2e-4 relative and every gradient within 5e-4 of max-abs of the
+    single-process step's, each rank's launches of the path's kernels a
+    step (the summary and B4's zi entry twice on GOLF-ss's time ranks);
+    a world-of-one NCCL ``multihost.initialize``; ``autoencode_torch.py
+    fit`` under ``torchrun --nproc_per_node=2`` (gloo) for 3 steps, one
+    checkpoint from rank 0; ``tools/train_pitchnet_torch.py --steps 50``
+    with its time a step and its eval line; a ``parallel`` JSON line;
+19. summary: a ``kernels:`` line, the card, then one JSON line with the
     kernel table; B1's and B3b's ``library_ms`` is ``F.grid_sample`` on the
     table padded with its first column, and its backward with respect to
     the table (B3a's is null: no one call returns its three outputs); B1's
@@ -212,7 +230,7 @@ Phases (any failure exits non-zero):
     ``weighted_ds`` and ``weighted`` (the weighted tables' shapes, with the
     variants phase's launches at them); B1's, B2's and B4's rows carry
     ``rtf`` (test_rtf_torch's shapes, the tools phase's launches there);
-19. last line: ``{"ok": true, "device": {...}}``.
+20. last line: ``{"ok": true, "device": {...}}``.
 Each phase's seconds are printed as it ends.
 
 Needs one CUDA device, and exits non-zero without one. Imports torch and
@@ -4183,6 +4201,490 @@ def phase_tools(tree: Path, out: Path, shapes: dict) -> tuple:
     return counts, summary, rows, rtf_counts
 
 
+# ---------------------------------------------------------------------------
+# phase parallel: data-parallel and time-sharded training (gloo, one card)
+# ---------------------------------------------------------------------------
+
+PAR_SECONDS = 2.0
+PAR_LOSS_TOL = 2e-4          # tests/test_seqpar.py's limits: loss relative,
+PAR_GRAD_TOL = 5e-4          # each gradient of its largest entry
+# (kind, decoder, (data, time), global batch): DP 2 x 1 and time 1 x 2 for
+# GOLF-ss and GOLF-ff at B = 64, time 2 x 2 for GOLF-ss at B = 32
+PAR_CASES = (("dp", "golf-precise", (2, 1), 64), ("dp", "golf", (2, 1), 64),
+             ("time", "golf-precise", (1, 2), 64),
+             ("time", "golf", (1, 2), 64),
+             ("time", "golf-precise", (2, 2), 32))
+# the kernels each case's path must launch on every rank, once a step
+PAR_PATHS = {("dp", "golf-precise"): ("lookup", "lookup_dtab", "allpole_tv",
+                                      "allpole_tv_adjoint"),
+             ("dp", "golf"): ("lookup", "lookup_dtab", "allpole_const",
+                              "allpole_const_adjoint"),
+             ("time", "golf-precise"): ("lookup", "lookup_dtab",
+                                        "allpole_tv", "allpole_tv_summary"),
+             ("time", "golf"): ("lookup", "lookup_dtab", "allpole_const",
+                                "allpole_const_adjoint")}
+
+
+def case_label(case) -> str:
+    kind, decoder, (d, t), b = case
+    return f"{kind} {d}x{t} {decoder} B={b}"
+
+
+def par_inputs(batch: int):
+    """The global batch of a case: synthetic voices with white noise at
+    -20 dB (as phase_train_vs_cpu), the noise field and the unvoiced
+    frames' f0, all seeded."""
+    x, f0 = requests(batch, PAR_SECONDS)
+    x = x + 0.1 * torch.randn(x.shape,
+                              generator=torch.Generator().manual_seed(8))
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(7))
+    random_f0 = 50 + 450 * torch.rand(
+        (batch, 1), generator=torch.Generator().manual_seed(9))
+    return x, f0, noise, random_f0
+
+
+def par_model(decoder: str, x: torch.Tensor, f0: torch.Tensor):
+    """The full-width model of a case on the card (dropout 0, so that every
+    layout draws nothing but the given fields), its running min/max from
+    the global batch."""
+    task = seeded_model(decoder, "cuda", train_model_config(decoder, 0.0))
+    task.init_running_stats(Sig(x.cuda(), 1), Sig(f0.cuda(), 1))
+    task.train()
+    return task
+
+
+def grad_errors(grads: dict, ref: dict, skip: str = None) -> tuple:
+    """(largest error of any gradient over its own largest entry, its name),
+    leaving out the names that contain ``skip``; the conv biases in front of
+    a train-mode batch norm, zero in exact arithmetic, against their conv
+    weight's gradient (10 x), as the CPU tests hold them."""
+    worst, name = 0.0, None
+    for k, r in ref.items():
+        if skip and skip in k:
+            continue
+        scale = r.abs().max().item()
+        if ".pyramid.convs." in k and k.endswith(".bias"):
+            scale = 10 * ref[k[:-4] + "weight"].abs().max().item()
+        e = (grads[k].cpu() - r).abs().max().item() / max(scale, 1e-30)
+        if e > worst:
+            worst, name = e, k
+    return worst, name
+
+
+def par_rank(rank: int, world: int, store: str, work: str, result_q):
+    """One rank of the parallel phase: every case in turn on the leading
+    ranks of its layout (the others sit it out), two steps each, the
+    second timed with the kernels' counts zeroed just before it."""
+    from golf_tpu_torch.parallel.mesh import make_mesh
+    from golf_tpu_torch.parallel.seqpar import make_sharded_train_step
+    import torch.distributed as dist
+    try:
+        # the ranks share the card: each returns its freed blocks
+        # (empty_cache after every step), and segments grow in place rather
+        # than fragment
+        import os
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=world, rank=rank,
+                                timeout=__import__("datetime").timedelta(
+                                    seconds=300))
+        kernels.build(kernels.ALL)          # binds the parent's libraries
+        out = {}
+        for case in PAR_CASES:
+            kind, decoder, layout, batch = case
+            mesh = make_mesh(*layout)
+            if not mesh.member:
+                continue
+            d = torch.load(Path(work) / f"{decoder}-{batch}.pt")
+            task = par_model(decoder, d["x"], d["f0"])
+            x, f0, noise, rf0 = (d[k].cuda() for k in
+                                 ("x", "f0", "noise", "random_f0"))
+            if kind == "dp":
+                trainer = Trainer(task, run_dir=str(Path(work) / "dp"),
+                                  mesh=mesh)
+
+                def step():
+                    m = trainer.loss_and_grads(Sig(x, 1), Sig(f0, 1),
+                                               noise=noise, random_f0=rf0)
+                    return float(m["loss"]), {
+                        n: p.grad for n, p in task.named_parameters()
+                        if p.requires_grad}
+            else:
+                sharded = make_sharded_train_step(task, mesh)
+
+                def step():
+                    loss, grads, _ = sharded(x, f0, noise=noise,
+                                             random_f0=rf0)
+                    return loss, grads
+            ref = torch.load(Path(work) / f"ref-{case_label(case)}.pt")
+            loss, grads = step()
+            worst, name = grad_errors(grads, ref["grads"])
+            worst_np, name_np = grad_errors(grads, ref["grads"], ".pyramid.")
+            del grads
+            torch.cuda.empty_cache()
+            # the same step with cuDNN off (native convolutions, batch norm
+            # and LSTM), against the single-process step with cuDNN off
+            with torch.backends.cudnn.flags(enabled=False):
+                loss_off, grads = step()
+            worst_off, name_off = grad_errors(grads, ref["grads_off"])
+            del grads
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels.ALL:
+                k.launches = 0
+                k.by_shapes = {}
+            (loss2, _), secs = timed(step)
+            out[case_label(case)] = {
+                "loss": loss, "loss_ref": ref["loss"],
+                "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
+                "grad_err": worst, "grad_err_at": name,
+                "grad_err_no_pyramid": worst_np,
+                "grad_err_no_pyramid_at": name_np,
+                "loss_rel_off": abs(loss_off - ref["loss_off"])
+                / abs(ref["loss_off"]),
+                "grad_err_off": worst_off, "grad_err_off_at": name_off,
+                "held_gib": held,
+                "second_loss": loss2, "step_ms": secs * 1e3,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "counts": {k.name: k.launches for k in kernels.ALL},
+                "shapes": {k.name: [list(map(list, s)) for s in k.by_shapes]
+                           for k in kernels.ALL if k.by_shapes}}
+            del task, step
+            torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        result_q.put((rank, out))
+    except BaseException as e:  # noqa: BLE001 - reported to the parent
+        import traceback
+        result_q.put((rank, f"{type(e).__name__}: {e}\n"
+                      f"{traceback.format_exc()}"))
+
+
+def par_references(work: Path) -> dict:
+    """The single-process card step of each case on its global batch, the
+    same weights, fields and running min/max: its loss and gradients (to
+    the CPU, for the ranks), and its step time (a second step, timed)."""
+    out = {}
+    for case in PAR_CASES:
+        kind, decoder, _, batch = case
+        path = work / f"{decoder}-{batch}.pt"
+        if not path.exists():
+            x, f0, noise, rf0 = par_inputs(batch)
+            torch.save({"x": x, "f0": f0, "noise": noise, "random_f0": rf0},
+                       path)
+        d = torch.load(path)
+        task = par_model(decoder, d["x"], d["f0"])
+        x, f0, noise, rf0 = (d[k].cuda() for k in
+                             ("x", "f0", "noise", "random_f0"))
+
+        def step():
+            for p in task.parameters():
+                p.grad = None
+            loss, _ = task.training_step(Sig(x, 1), Sig(f0, 1), noise=noise,
+                                         random_f0=rf0)
+            loss.backward()
+            return loss.item()
+
+        loss = step()
+        grads = {n: p.grad.cpu() for n, p in task.named_parameters()
+                 if p.requires_grad}
+        torch.cuda.empty_cache()
+        with torch.backends.cudnn.flags(enabled=False):
+            loss_off = step()
+        grads_off = {n: p.grad.cpu() for n, p in task.named_parameters()
+                     if p.requires_grad}
+        torch.save({"loss": loss, "grads": grads, "loss_off": loss_off,
+                    "grads_off": grads_off},
+                   work / f"ref-{case_label(case)}.pt")
+        torch.cuda.empty_cache()
+        _, secs = timed(step)
+        out[case_label(case)] = {"loss": loss, "step_ms": secs * 1e3}
+        del task, grads, grads_off
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_kernel_rows() -> dict:
+    """B4's initial-state entry and the summary entry at the shards'
+    shapes ((64, 24 000) a rank at 1 x 2, (16, 24 000) at 2 x 2, and the
+    (32, 24 000) of a 2 x 2 mesh at B = 64), and B2 on a GOLF-ff shard's
+    frames (64 x 100 windows of 960), each against its plain version and
+    float64, with its time and bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    t_loc = int(PAR_SECONDS * SR) // 2
+    rows = {}
+    for b in (64, 32, 16):
+        x = torch.randn((b, t_loc), generator=gen, device="cuda")
+        a = tv_coeffs(gen, b, t_loc)
+        zi = torch.randn((b, a.shape[2]), generator=gen, device="cuda")
+        p = a.shape[2]
+        y = allpole_cuda(x, a, zi)
+        plain = allpole_stream_plain(x, a, zi)
+        ref64 = allpole_scan(x.double(), a.double(), zi.double())
+        errs = (rel_err(y, plain), rel_err(y.double(), ref64))
+        print(f"[sharded] allpole_tv (B4) zi entry {tuple(x.shape)} p={p}: "
+              f"/ max|y| {errs[0]:.3e} against allpole_stream_plain "
+              f"(tolerance 1e-4), {errs[1]:.3e} against a float64 scan "
+              f"from zi (tolerance 1e-5)")
+        check(errs[0] <= 1e-4 and errs[1] <= 1e-5
+              and torch.isfinite(y).all().item(), f"B4 zi at B={b}")
+        rows[f"allpole_tv/{b}"] = dict(
+            err=(y - plain).abs().max().item(), err64=errs[1],
+            ms=cuda_ms(lambda: allpole_cuda(x, a, zi), 20),
+            plain_ms=cuda_ms(lambda: allpole_stream_plain(x, a, zi), 1,
+                             warmup=1, strict=False),
+            bound=bound(4 * (2 * x.numel() + a.numel() + zi.numel()),
+                        2 * a.numel()),
+            shapes=[list(x.shape), list(a.shape), list(zi.shape)])
+        m, v = tap.allpole_summary_cuda(x, a)
+        m32, v32 = tap.allpole_summary_plain(x, a)
+        m64, v64 = tap.allpole_summary_plain(x.double(), a.double())
+        # over 24 000 steps M decays below float64's range (the state's
+        # memory is short): a floor of 1e-30 keeps 0 / 0 out
+        def rel0(u, r):
+            return (u - r).abs().max().item() / max(r.abs().max().item(),
+                                                    1e-30)
+        e64 = max(rel0(m, m64), rel0(v, v64))
+        e32 = max(rel0(m, m32.double()), rel0(v, v32.double()))
+        end = torch.flip(ref64[:, -p:], (1,))
+        e_end = rel_err(torch.einsum("bij,bj->bi", m, zi.double()) + v, end)
+        print(f"[sharded] allpole_tv_summary {tuple(x.shape)} p={p}: M, v "
+              f"/ max|ref| {e64:.3e} against the plain version in float64 "
+              f"(tolerance 1e-9), {e32:.3e} against it in float32 "
+              f"(tolerance 1e-3: that form's own error); the map carries zi "
+              f"to the float64 scan's end state within {e_end:.3e} "
+              f"(tolerance 1e-5)")
+        check(e64 <= 1e-9 and e32 <= 1e-3 and e_end <= 1e-5,
+              f"summary entry at B={b}")
+        n = x.numel()
+        rows[f"allpole_tv_summary/{b}"] = dict(
+            err=max((m - m32.double()).abs().max().item(),
+                    (v - v32.double()).abs().max().item()), err64=e64,
+            ms=cuda_ms(lambda: tap.allpole_summary_cuda(x, a), 20),
+            plain_ms=cuda_ms(lambda: tap.allpole_summary_plain(x, a), 1,
+                             warmup=1, strict=False),
+            # x and a read once, M and v written; p (p + 1) float64 FMAs a
+            # sample (the state map's p + 1 columns)
+            bound=bound(4 * (n + a.numel()) + 8 * b * p * (p + 1),
+                        2 * p * (p + 1) * n, fp64=True),
+            shapes=[list(x.shape), list(a.shape)])
+        del x, a, zi, y, plain, ref64
+    n_ff = 64 * t_loc // 240
+    x = torch.randn((n_ff, 960), generator=gen, device="cuda")
+    a = lpc_coeffs(gen, (n_ff, 22), "cuda")
+    out = allpole_const_cuda(x, a)
+    ref = allpole_const_plain(x, a)
+    errs = (rel_err(out, ref), rel_err(out, allpole_const_scan64(x, a)))
+    print(f"[sharded] allpole_const (B2) on a GOLF-ff shard's frames "
+          f"{tuple(x.shape)}: / max|y| {errs[0]:.3e} against "
+          f"allpole_const_plain (tolerance 1e-5), {errs[1]:.3e} against "
+          f"allpole_const_scan64 (tolerance 1e-6)")
+    check(errs[0] <= 1e-5 and errs[1] <= 1e-6, "B2 at a shard's frames")
+    rows["allpole_const"] = dict(
+        err=(out - ref).abs().max().item(), err64=errs[1],
+        ms=cuda_ms(lambda: allpole_const_cuda(x, a), 50),
+        plain_ms=cuda_ms(lambda: allpole_const_plain(x, a), 3, strict=False),
+        bound=bound(4 * (2 * x.numel() + a.numel()), 2 * a.shape[1]
+                    * x.numel(), fp64=True),
+        shapes=[list(x.shape), list(a.shape)])
+    for name, r in rows.items():
+        print(f"[sharded] {name} {r['shapes'][0]}: {r['ms'] * 1e3:.1f} us, "
+              f"bound {r['bound'][0] * 1e3:.1f} us ({r['bound'][1]}), plain "
+              f"{r['plain_ms'] * 1e3:.1f} us")
+    return rows
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def par_nccl_world_one() -> dict:
+    """``multihost.initialize`` on NCCL with a world of one (this process,
+    the card): an all-reduce and a barrier through it, then the group is
+    destroyed."""
+    import torch.distributed as dist
+    from golf_tpu_torch.parallel import multihost
+    backend = multihost.initialize(
+        "nccl", f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    try:
+        t = torch.arange(4.0, device="cuda")
+        dist.all_reduce(t)
+        multihost.sync_global_devices("nccl")
+        ok = backend == "nccl" and dist.get_backend() == "nccl" and \
+            torch.equal(t.cpu(), torch.arange(4.0))
+        obj = multihost.broadcast_one_to_all({"run_dir": "runs/x"})
+    finally:
+        dist.destroy_process_group()
+    print(f"parallel: NCCL initialize with a world of one: backend "
+          f"{backend}, all-reduce and barrier ok {ok}, broadcast {obj}")
+    check(ok, "NCCL world-of-one initialize")
+    return {"backend": backend, "ok": ok}
+
+
+def par_cli(work: Path) -> dict:
+    """``autoencode_torch.py fit`` under ``torchrun --nproc_per_node=2`` on
+    the card (gloo: two ranks share it), 3 steps of synthetic.yaml with
+    golf.yaml at B = 8 x 1 s; rank 0 alone writes one checkpoint and the
+    metrics."""
+    run_dir = work / "cli"
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=2", "autoencode_torch.py", "fit", "--config",
+         "cfg/ae/synthetic.yaml", "--model", "cfg/ae/decoder/golf.yaml",
+         "data.init_args.n_items=16", "data.init_args.duration=1.0",
+         "data.init_args.batch_size=8", "trainer.max_steps=3",
+         "--run_dir", str(run_dir)],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600, env={**__import__("os").environ, "OMP_NUM_THREADS": "2"})
+    secs = time.perf_counter() - t0
+    tail = (out.stdout + out.stderr)[-2000:]
+    check(out.returncode == 0, f"torchrun fit exited {out.returncode}: "
+          f"{tail}")
+    vals = out.stdout.count("[val @ 3]")
+    ckpts = sorted(p.name for p in (run_dir / "ckpt").iterdir())
+    print(f"parallel: torchrun --nproc_per_node=2 autoencode_torch.py fit "
+          f"(gloo on one card) 3 steps in {secs:.1f} s (startup included): "
+          f"'[val @ 3]' printed {vals} time(s), checkpoints {ckpts}")
+    check(vals == 1 and "last" in ckpts
+          and sum(c.startswith("step=") for c in ckpts) == 1,
+          "torchrun fit: one validation print, one checkpoint and last, "
+          "from rank 0")
+    return {"seconds": secs, "checkpoints": ckpts}
+
+
+def par_pitchnet(work: Path) -> dict:
+    """``tools/train_pitchnet_torch.py --steps 50`` on the card."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import train_pitchnet_torch
+    res = train_pitchnet_torch.main(["--steps", "50", "--out",
+                                     str(work / "pitchnet.msgpack")])
+    check(np.isfinite(res["ms_per_step"]) and Path(res["out"]).exists(),
+          "train_pitchnet_torch wrote its weights")
+    w = pitchnet.load_model(res["out"], "cuda")
+    check(all(torch.isfinite(p).all().item() for p in w.parameters()),
+          "trained PitchNet reads back finite")
+    return res
+
+
+def phase_parallel() -> tuple:
+    """Data-parallel and time-sharded training on the one card (see the
+    module docstring); returns (the summed launches of the ranks' timed
+    steps, the phase's JSON, the sharded kernel rows)."""
+    import torch.multiprocessing as mp
+    print("parallel: the ranks are processes spawned on the one card over "
+          "gloo (NCCL refuses two ranks on one device); the tensors and "
+          "every kernel stay on the card, and gloo carries the collectives' "
+          "CUDA tensors through the host. Every time below is gloo on one "
+          "card: it is no measure of NCCL on several cards.")
+    rows = sharded_kernel_rows()
+    Path("runs").mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(prefix="parallel_", dir="runs")
+    work = Path(tmp.name)
+    t0 = time.perf_counter()
+    refs = par_references(work)
+    t_ref = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    world = max(d * t for _, _, (d, t), _ in PAR_CASES)
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=par_rank, args=(r, world,
+                                                str(work / "store"),
+                                                str(work), queue))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in range(world):
+            rank, out = queue.get(timeout=900)
+            check(not isinstance(out, str), f"parallel rank {rank}: {out}")
+            results[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=120)
+            if p.is_alive():
+                p.kill()
+    t_ranks = time.perf_counter() - t0
+    check(all(p.exitcode == 0 for p in procs),
+          f"parallel ranks' exit codes {[p.exitcode for p in procs]}")
+    counts = {k.name: 0 for k in kernels.ALL}
+    report = {}
+    for case in PAR_CASES:
+        kind, decoder, (d, t), batch = case
+        label = case_label(case)
+        ranks = [results[r][label] for r in range(d * t)]
+        path = PAR_PATHS[(kind, decoder)]
+        for r, res in enumerate(ranks):
+            print(f"parallel {label} rank {r} (gloo): loss {res['loss']:.6f} "
+                  f"vs single-process {res['loss_ref']:.6f} (rel "
+                  f"{res['loss_rel']:.2e}, tolerance {PAR_LOSS_TOL}); "
+                  f"gradients {res['grad_err']:.2e} of max-abs at "
+                  f"{res['grad_err_at']}, {res['grad_err_no_pyramid']:.2e} "
+                  f"outside the conv pyramid at "
+                  f"{res['grad_err_no_pyramid_at']} (tolerance "
+                  f"{PAR_GRAD_TOL}); with cuDNN off on both sides loss rel "
+                  f"{res['loss_rel_off']:.2e}, gradients "
+                  f"{res['grad_err_off']:.2e} at {res['grad_err_off_at']} "
+                  f"(tolerance {PAR_GRAD_TOL}); step {res['step_ms']:.1f} "
+                  f"ms, held before it {res['held_gib']:.2f} GiB, peak "
+                  f"{res['peak_gib']:.2f} GiB; launches {res['counts']}")
+            # cuDNN picks a convolution algorithm by shape and by the free
+            # memory (which the co-tenant ranks change), so a rank's conv
+            # pyramid sums in another order than the single process's: the
+            # pyramid is held with cuDNN off on both sides, where only the
+            # order of the batch sums differs
+            check(res["loss_rel"] <= PAR_LOSS_TOL
+                  and res["grad_err_no_pyramid"] <= PAR_GRAD_TOL
+                  and res["loss_rel_off"] <= PAR_LOSS_TOL
+                  and res["grad_err_off"] <= PAR_GRAD_TOL,
+                  f"{label} rank {r} vs the single-process step")
+            for name in path:
+                check(res["counts"][name] >= 1,
+                      f"{label} rank {r} launched {name}")
+            for name, n in res["counts"].items():
+                counts[name] += n
+        if kind == "time" and decoder == "golf-precise":
+            b_loc = batch // d
+            t_loc = int(PAR_SECONDS * SR) // t
+            want = [[b_loc, t_loc], [b_loc, t_loc, 22]]
+            check(all(want in res["shapes"]["allpole_tv"]
+                      and want in res["shapes"]["allpole_tv_summary"]
+                      for res in ranks),
+                  f"{label}: B4 and the summary at {want}")
+        report[label] = {
+            "backend": "gloo, one card", "ranks": d * t,
+            "step_ms": [res["step_ms"] for res in ranks],
+            "single_process_step_ms": refs[label]["step_ms"],
+            "loss_rel": max(res["loss_rel"] for res in ranks),
+            "grad_err": max(res["grad_err"] for res in ranks),
+            "grad_err_no_pyramid": max(res["grad_err_no_pyramid"]
+                                       for res in ranks),
+            "grad_err_cudnn_off": max(res["grad_err_off"] for res in ranks),
+            "peak_gib": [res["peak_gib"] for res in ranks],
+            "launches_per_rank": [res["counts"] for res in ranks]}
+    nccl = par_nccl_world_one()
+    cli_res = par_cli(work)
+    t0 = time.perf_counter()
+    pn = par_pitchnet(work)
+    pn["seconds"] = time.perf_counter() - t0
+    print(f"parallel: references {t_ref:.1f} s, ranks {t_ranks:.1f} s "
+          f"(spawn, build binding and every case)")
+    tmp.cleanup()
+    return counts, {"cases": report, "nccl_world_one": nccl, "cli": cli_res,
+                    "train_pitchnet": pn, "references_s": t_ref,
+                    "ranks_s": t_ranks}, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4279,6 +4781,14 @@ def main() -> int:
     add(tools_counts)
     disk_tmp.cleanup()
     t0 = done("tools", t0)
+    par_counts, parallel, par_rows = phase_parallel()
+    add(par_counts)
+    t0 = done("parallel", t0)
+    parallel["phase_s"] = phase_s["parallel"]
+    print(json.dumps({"parallel": {**parallel, "launches": par_counts}}))
+    rows["allpole_tv_summary"] = par_rows["allpole_tv_summary/64"]
+    train_shapes["allpole_tv_summary"] = tuple(
+        tuple(s) for s in par_rows["allpole_tv_summary/64"]["shapes"])
     print(json.dumps({"recipe": {
         "disk_fit_step_ms": [t * 1e3 for t in disk_probe.times],
         "golf_fs": fs,
@@ -4299,7 +4809,9 @@ def main() -> int:
                 # (allpole.py:400), with the shifted dots at allpole.py:403
                 "allpole_const_adjoint": "golf_tpu/ops/allpole_pallas.py:89",
                 "allpole_tv": "golf_tpu/ops/allpole_pallas.py:33",
-                "allpole_tv_adjoint": "golf_tpu/ops/allpole_pallas.py:33"}
+                "allpole_tv_adjoint": "golf_tpu/ops/allpole_pallas.py:33",
+                # no Pallas kernel: XLA's scan in golf_tpu
+                "allpole_tv_summary": "golf_tpu/parallel/seqpar.py:338"}
     table = []
     for k in kernels.ALL:
         r = rows[k.name]
@@ -4326,6 +4838,27 @@ def main() -> int:
                 "corner differences")
         if k.name == "allpole_const_adjoint":
             entry["also_replaces"] = "golf_tpu/ops/allpole.py:403-404"
+        if k.name == "allpole_tv_summary":
+            entry["shapes_note"] = ("a rank's window at 1 x 2, B = 64 x 2 s; "
+                                    "launches: the parallel phase's timed "
+                                    "steps, every rank")
+            entry["err64"] = r["err64"]
+        # the shards' shapes (phase parallel): B4's zi entry and the
+        # summary at (64|32|16, 24000), B2 on a GOLF-ff shard's frames
+        sharded = {key.split("/")[1]: row for key, row in par_rows.items()
+                   if "/" in key and key.split("/")[0] == k.name}
+        if k.name == "allpole_const":
+            sharded = {"frames": par_rows["allpole_const"]}
+        if sharded:
+            entry["sharded"] = {
+                b: {"shapes": row["shapes"], "max_abs_err": row["err"],
+                    "err_vs_float64": row["err64"], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
+                    "bound_by": row["bound"][1], "library_ms": None}
+                for b, row in sharded.items()}
+            entry["sharded_launches_per_rank_step"] = {
+                label: case["launches_per_rank"][0][k.name]
+                for label, case in parallel["cases"].items()}
         if k.name in ("lookup", "lookup_res"):
             entry["split"] = r["split"]
             entry["earlier_ms"] = r["earlier_ms"]

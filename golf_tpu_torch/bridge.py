@@ -236,6 +236,31 @@ def pitchnet_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def pitchnet_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of ``pitchnet_state_dict``: ``models.pitchnet.PitchNet``'s
+    state_dict -> ``{"params": ...}`` in ``golf_tpu``'s layout (float32
+    numpy), for writing a flax state file."""
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in state_dict.items():
+        a = value.detach().cpu().float().numpy()
+        mod, *idx, leaf = key.split(".")
+        if mod == "convs":
+            params.setdefault(f"Conv_{idx[0]}", {})[
+                "kernel" if leaf == "weight" else "bias"] = \
+                np.ascontiguousarray(a.transpose(2, 1, 0)) \
+                if leaf == "weight" else a
+        elif mod == "norms":
+            params.setdefault(f"LayerNorm_{idx[0]}", {})[
+                "scale" if leaf == "weight" else "bias"] = a
+        elif mod == "dense":
+            params.setdefault("Dense_0", {})[
+                "kernel" if leaf == "weight" else "bias"] = \
+                np.ascontiguousarray(a.T) if leaf == "weight" else a
+        else:
+            raise KeyError(f"unexpected PitchNet state {key}")
+    return {"params": params}
+
+
 def lstm_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     """``golf_tpu.models.rnn.LSTM``'s variables -> ``models.rnn.LSTM``'s
     state_dict: ``OptimizedLSTMCell_i`` is layer i of ``lstm``."""

@@ -164,6 +164,9 @@ ALLPOLE_TV = CudaKernel(
 ALLPOLE_TV_ADJ = CudaKernel(
     "allpole_tv_adjoint", "allpole_tv.cu", "golf_allpole_tv_adjoint",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+ALLPOLE_TV_SUMMARY = CudaKernel(
+    "allpole_tv_summary", "allpole_tv.cu", "golf_allpole_tv_summary",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 
 ALL = (LOOKUP, LOOKUP_RES, LOOKUP_DTAB, ALLPOLE_CONST, ALLPOLE_CONST_ADJ,
-       ALLPOLE_TV, ALLPOLE_TV_ADJ)
+       ALLPOLE_TV, ALLPOLE_TV_ADJ, ALLPOLE_TV_SUMMARY)

@@ -17,7 +17,10 @@
 // tap j reads a[b, T - m + j, j] for j < m (zero otherwise), g is read and
 // dx written at T - 1 - m. The two entries differ only in where a step's
 // operands are read, so the adjoint equals the forward entry on the
-// materialised operands bit for bit.
+// materialised operands bit for bit. golf_allpole_tv_summary returns a
+// sequence's affine end-state map in float64 (the time-sharded filter's
+// boundary exchange): phase 1 below over every chunk, the last included,
+// then one CTA per sequence keeps the product of the chunk maps.
 //
 // Design: the chunked two-pass form, three kernels on the caller's stream.
 // Steps (time, or reversed time) are cut into chunks of L (from the caller).
@@ -352,6 +355,53 @@ carry_kernel(const double* __restrict__ maps, const float* __restrict__ zi,
 }
 
 // ---------------------------------------------------------------------------
+// The summary's composition. One CTA per sequence keeps the product
+// W = [M | v] (p x (p + 1), by column, as the maps are stored) of the K
+// chunk maps, W <- M_k W + [0 | v_k], instead of applying it to a state:
+// thread e computes entries e, e + nt, ... of the next product from the
+// map in shared memory. It writes M (B, p, p), row-major, entry (i, j) the
+// end state's component i for a unit incoming component j, and v (B, p),
+// the end state from a zero incoming state, both float64.
+// ---------------------------------------------------------------------------
+
+__global__ void compose_kernel(const double* __restrict__ maps,
+                               double* __restrict__ m_out,
+                               double* __restrict__ v_out, int p, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int per_map = (p + 1) * p;
+  double* w = reinterpret_cast<double*>(smem_raw);     // [p + 1][p]
+  double* wn = w + per_map;                            // the next product
+  double* mk = wn + per_map;                           // map k
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const double* mb = maps + (size_t)b * K * per_map;
+  for (int e = tid; e < per_map; e += nt) {
+    const int c = e / p, i = e % p;
+    w[e] = (c == i) ? 1.0 : 0.0;
+  }
+  for (int k = 0; k < K; ++k) {
+    __syncthreads();                      // w set; mk free
+    for (int e = tid; e < per_map; e += nt) mk[e] = mb[(size_t)k * per_map + e];
+    __syncthreads();
+    for (int e = tid; e < per_map; e += nt) {
+      const int c = e / p, i = e % p;
+      double acc = (c == p) ? mk[p * p + i] : 0.0;
+      for (int j = 0; j < p; ++j) acc = fma(mk[j * p + i], w[c * p + j], acc);
+      wn[e] = acc;
+    }
+    __syncthreads();
+    for (int e = tid; e < per_map; e += nt) w[e] = wn[e];
+  }
+  __syncthreads();
+  for (int e = tid; e < per_map; e += nt) {
+    const int c = e / p, i = e % p;
+    if (c < p)
+      m_out[((size_t)b * p + i) * p + c] = w[e];
+    else
+      v_out[(size_t)b * p + i] = w[e];
+  }
+}
 
 cudaError_t allow_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -395,6 +445,31 @@ cudaError_t run(const float* x, const float* a, const float* zi, float* y,
   return cudaGetLastError();
 }
 
+// The summary: phase 1 over every chunk, the last included (the maps' stride
+// is K, so the kernel is given K + 1 chunks and launched over K), then the
+// composition.
+template <int P>
+cudaError_t run_summary(const float* x, const float* a, double* m_out,
+                        double* v_out, double* scratch, int B, int T, int p,
+                        int L, cudaStream_t stream) {
+  const int K = (T + L - 1) / L;
+  cudaError_t err;
+  const int nt = 32 * ((p + 1 + 31) / 32);
+  const size_t smem = chunk_smem<P, true>(p, nt);
+  auto* k1 = chunk_kernel<P, false, true>;
+  if ((err = allow_smem((const void*)k1, smem)) != cudaSuccess) return err;
+  k1<<<dim3(K, B), nt, smem, stream>>>(x, a, nullptr, scratch, nullptr, T, p,
+                                        L, K + 1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t smem2 = 3 * (size_t)(p + 1) * p * sizeof(double);
+  if ((err = allow_smem((const void*)compose_kernel, smem2)) != cudaSuccess)
+    return err;
+  const int warps = min(16, (p * (p + 1) + 31) / 32);
+  compose_kernel<<<B, 32 * warps, smem2, stream>>>(scratch, m_out, v_out, p,
+                                                   K);
+  return cudaGetLastError();
+}
+
 template <bool ADJ>
 int dispatch(const float* x, const float* a, const float* zi, float* y,
              double* scratch, int B, int T, int p, int L, int device,
@@ -430,4 +505,25 @@ extern "C" int golf_allpole_tv_adjoint(const float* g, const float* a,
                                        int L, int device,
                                        cudaStream_t stream) {
   return dispatch<true>(g, a, zi, dx, scratch, B, T, p, L, device, stream);
+}
+
+// The affine end-state summary of each sequence (B, T): s_out = M s_in + v,
+// the state after the last step as a function of the state before the
+// first, in float64. m_out (B, p, p), v_out (B, p); scratch: B ceil(T / L)
+// (p + 1) p doubles of chunk maps. Replaces the XLA computation of
+// golf_tpu/parallel/seqpar.py::_local_affine_summary, which the time-sharded
+// all-pole filter runs once per shard in its forward and in its backward.
+extern "C" int golf_allpole_tv_summary(const float* x, const float* a,
+                                       double* m_out, double* v_out,
+                                       double* scratch, int B, int T, int p,
+                                       int L, int device,
+                                       cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (p < 1 || p > 64 || L < 1 || T < 1 || B < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (p == kRingOrder)
+    return (int)run_summary<kRingOrder>(x, a, m_out, v_out, scratch, B, T, p,
+                                        L, stream);
+  return (int)run_summary<0>(x, a, m_out, v_out, scratch, B, T, p, L, stream);
 }

@@ -4,7 +4,8 @@ SSSLoss: |STFT| L1 + alpha * log2-magnitude L1.
 MSSLoss: the sum of SSSLoss over ``n_ffts`` at 75% overlap (the
 Interspeech24 recipe uses the primes 509, 1021, 2053).
 MSSLossV2: pluggable distance and compression.
-The time-sharded branch of ``golf_tpu`` is not ported.
+Under time sharding (``parallel.seqpar``) SSSLoss takes this rank's frames
+and sums over the time group.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from ..core.sig import Sig
 from ..ops import stft as stft_ops
+from ..parallel import seqpar
 
 
 def _as_tensor(x):
@@ -35,6 +37,13 @@ class SSSLoss:
 
     def __call__(self, pred, target) -> torch.Tensor:
         hop = self.hop_length or self.n_fft // 4
+        env = seqpar.current()
+        if env is not None:
+            if not self.center:
+                raise ValueError("the time-sharded SSSLoss needs center")
+            return seqpar.sss_loss_sharded(
+                _as_tensor(pred), _as_tensor(target), self.n_fft, hop,
+                self.alpha, self.window, self.eps, env)
         s_pred = stft_ops.spectrogram(_as_tensor(pred), self.n_fft, hop,
                                       window=self.window, power=1.0,
                                       center=self.center)

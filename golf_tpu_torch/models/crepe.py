@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.sig import Sig
+from ..parallel.mesh import train_batch_norm
 from .enc import BackboneModelInterface, check_mode
 
 
@@ -28,13 +29,7 @@ class BatchNorm1d(nn.BatchNorm1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        with torch.no_grad():
-            self.running_mean.lerp_(x.mean(dim=(0, 2)), self.momentum)
-            self.running_var.lerp_(x.var(dim=(0, 2), unbiased=False),
-                                   self.momentum)
-            self.num_batches_tracked += 1
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        return train_batch_norm(self, x)
 
 
 class CREPE(BackboneModelInterface):

@@ -14,6 +14,8 @@ from torch import nn
 
 from ..core.sig import Sig, true_divide
 from ..ops import stft as stft_ops
+from ..parallel.collectives import all_min_max
+from ..parallel.mesh import current_data
 from .ctrl import split_heads
 from .rnn import BiLSTM
 
@@ -45,13 +47,17 @@ def check_mode(module: nn.Module, train: bool) -> None:
 def _running_minmax(mdl: nn.Module, value: torch.Tensor, train: bool,
                     prefix: str = "log_spec") -> torch.Tensor:
     """Normalise by running min/max buffers (``{prefix}_min``/``_max``,
-    starting at +inf/-inf), updated only in train mode."""
+    starting at +inf/-inf), updated only in train mode (with the min/max
+    over the data group in a data-parallel step)."""
     vmin = getattr(mdl, f"{prefix}_min")
     vmax = getattr(mdl, f"{prefix}_max")
     if train:
         with torch.no_grad():
-            vmin.copy_(torch.minimum(vmin, value.min()))
-            vmax.copy_(torch.maximum(vmax, value.max()))
+            shard = current_data()
+            lo, hi = all_min_max(value, shard.group) if shard is not None \
+                else (value.min(), value.max())
+            vmin.copy_(torch.minimum(vmin, lo))
+            vmax.copy_(torch.maximum(vmax, hi))
     return (value - vmin) / (vmax - vmin)
 
 

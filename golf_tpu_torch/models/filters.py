@@ -21,7 +21,10 @@
   ``LTVMLSAFilter2`` and ``LTVAPFilter``, and ``DiffWorldSPFilter``
   (∇WORLD).
 
-The sharded branches of ``golf_tpu`` are not ported.
+Under time sharding (``parallel.seqpar``) ``LTVMinimumPhaseFilterPrecise``,
+``LTVMinimumPhaseFilter``, ``LTVZeroPhaseFIRFilter`` and
+``LTIAcousticFilter`` run on the rank's window with their boundary
+exchanges; the other filters have no sharded branch yet.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from ..ops.dsp import (biquads2lpc, coeff_product, complex2biquads,
                        minimum_phase_fir, minimum_phase_spectrum,
                        params2biquads, rc2lpc, unfold, zero_phase_fir)
 from ..ops.fftsize import conv_fft_size
+from ..parallel import seqpar
 from .ctrl import Controllable
 
 
@@ -143,6 +147,14 @@ class LTVMinimumPhaseFilterPrecise(LTVFilterInterface):
                 Sig(self._logits2lpc(lpc_logits.data), lpc_logits.hop))
 
     def forward(self, ex: Sig, gain: Sig, a: Sig) -> Sig:
+        env = seqpar.current()
+        if env is not None:
+            # time-sharded: the gain and coefficients of this rank's window,
+            # then the filter with the affine-summary boundary exchange
+            g = seqpar.localize(gain, env, 1) if gain.hop > 1 else gain
+            a_loc = seqpar.localize(a, env, 1) if a.hop > 1 else a
+            return Sig(seqpar.allpole_sharded(ex.data * g.data, a_loc.data,
+                                              env), 1)
         exg = ex * gain                       # hop-broadcast multiply
         a_up = a.reduce_hop_length()
         t = min(exg.steps, a_up.steps)
@@ -167,6 +179,7 @@ class LTVMinimumPhaseFilter(LTVMinimumPhaseFilterPrecise):
     def __init__(self, window: str = "hanning", window_length: int = 960,
                  centred: bool = True, **kwargs):
         super().__init__(**kwargs)
+        self.window = window
         self.window_length = window_length
         self.centred = centred
         win = get_window_fn(window)(window_length)
@@ -179,6 +192,9 @@ class LTVMinimumPhaseFilter(LTVMinimumPhaseFilterPrecise):
         if ws < 2 * hop:
             raise ValueError(f"window {ws} < 2 * hop {hop}")
         padding = ws // 2
+        env = seqpar.current()
+        if env is not None:
+            return Sig(self._forward_sharded(ex, gain, a, env), 1)
         exg = (ex if self.centred else Sig(ex.data[:, hop // 2:], 1)) * gain
         frames = unfold(F.pad(exg.data, (padding, padding)), ws, hop)
         f = min(frames.shape[1], a.steps)
@@ -192,6 +208,27 @@ class LTVMinimumPhaseFilter(LTVMinimumPhaseFilterPrecise):
         if not self.centred:
             y = F.pad(y[:, None], (hop // 2, 0), mode="reflect")[:, 0]
         return Sig(y, 1)
+
+
+    def _forward_sharded(self, ex: Sig, gain: Sig, a: Sig, env
+                         ) -> torch.Tensor:
+        """This rank's frames (B2 on the card) and the overlap-add with its
+        neighbours' spilled edges (``seqpar.frame_ola_sharded``)."""
+        if not self.centred:
+            raise ValueError("the time-sharded GOLF-ff filter needs centred")
+        exg = ex.data * seqpar.localize(gain, env, 1).data
+        a_l = seqpar.localize_frames(a, env).data          # (B, F_loc, p)
+        p = a_l.shape[-1]
+
+        def per_frame(frames):
+            b, f, w = frames.shape
+            out = allpole_const(frames.reshape(-1, w).contiguous(),
+                                a_l.reshape(-1, p).contiguous())
+            return out.reshape(b, f, w)
+
+        return seqpar.frame_ola_sharded(
+            per_frame, exg, get_window_fn(self.window)(self.window_length),
+            gain.hop, env)
 
 
 class SampleBasedLTVMinimumPhaseFilter(LTVMinimumPhaseFilterPrecise):
@@ -301,6 +338,11 @@ class LTVZeroPhaseFIRFilter(LTVZeroPhaseFIRFilterPrecise):
         kernel = self._window_kernel(zero_phase_fir(log_mag.data))
         k = kernel.shape[-1]
         padding = (k - 1) // 2
+        env = seqpar.current()
+        if env is not None:
+            kl = seqpar.localize_frames(Sig(kernel, hop), env)
+            return Sig(seqpar.fir_frame_conv_sharded(
+                ex.data, kl.data, hop, padding, True, env), 1)
         frames = unfold(F.pad(ex.data, (padding, padding)), k + hop - 1, hop)
         f = min(frames.shape[1], kernel.shape[1])
         out = _fft_frame_conv(frames[:, :f], kernel[:, :f], hop,
@@ -335,6 +377,17 @@ class LTIAcousticFilter(FilterInterface):
         x = ex.data
         t = x.shape[-1]
         l = self.length - 1
+        env = seqpar.current()
+        if env is not None:
+            # strictly causal taps: a left halo of L - 1 samples, then one
+            # valid FFT correlation a shard
+            ext = torch.cat([seqpar.halo_left(x, l, env), x], dim=1)
+            nfft = 1 << (ext.shape[1] + l - 2).bit_length()
+            conv = torch.fft.irfft(
+                torch.fft.rfft(ext, n=nfft)
+                * torch.fft.rfft(torch.flip(self.kernel, (0,)), n=nfft),
+                n=nfft)
+            return ex + Sig(conv[:, l - 1:l - 1 + t], 1)
         nfft = 1 << (t + l - 1).bit_length()
         conv = torch.fft.irfft(
             torch.fft.rfft(x[:, :-1], n=nfft)

@@ -5,7 +5,10 @@ reference signal's device, or takes it through ``noise``, so a test can
 feed two implementations the same field: a normal field
 (``StandardNormalNoise``), a uniform one in [0, 1) (``UniformNoise``), one
 uniform in [-1, 1) a sequence (``SignFlipNoise``) or the (B, bands)
-circular offsets of ``NoiseBand``.
+circular offsets of ``NoiseBand``. In a data-parallel step
+(``parallel.mesh.data_parallel``) the normal field is drawn over the global
+batch and sliced to this rank's rows; under time sharding over the global
+(B, T) and sliced to the rank's rows and window.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import torch
 from scipy import signal as scipy_signal
 
 from ..core.sig import Sig
+from ..parallel import seqpar
+from ..parallel.mesh import draw_rows
 from .ctrl import Controllable
 
 
@@ -45,10 +50,18 @@ class StandardNormalNoise(NoiseInterface):
     def forward(self, ref: Sig, *args,
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None, **kwargs) -> Sig:
+        env = seqpar.current()
+        if env is not None and ref.ndim == 2:
+            # time-sharded: drawn over the global (B, T) and sliced, so the
+            # field does not depend on the layout (``noise`` is global too)
+            return ref.new(seqpar.slice_global_rng(
+                generator, (env.b_global, env.t_global), env, "normal",
+                ref.dtype, ref.data.device, field=noise))
         z = _field(ref, ref.shape, noise)
         if z is None:
-            z = torch.randn(ref.shape, generator=generator, dtype=ref.dtype,
-                            device=ref.data.device)
+            z = draw_rows(lambda shape: torch.randn(
+                shape, generator=generator, dtype=ref.dtype,
+                device=ref.data.device), ref.shape)
         return ref.new(z)
 
 

@@ -6,7 +6,8 @@ noise, through the time-varying all-pole ``end_filter`` and the LTI
 ``room_filter``. With a ``target`` the synthesizer runs in the excitation
 domain instead: the end filter's ``reverse`` scales the source and
 inverse-filters the target, the room filter is not run, and the pair
-(source, inverse-filtered target) is returned.
+(source, inverse-filtered target) is returned. Under time sharding the
+voicing gate is localized to the rank's window.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from torch import nn
 
 from ..core.sig import Sig, sig_where
+from ..parallel import seqpar
 from .ctrl import Synth
 
 
@@ -47,6 +49,9 @@ class SourceFilterSynth(Synth):
                 noise: Optional[torch.Tensor] = None, **other_params):
         harm_osc = self.harm_oscillator(phase, *harm_oscillator_params)
         if voicing is not None:
+            env = seqpar.current()
+            if env is not None and voicing.hop > 1:
+                voicing = seqpar.localize(voicing, env, 1)
             harm_osc = harm_osc * sig_where(voicing > 0.5, voicing, 0.0)
         noise_sig = self.noise_generator(harm_osc, *noise_generator_params,
                                          generator=generator, noise=noise)

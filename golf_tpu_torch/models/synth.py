@@ -10,6 +10,9 @@ weighted ones mix all of them by a softmax a frame (``weight @ table``);
 ``WrappedPhaseDownsampledIndexedGlottalFlowTable`` takes a phase that is
 already wrapped. The sine banks
 take harmonic k's phase as k times one wrapped cumsum of the base phase.
+Under time sharding (``parallel.seqpar``) the indexed tables run on this
+rank's window; the weighted tables and the sine banks have no sharded
+branch yet.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from ..ops.dsp import wrapped_cumsum
 from ..ops.lf import build_glottal_table
 from ..ops.lookup import lookup_blocks
 from ..ops.resample import decimate
+from ..parallel import seqpar
 from .ctrl import Controllable
 
 
@@ -34,14 +38,24 @@ class OscillatorInterface(Controllable):
 
 
 def _bilinear_table_lookup(wrapped_phase: torch.Tensor, tables: torch.Tensor,
-                           hop: int) -> torch.Tensor:
+                           hop: int, row0: Optional[int] = None
+                           ) -> torch.Tensor:
     """wrapped_phase: (B, T) in [0, 1); tables: (B, frames, S) at frame hop
     ``hop``. Every block of ``hop`` samples interpolates between the same
-    two table rows, so time is reshaped to (blocks, hop). Returns (B, T)."""
+    two table rows, so time is reshaped to (blocks, hop). Returns (B, T).
+    With ``row0`` (time sharding) the phase is a window whose first sample
+    sits at frame ``row0``: the window's rows are sliced from the tables,
+    edge-held past their end."""
     b, t = wrapped_phase.shape
     blocks = (t + hop - 1) // hop
     frames = tables.shape[1]
-    if frames < blocks + 1:
+    if row0 is not None:
+        need = blocks + 1
+        tables = torch.cat([tables, tables[:, -1:].expand(-1, need, -1)],
+                           dim=1)
+        row0 = min(row0, tables.shape[1] - need)
+        tables = tables[:, row0:row0 + need]
+    elif frames < blocks + 1:
         tables = torch.cat(
             [tables, tables[:, -1:].expand(-1, blocks + 1 - frames, -1)],
             dim=1)
@@ -106,6 +120,10 @@ class IndexedGlottalFlowTable(GlottalFlowTable):
                 phase_offset: Optional[Sig] = None) -> Sig:
         if table_select_weight.ndim != 2:
             raise ValueError("table_select_weight must be (B, frames)")
+        env = seqpar.current()
+        if env is not None:
+            return self._forward_sharded(phase, table_select_weight,
+                                         phase_offset, env)
         interp = self._interp_tables(table_select_weight)
         k = self.oversampling
         if k > 1:
@@ -121,6 +139,44 @@ class IndexedGlottalFlowTable(GlottalFlowTable):
         if k > 1:
             y = Sig(decimate(y.data, k), 1)
         return y
+
+    def _forward_sharded(self, phase: Sig, table_select_weight: Sig,
+                         phase_offset: Optional[Sig], env) -> Sig:
+        """This shard's source: the oversampled phase of its window
+        (``upsample_local``), the global wrapped cumsum, the lookup against
+        its rows of the replicated table frames (B1, or B3a with B3b, on
+        the card), then the halo-exchanged decimation."""
+        if phase_offset is not None:
+            raise NotImplementedError("phase_offset is not time-sharded")
+        if phase.hop != 1:
+            raise ValueError("time sharding expects a sample-rate phase")
+        interp = self._interp_tables(table_select_weight)   # global frames
+        k = self.oversampling
+        ph = seqpar.upsample_local(phase.data / k, k, env) if k > 1 \
+            else phase.data
+        wrapped = seqpar.global_wrapped_cumsum(ph, env)
+        hop_os = interp.hop * k
+        t_os_loc = ph.shape[1]
+        if t_os_loc % hop_os:
+            raise ValueError(f"T_local {t_os_loc} is not a multiple of the "
+                             f"table hop {hop_os}")
+        out = _bilinear_table_lookup(
+            wrapped, interp.data, hop_os,
+            row0=seqpar.tidx(env) * (t_os_loc // hop_os))
+        if self.equal_energy:
+            pos = ph > 0
+            out = out * torch.where(
+                pos, torch.rsqrt(torch.where(pos, ph, torch.ones_like(ph))),
+                torch.zeros_like(ph))
+        if k > 1:
+            # zero the oversampled tail past the global (T - 1) k, then
+            # decimate with halos
+            gidx = seqpar.tidx(env) * t_os_loc + torch.arange(
+                t_os_loc, device=out.device)
+            out = torch.where(gidx <= (env.t_global - 1) * k, out,
+                              torch.zeros_like(out))
+            out = seqpar.decimate_sharded(out, k, env)
+        return Sig(out, 1)
 
 
 class WeightedGlottalFlowTable(GlottalFlowTable):

@@ -38,6 +38,7 @@ from ..core.sig import Sig, true_divide
 from ..ops import stft as stft_ops
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.mesh import train_batch_norm
 from .enc import BackboneModelInterface, _running_minmax, check_mode
 from .lru import LRU
 from .rnn import BiLSTM
@@ -61,13 +62,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        with torch.no_grad():
-            self.running_mean.lerp_(x.mean(dim=(0, 2, 3)), self.momentum)
-            self.running_var.lerp_(x.var(dim=(0, 2, 3), unbiased=False),
-                                   self.momentum)
-            self.num_batches_tracked += 1
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        return train_batch_norm(self, x)
 
 
 def env_features(spec: torch.Tensor, f0_d: torch.Tensor, sample_rate: int,

@@ -45,7 +45,7 @@ import torch
 
 from ..core.sig import linear_upsample
 from ..kernels import (ALLPOLE_CONST, ALLPOLE_CONST_ADJ, ALLPOLE_TV,
-                       ALLPOLE_TV_ADJ)
+                       ALLPOLE_TV_ADJ, ALLPOLE_TV_SUMMARY)
 from ._checks import check_kernel_inputs
 from .dsp import rc2lpc
 
@@ -361,6 +361,75 @@ def allpole_adjoint_cuda(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """The time-varying kernel's adjoint entry: dx of the cotangent g (B, T)
     for coefficients a (B, T, p), read in place."""
     return _allpole_tv_launch(ALLPOLE_TV_ADJ, "allpole_adjoint", g, a)
+
+
+def allpole_summary_cuda(x: torch.Tensor, a: torch.Tensor):
+    """The time-varying kernel's summary entry: the affine end-state map of
+    each row, ``s_out = M s_in + v`` (state component i the output i + 1
+    steps back), as float64 M (B, p, p) and v (B, p). x: (B, T), a:
+    (B, T, p), fp32, contiguous."""
+    check_kernel_inputs("allpole_summary", x=x, a=a)
+    b, t = x.shape
+    if a.ndim != 3 or a.shape[:2] != (b, t) or \
+            not 1 <= a.shape[2] <= MAX_ORDER or not 1 <= b <= 65535 or t < 1:
+        raise ValueError(f"allpole_summary: x (B, T) and a (B, T, "
+                         f"1..{MAX_ORDER}), got {tuple(x.shape)}, "
+                         f"{tuple(a.shape)}")
+    p = a.shape[2]
+    m = torch.empty((b, p, p), dtype=torch.float64, device=x.device)
+    v = torch.empty((b, p), dtype=torch.float64, device=x.device)
+    scratch = torch.empty(b * -(-t // CHUNK) * (p + 1) * p,
+                          dtype=torch.float64, device=x.device)
+    ALLPOLE_TV_SUMMARY.launch(
+        x.data_ptr(), a.data_ptr(), m.data_ptr(), v.data_ptr(),
+        scratch.data_ptr(), b, t, p, CHUNK, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream,
+        shapes=(tuple(x.shape), tuple(a.shape)))
+    return m, v
+
+
+def _divisor_block(t: int) -> int:
+    """The divisor of t in [8, 1024] closest to sqrt(t), or t when there is
+    none (``golf_tpu``'s ``seqpar._divisor_block``): the summary must not
+    zero-pad to a block multiple, since a padded step shifts zeros into
+    the tracked state and corrupts the end-state map."""
+    target = max(8, int(math.sqrt(t)))
+    best = None
+    for l in range(8, min(t, 1024) + 1):
+        if t % l == 0 and (best is None
+                           or abs(l - target) < abs(best - target)):
+            best = l
+    return best or t
+
+
+def allpole_summary_plain(x: torch.Tensor, a: torch.Tensor):
+    """Plain version of the summary entry, ``golf_tpu``'s
+    ``_local_affine_summary`` in x's dtype: every block of
+    ``_divisor_block(T)`` steps tracks its map (the state's response to each
+    incoming component and the zero-state response), then the block maps
+    compose. Returns (M (B, p, p), v (B, p))."""
+    bsz, t = x.shape
+    p = a.shape[-1]
+    l = _divisor_block(t)
+    k = t // l
+    xp = x.reshape(bsz, k, l)
+    ap = a.reshape(bsz, k, l, p)
+    w = torch.cat([torch.eye(p, dtype=x.dtype, device=x.device),
+                   x.new_zeros((p, 1))], dim=1).expand(bsz, k, p, p + 1)
+    for n in range(l):
+        r = -torch.einsum("bkp,bkpq->bkq", ap[:, :, n], w)
+        r = torch.cat([r[..., :p], r[..., p:] + xp[:, :, n, None]], dim=-1)
+        w = torch.cat([r[:, :, None, :], w[:, :, :-1, :]], dim=2)
+    m_cum, v_cum = _scan_affine(w[..., :p], w[..., p])
+    return m_cum[:, -1], v_cum[:, -1]
+
+
+def allpole_summary(x: torch.Tensor, a: torch.Tensor):
+    """The affine end-state map (M, v) of each row: the summary entry for a
+    CUDA tensor (float64), the plain version for a CPU one (x's dtype)."""
+    if x.is_cuda:
+        return allpole_summary_cuda(x.contiguous(), a.contiguous())
+    return allpole_summary_plain(x, a)
 
 
 def _check_const_shapes(name: str, x: torch.Tensor, a: torch.Tensor

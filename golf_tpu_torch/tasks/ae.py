@@ -7,7 +7,9 @@ losses (masked above 50 Hz) and the coefficient-smoothness regulariser.
 With ``train_with_true_f0`` the synthesis phase is the given f0 over the
 sample rate: in training unvoiced frames take one random f0 in U(50, 500)
 per item, in validation, test and predict 150 Hz. The test step adds the
-mel-cepstral distortion (MCD) to the MSS loss.
+mel-cepstral distortion (MCD) to the MSS loss. In a data-parallel step
+(``parallel.mesh.data_parallel``) the random f0 is drawn over the global
+batch and the masked f0 loss sums over the data group.
 """
 
 from __future__ import annotations
@@ -25,12 +27,15 @@ from ..models.ctrl import Synth
 from ..models.enc import VocoderParameterEncoderInterface, full_layout
 from ..ops.cepstrum import mcep
 from ..ops.stft import spectrogram
+from ..parallel.mesh import batch_sum, draw_rows
 
 
 def masked_l1(pred: torch.Tensor, target: torch.Tensor,
               mask: torch.Tensor) -> torch.Tensor:
-    n = torch.clamp(torch.sum(mask), min=1)
-    return torch.sum(torch.abs(pred - target) * mask) / n
+    """The mean absolute error over the mask (over the global batch in a
+    data-parallel step: both sums over the data group)."""
+    n = torch.clamp(batch_sum(torch.sum(mask)), min=1)
+    return batch_sum(torch.sum(torch.abs(pred - target) * mask)) / n
 
 
 def f0_log_l1(f0_hat: torch.Tensor, f0: torch.Tensor,
@@ -136,9 +141,10 @@ class VoiceAutoEncoder(nn.Module):
 
         if self.train_with_true_f0:
             if random_f0 is None:
-                random_f0 = 50.0 + 450.0 * torch.rand(
-                    (f0_in_hz.shape[0], 1), generator=generator,
-                    device=f0_in_hz.data.device)
+                random_f0 = 50.0 + 450.0 * draw_rows(
+                    lambda shape: torch.rand(shape, generator=generator,
+                                             device=f0_in_hz.data.device),
+                    (f0_in_hz.shape[0], 1))
             phase = self.cycles(sig_where(
                 Sig(f0_in_hz.data == 0, f0_in_hz.hop),
                 Sig(random_f0.to(f0_in_hz.data).expand(f0_in_hz.shape),

@@ -28,6 +28,10 @@ with the running min/max set from the first training batch as
 ``golf_tpu``'s trainer init does. The WORLD baseline has no weights: it
 runs ``test`` and ``predict`` only. LPCNet has no ``predict``, as in
 ``golf_tpu``. Runs on CUDA unless ``--device cpu``.
+
+Under ``torchrun --nproc_per_node=N`` the ranks train data-parallel (NCCL,
+one card a rank; gloo with ``--device cpu``); rank 0 alone writes the
+config snapshot, the metrics, the checkpoints and the predictions.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch
 from ..config.registry import instantiate, load_config
 from ..core.device import resolve_device
 from ..core.sig import Sig
+from ..parallel import multihost
 from ..train.loop import Trainer
 from ..utils.wav import write_wav
 from .ae import build_voice_autoencoder
@@ -115,11 +120,16 @@ def run(argv: List[str], default_config: Optional[str] = None) -> int:
     configs = args.config or ([default_config] if default_config else [])
     cfg = load_config(configs, args.model, args.overrides)
     device = resolve_device(args.device)
+    # under torchrun: one process a card (NCCL), or gloo on the CPU
+    multihost.initialize(backend="gloo" if device.type == "cpu" else None)
+    main = multihost.is_main_process()
     run_dir = args.run_dir or cfg.get("run_dir") or os.path.join(
         "runs", time.strftime("%Y%m%d-%H%M%S"))
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "config.yaml"), "w") as f:
-        yaml.safe_dump(cfg, f, sort_keys=False)
+    run_dir = multihost.broadcast_one_to_all(run_dir)
+    if main:
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "config.yaml"), "w") as f:
+            yaml.safe_dump(cfg, f, sort_keys=False)
 
     model_node = cfg["model"]
     class_path = model_node.get("class_path", "")
@@ -155,7 +165,9 @@ def run(argv: List[str], default_config: Optional[str] = None) -> int:
         # evaluation never uses the optimizer's state
         trainer.restore(ckpt_path, params_only=True)
     if args.subcommand == "validate":
-        print(json.dumps(trainer.validate(datamodule.val_dataloader())))
+        val = trainer.validate(datamodule.val_dataloader())
+        if main:
+            print(json.dumps(val))
         return 0
     vocoder = isinstance(task, DDSPVocoder)
     if args.subcommand == "test":
@@ -168,6 +180,8 @@ def run(argv: List[str], default_config: Optional[str] = None) -> int:
             trainer.test(datamodule)
         return 0
 
+    if not main:
+        return 0        # rank 0 writes the predictions
     task.eval()
     sr = init_args.get("sample_rate", 24000)
     out_dir = os.path.join(run_dir, "predictions")

@@ -1,13 +1,22 @@
-"""Training loop on one device (counterpart of ``golf_tpu.train.loop``).
+"""Training loop (counterpart of ``golf_tpu.train.loop``).
 
 ``ClippedOptimizer`` is ``golf_tpu``'s ``make_optimizer``: adam, adamw, sgd
-or amsgrad, with an optional learning-rate decay, under
-``apply_if_finite(chain(clip_by_global_norm(0.5), ...), 100)``.
+or amsgrad, with an optional learning-rate decay or a cosine schedule,
+under ``apply_if_finite(chain(clip_by_global_norm(0.5), ...), 100)``.
 ``Trainer`` runs ``VoiceAutoEncoder.training_step`` for ``max_steps``,
 validates every ``val_every_steps`` and at the end, keeps the top-k
 checkpoints by val_loss and ``last``, logs JSONL metrics, aborts on a
-non-finite loss and stops early when the logged train loss plateaus. There
-is no mesh: the port trains on one card (or the CPU when asked).
+non-finite loss and stops early when the logged train loss plateaus.
+
+Data parallelism: with a process group of several ranks (``torchrun``,
+``parallel.multihost.initialize``) the trainer lays out a data mesh of the
+largest rank count that divides the batch, as ``golf_tpu`` resolves its
+mesh. Every rank loads the global batch and keeps its rows; the step runs
+under ``parallel.mesh.data_parallel`` (batch norms, the running min/max and
+the masked f0 loss over the global batch, the noise and the unvoiced
+frames' f0 drawn over the global batch), the gradients are averaged over
+the data group before the clip, and the step equals the single-device step
+on the global batch. Only rank 0 writes ``metrics.jsonl`` and checkpoints.
 """
 
 from __future__ import annotations
@@ -23,6 +32,9 @@ import torch
 from torch import nn
 
 from ..core.sig import Sig
+from ..parallel import collectives
+from ..parallel.mesh import (data_parallel, data_shard, make_mesh, rows_of,
+                             shard_batch)
 from . import checkpoint as ckpt_lib
 
 
@@ -56,8 +68,10 @@ class ClippedOptimizer:
       moment and corrects that).
     * ``sgd``: the gradient itself; optax's sgd has no momentum.
     * The learning rate is ``lr``, or with ``lr_decay`` the schedule
-      ``lr / (1 + lr_decay * count)``, ``count`` the updates applied before
-      this one (0 at the first).
+      ``lr / (1 + lr_decay * count)``, or with ``cosine_steps`` optax's
+      ``cosine_decay_schedule(lr, cosine_steps)``, ``lr (0.5 (1 +
+      cos(pi min(count, steps) / steps)))``; ``count`` the updates applied
+      before this one (0 at the first).
     * Clip: when the global norm g of the gradients is at least
       ``grad_clip``, each gradient becomes ``t / g * grad_clip``
       (``optax.clip_by_global_norm``; ``clip_grad_norm_`` would add 1e-6).
@@ -77,7 +91,8 @@ class ClippedOptimizer:
 
     def __init__(self, params: Iterable[nn.Parameter], lr: float = 1e-4,
                  grad_clip: float = 0.5, optimizer: str = "adam",
-                 lr_decay: Optional[float] = None):
+                 lr_decay: Optional[float] = None,
+                 cosine_steps: Optional[int] = None):
         if optimizer not in OPTIMIZERS:
             raise ValueError(f"optimizer {optimizer!r} is not one of "
                              f"{OPTIMIZERS}")
@@ -86,6 +101,7 @@ class ClippedOptimizer:
         self.grad_clip = grad_clip
         self.optimizer = optimizer
         self.lr_decay = lr_decay
+        self.cosine_steps = cosine_steps
         self.count = 0
         self.notfinite_count = 0
         self.moments = {name: [torch.zeros_like(p) for p in self.params]
@@ -98,6 +114,9 @@ class ClippedOptimizer:
     def learning_rate(self) -> float:
         if self.lr_decay:
             return self.lr / (1.0 + self.lr_decay * self.count)
+        if self.cosine_steps:
+            done = min(self.count, self.cosine_steps) / self.cosine_steps
+            return self.lr * 0.5 * (1.0 + math.cos(math.pi * done))
         return self.lr
 
     def _direction(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -166,13 +185,18 @@ class ClippedOptimizer:
 
 
 class MetricsLogger:
-    """JSONL metrics log, ``<run_dir>/metrics.jsonl``."""
+    """JSONL metrics log, ``<run_dir>/metrics.jsonl``; writes nothing where
+    ``enabled`` is false (a rank other than 0)."""
 
-    def __init__(self, run_dir: str):
-        os.makedirs(run_dir, exist_ok=True)
+    def __init__(self, run_dir: str, enabled: bool = True):
+        self.enabled = enabled
+        if enabled:
+            os.makedirs(run_dir, exist_ok=True)
         self.path = os.path.join(run_dir, "metrics.jsonl")
 
     def log(self, step: int, metrics: Dict[str, float], prefix: str = ""):
+        if not self.enabled:
+            return
         rec = {"step": step, "time": time.time()}
         rec.update({(prefix + k): float(v) for k, v in metrics.items()})
         with open(self.path, "a") as f:
@@ -193,7 +217,8 @@ class Trainer:
                  save_top_k: int = 3, check_finite: bool = True,
                  early_stop_patience: Optional[int] = None,
                  restore_params_only: bool = False,
-                 optimizer: str = "adam", lr_decay: Optional[float] = None):
+                 optimizer: str = "adam", lr_decay: Optional[float] = None,
+                 mesh=None):
         self.task = task
         self.device = next(task.parameters()).device
         self.run_dir = run_dir
@@ -213,9 +238,35 @@ class Trainer:
         self.step = 0
         # the random f0 of unvoiced frames and the noise of training steps
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
-        self.logger = MetricsLogger(run_dir)
+        # resolved from the first batch's size unless given
+        self.mesh = mesh
+        self.main = not torch.distributed.is_initialized() or \
+            torch.distributed.get_rank() == 0
+        self.logger = MetricsLogger(run_dir, enabled=self.main)
         self.ckpt = ckpt_lib.CheckpointManager(
             os.path.join(run_dir, "ckpt"), top_k=save_top_k)
+
+    def _resolve_mesh(self, batch_size: int):
+        """The data mesh of the largest rank count that divides the batch
+        (one rank without a process group)."""
+        if self.mesh is None:
+            n = collectives.group_size()
+            data = next(d for d in range(min(n, batch_size), 0, -1)
+                        if batch_size % d == 0)
+            self.mesh = make_mesh(data, 1)
+        return self.mesh
+
+    def _shard(self):
+        return None if self.mesh is None else data_shard(self.mesh)
+
+    def _save(self, metric: Optional[float] = None, last: bool = False):
+        """Checkpoints are rank 0's."""
+        if not self.main:
+            return
+        if last:
+            self.ckpt.save_last(self.state_dict())
+        else:
+            self.ckpt.save(self.state_dict(), metric)
 
     # -- state ------------------------------------------------------------
     def state_dict(self) -> Dict:
@@ -224,7 +275,8 @@ class Trainer:
 
     def init_state(self, sample_batch) -> None:
         """What ``golf_tpu``'s ``init_state`` leaves behind: the encoder's
-        running min/max from the first batch."""
+        running min/max from the first (global) batch; resolves the mesh."""
+        self._resolve_mesh(sample_batch[0].shape[0])
         self.task.init_running_stats(*_to_sigs(sample_batch, self.device))
 
     def restore(self, path: str, params_only: bool = False) -> None:
@@ -236,16 +288,74 @@ class Trainer:
 
     # -- steps ------------------------------------------------------------
     def train_step(self, x: Sig, f0: Sig) -> Dict[str, torch.Tensor]:
-        """One optimizer step; returns the step's metrics (device
-        tensors)."""
-        self.task.train()
-        self.optimizer.zero_grad()
-        loss, metrics = self.task.training_step(x, f0, train=True,
-                                                generator=self.generator)
-        loss.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        """One optimizer step on a (global) batch; returns the step's
+        metrics (device tensors)."""
+        metrics = self.loss_and_grads(x, f0)
         metrics.update(self.optimizer.step())
         return metrics
+
+    def loss_and_grads(self, x: Sig, f0: Sig,
+                       noise: Optional[torch.Tensor] = None,
+                       random_f0: Optional[torch.Tensor] = None
+                       ) -> Dict[str, torch.Tensor]:
+        """The gradients of a (global) batch's loss in ``.grad``; returns
+        the metrics. Data-parallel, each rank takes its rows (and those of
+        ``noise`` and ``random_f0``, global fields that replace the
+        generator's draws) and the gradients are averaged over the data
+        group."""
+        self.task.train()
+        self.optimizer.zero_grad()
+        shard = self._shard()
+        if shard is not None:
+            x, f0 = (Sig(t, 1) for t in shard_batch(self.mesh, x.data,
+                                                     f0.data))
+            noise, random_f0 = (None if t is None else
+                                rows_of(t, shard.index, shard.size)
+                                for t in (noise, random_f0))
+        fields = {"noise": noise} if random_f0 is None else \
+            {"noise": noise, "random_f0": random_f0}
+        with data_parallel(shard):
+            loss, metrics = self.task.training_step(
+                x, f0, train=True, generator=self.generator, **fields)
+        loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if shard is not None:
+            with_grad = [p for p in self.optimizer.params
+                         if p.grad is not None]
+            for p, g in zip(with_grad, collectives.psum_all(
+                    (p.grad for p in with_grad), shard.group)):
+                p.grad = g / shard.size
+            metrics = {k: collectives.pmean(torch.as_tensor(v), shard.group)
+                       for k, v in metrics.items()}
+        return metrics
+
+    def _split_for_mesh(self, x: Sig, f0: Sig):
+        """``golf_tpu``'s split of an evaluation batch: a chunk of a
+        multiple of the data ranks, this rank's rows of it evaluated
+        data-parallel, and the remainder evaluated whole on every rank;
+        each chunk is weighted by its size. Yields (x, f0, shard,
+        weight)."""
+        shard = self._shard()
+        if shard is None:
+            yield x, f0, None, x.shape[0]
+            return
+        keep = (x.shape[0] // shard.size) * shard.size
+        if keep:
+            yield (Sig(rows_of(x.data[:keep], shard.index, shard.size), 1),
+                   Sig(rows_of(f0.data[:keep], shard.index, shard.size), 1),
+                   shard, keep)
+        if keep < x.shape[0]:
+            yield (Sig(x.data[keep:], 1), Sig(f0.data[keep:], 1), None,
+                   x.shape[0] - keep)
+
+    def _gathered(self, out: Dict, shard) -> Dict[str, float]:
+        """Each metric of an evaluation chunk, averaged over the data group
+        when it ran data-parallel."""
+        if shard is None:
+            return {k: float(v) for k, v in out.items()}
+        return {k: float(collectives.pmean(torch.as_tensor(
+            v, dtype=torch.float32, device=self.device), shard.group))
+            for k, v in out.items()}
 
     @torch.no_grad()
     def validate(self, loader) -> Dict[str, float]:
@@ -257,12 +367,13 @@ class Trainer:
         totals: Dict[str, float] = {}
         weight = 0
         for batch in loader:
-            x, f0 = _to_sigs(batch, self.device)
-            out = self.task.validation_step(x, f0, generator=gen)
-            w = x.shape[0]
-            for k, v in out.items():
-                totals[k] = totals.get(k, 0.0) + float(v) * w
-            weight += w
+            for x, f0, shard, w in self._split_for_mesh(
+                    *_to_sigs(batch, self.device)):
+                with data_parallel(shard):
+                    out = self.task.validation_step(x, f0, generator=gen)
+                for k, v in self._gathered(out, shard).items():
+                    totals[k] = totals.get(k, 0.0) + v * w
+                weight += w
         self.task.train()
         return {("val_" + k): v / max(weight, 1) for k, v in totals.items()}
 
@@ -277,17 +388,22 @@ class Trainer:
         totals: Dict[str, float] = {}
         weight = 0.0
         for batch in datamodule.test_dataloader():
-            x, f0 = _to_sigs(batch, self.device)
-            out = self.task.test_step(x, f0, generator=gen)
-            n = float(out.pop("N", x.shape[0]))
-            for k, v in out.items():
-                totals[k] = totals.get(k, 0.0) + float(v) * n
-            weight += n
+            for x, f0, shard, n in self._split_for_mesh(
+                    *_to_sigs(batch, self.device)):
+                with data_parallel(shard):
+                    out = self.task.test_step(x, f0, generator=gen)
+                count = out.pop("N", n)
+                if shard is None:
+                    n = float(count)
+                for k, v in self._gathered(out, shard).items():
+                    totals[k] = totals.get(k, 0.0) + v * n
+                weight += n
         result = {("avg_" + k): v / max(weight, 1)
                   for k, v in totals.items()}
         result["avg_mss_loss"] = result.pop("avg_loss", float("nan"))
         self.task.train()
-        print(json.dumps(result))
+        if self.main:
+            print(json.dumps(result))
         self.logger.log(-1, result)
         return result
 
@@ -296,6 +412,11 @@ class Trainer:
         train_loader = datamodule.train_dataloader()
         val_loader = datamodule.val_dataloader()
         self.init_state(next(iter(train_loader)))
+        if not self.mesh.member:
+            print(f"rank {self.mesh.rank}: outside the data mesh of "
+                  f"{self.mesh.size} ranks (the batch's largest divisor); "
+                  f"idle", flush=True)
+            return self.step
         if ckpt_path:
             self.restore(ckpt_path, params_only=self.restore_params_only)
 
@@ -319,8 +440,9 @@ class Trainer:
                 m["samples_per_sec"] = samples / dt
                 t0, samples = time.time(), 0
                 self.logger.log(self.step, m, "train_")
-                print(f"step {self.step}: " + ", ".join(
-                    f"{k}={v:.4g}" for k, v in m.items()), flush=True)
+                if self.main:
+                    print(f"step {self.step}: " + ", ".join(
+                        f"{k}={v:.4g}" for k, v in m.items()), flush=True)
                 if self.check_finite and not math.isfinite(m["loss"]):
                     raise FloatingPointError(
                         f"non-finite loss at step {self.step}")
@@ -332,20 +454,21 @@ class Trainer:
                         self._steps_since_best += 1
                         if self._steps_since_best >= \
                                 self.early_stop_patience:
-                            print(f"early stop: train_loss plateaued for "
-                                  f"{self.early_stop_patience} logged "
-                                  f"steps", flush=True)
+                            if self.main:
+                                print(f"early stop: train_loss plateaued "
+                                      f"for {self.early_stop_patience} "
+                                      f"logged steps", flush=True)
                             break
 
             if self.step % self.val_every_steps == 0 or \
                     self.step >= self.max_steps:
                 val_metrics = self.validate(val_loader)
                 self.logger.log(self.step, val_metrics)
-                print(f"[val @ {self.step}] " + ", ".join(
-                    f"{k}={v:.4g}" for k, v in val_metrics.items()),
-                    flush=True)
-                self.ckpt.save(self.state_dict(),
-                               val_metrics.get("val_loss"))
+                if self.main:
+                    print(f"[val @ {self.step}] " + ", ".join(
+                        f"{k}={v:.4g}" for k, v in val_metrics.items()),
+                        flush=True)
+                self._save(val_metrics.get("val_loss"))
 
-        self.ckpt.save_last(self.state_dict())
+        self._save(last=True)
         return self.step

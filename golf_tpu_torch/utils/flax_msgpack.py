@@ -1,18 +1,21 @@
-"""A reader of flax's msgpack state files (``flax.serialization.to_bytes``)
-without flax or msgpack.
+"""A reader and a writer of flax's msgpack state files
+(``flax.serialization.to_bytes``) without flax or msgpack.
 
 A state file is one msgpack map of nested maps keyed by strings; each leaf
 array is a msgpack ext of code 1 whose payload is itself msgpack: the array
 ``[shape, dtype name, raw bytes]`` in C order. The reader decodes the
 subset such files use: nil, booleans, integers, floats, strings, binary,
 arrays, maps and exts. ``bfloat16`` leaves become float32 (the uint16 bits
-shifted left by 16, exact); other dtypes keep their numpy dtype.
+shifted left by 16, exact); other dtypes keep their numpy dtype. The
+writer (``dumps``, ``dump``) packs nested dicts of arrays the same way,
+keys in sorted order, optionally rounding float32 leaves to ``bfloat16``
+(round to nearest even, as numpy's ``bfloat16`` cast does).
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -116,3 +119,94 @@ def loads(data: bytes) -> Any:
 def load(path: str) -> Any:
     with open(path, "rb") as fh:
         return loads(fh.read())
+
+
+# ---------------------------------------------------------------------------
+# the writer
+# ---------------------------------------------------------------------------
+
+class _BF16:
+    """A bfloat16 leaf: its bits (uint16) in the leaf's shape."""
+
+    def __init__(self, bits: np.ndarray):
+        self.bits = bits
+
+
+def _header(n: int, fix: Optional[int], codes) -> bytes:
+    """A length header: ``fix | n`` in the fix form where it fits (16
+    entries for maps and arrays, 32 bytes for strings), else the 8-, 16- or
+    32-bit form of ``codes`` (None where msgpack has no such form)."""
+    if fix is not None and n < (32 if fix == 0xA0 else 16):
+        return bytes([fix | n])
+    for code, fmt in zip(codes, ("B", ">H", ">I")):
+        if code is not None and n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"length {n} too large for msgpack")
+
+
+def _ext_ndarray(shape, dtype: str, raw: bytes) -> bytes:
+    payload: list = []
+    _encode([list(shape), dtype, raw], payload)
+    body = b"".join(payload)
+    fix = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    head = bytes([fix[len(body)]]) if len(body) in fix else \
+        _header(len(body), None, (0xC7, 0xC8, 0xC9))
+    return head + bytes([_EXT_NDARRAY]) + body
+
+
+def _encode(obj: Any, out: list) -> None:
+    if isinstance(obj, dict):
+        out.append(_header(len(obj), 0x80, (None, 0xDE, 0xDF)))
+        for key in sorted(obj):
+            _encode(str(key), out)
+            _encode(obj[key], out)
+    elif isinstance(obj, (list, tuple)):
+        out.append(_header(len(obj), 0x90, (None, 0xDC, 0xDD)))
+        for v in obj:
+            _encode(v, out)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        out.append(_header(len(raw), 0xA0, (0xD9, 0xDA, 0xDB)) + raw)
+    elif isinstance(obj, bytes):
+        out.append(_header(len(obj), None, (0xC4, 0xC5, 0xC6)) + obj)
+    elif isinstance(obj, (int, np.integer)) and 0 <= int(obj) < 1 << 32:
+        v = int(obj)     # positive fixint, else uint 8/16/32
+        out.append(bytes([v]) if v <= 0x7F else
+                   _header(v, None, (0xCC, 0xCD, 0xCE)))
+    elif isinstance(obj, _BF16):
+        out.append(_ext_ndarray(obj.bits.shape, "bfloat16",
+                                obj.bits.tobytes()))
+    elif isinstance(obj, np.ndarray):
+        out.append(_ext_ndarray(obj.shape, obj.dtype.name,
+                                np.ascontiguousarray(obj).tobytes()))
+    else:
+        raise TypeError(f"cannot write {type(obj).__name__}")
+
+
+def to_bfloat16_bits(a: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 bits (uint16), rounded to nearest even."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    bias = ((bits >> 16) & np.uint32(1)) + np.uint32(0x7FFF)
+    return ((bits + bias) >> 16).astype(np.uint16)
+
+
+def dumps(tree: Any, bfloat16: bool = False) -> bytes:
+    """Encode a flax state dict (nested dicts of numpy arrays) as flax's
+    ``to_bytes`` does; with ``bfloat16`` every float32 leaf is stored as
+    ``bfloat16``."""
+    def convert(obj):
+        if isinstance(obj, dict):
+            return {k: convert(v) for k, v in obj.items()}
+        arr = np.asarray(obj)
+        if bfloat16 and arr.dtype == np.float32:
+            return _BF16(to_bfloat16_bits(arr))
+        return arr
+
+    out: list = []
+    _encode(convert(tree), out)
+    return b"".join(out)
+
+
+def dump(path: str, tree: Any, bfloat16: bool = False) -> None:
+    with open(path, "wb") as fh:
+        fh.write(dumps(tree, bfloat16))

@@ -517,3 +517,41 @@ def test_cuda_optimizer_step_equals_the_cpus(cuda_device, optimizer):
     scale = max(p.abs().max().item() for p in out["cpu"])
     for got, ref in zip(out["cuda"], out["cpu"]):
         assert (got - ref).abs().max().item() <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,p", [(4, 512 * 3, 22), (2, 512 * 24, 22),
+                                   (3, 1234, 22), (2, 512, 22), (2, 700, 5),
+                                   (2, 1500, 40)])
+def test_cuda_allpole_summary_entry(cuda_device, b, t, p):
+    """The summary entry (the affine end-state map of each row, float64) at
+    T a multiple of the chunk and at ragged lengths: against a float64 run
+    of its plain version (golf_tpu's ``_local_affine_summary``; 1e-9 of
+    max|ref|) and against the float32 plain version (1e-3: that form's own
+    error); its map then carries a random state to the filter's end state,
+    within 1e-5 of a float64 scan."""
+    rng = np.random.default_rng(b * t + p)
+    x = torch.from_numpy(rng.standard_normal((b, t)).astype(np.float32))
+    a = rc2lpc(torch.tanh(torch.from_numpy(
+        0.2 * rng.standard_normal((b, t, p)).astype(np.float32))))
+    x, a = x.contiguous().to(cuda_device), a.contiguous().to(cuda_device)
+    m, v = tap.allpole_summary_cuda(x, a)
+    assert m.dtype == torch.float64 and m.shape == (b, p, p)
+    assert v.shape == (b, p)
+    m64, v64 = tap.allpole_summary_plain(x.double(), a.double())
+    for got, ref in ((m, m64), (v, v64)):
+        assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-9
+    # over hundreds of steps of a low-order filter M decays below float32's
+    # range: the float32 form holds zeros there, hence the floor
+    m32, v32 = tap.allpole_summary_plain(x, a)
+    for got, ref in ((m, m32), (v, v32)):
+        assert (got - ref.double()).abs().max().item() <= \
+            1e-3 * ref.abs().max().item() + 1e-30
+    zi = torch.from_numpy(rng.standard_normal((b, p))).to(cuda_device)
+    y = tap.allpole_scan(x.double(), a.double(), zi)
+    end = torch.flip(y[:, -p:], (1,))
+    got = torch.einsum("bij,bj->bi", m, zi) + v
+    assert ((got - end).abs().max() / end.abs().max()).item() <= 1e-5
+    launches = tap.ALLPOLE_TV_SUMMARY.launches
+    tap.allpole_summary(x, a)
+    assert tap.ALLPOLE_TV_SUMMARY.launches == launches + 1
