@@ -172,6 +172,15 @@ class Sig:
         return f"Sig(hop={self.hop}, {self.data!r})"
 
 
+def bcast_len(n: int, sig: Sig) -> int:
+    """Steps of a hop-1 signal of ``n`` steps after a hop-broadcast op with
+    ``sig``: ``sig`` is upsampled to (steps - 1) hop + 1 when framed, and
+    the shorter wins."""
+    if sig.hop == 1:
+        return min(n, sig.steps)
+    return min(n, (sig.steps - 1) * sig.hop + 1)
+
+
 def sig_where(cond: Union[Sig, torch.Tensor], a: Union[Sig, ArrayLike],
               b: Union[Sig, ArrayLike]) -> Union[Sig, torch.Tensor]:
     """torch.where with hop broadcasting."""

@@ -26,12 +26,22 @@ class Controllable(nn.Module):
     def ctrl(self, *logits: Sig) -> Tuple[Sig, ...]:
         return ()
 
+    def out_len(self, n: int, *params: Sig) -> int:
+        """The steps of this module's output for an input of ``n`` steps and
+        its ctrl ``params``, as its unsharded forward makes them (the time
+        sharded step's loss support)."""
+        raise NotImplementedError(
+            f"time sharding has no output length for {type(self).__name__}")
+
 
 class PassThrough(Controllable):
     """Identity stage (``harm_filter`` of ``ddsp.yaml``)."""
 
     def forward(self, x: Sig, *args, **kwargs) -> Sig:
         return x
+
+    def out_len(self, n: int, *params: Sig) -> int:
+        return n
 
 
 class Synth(nn.Module):

@@ -22,9 +22,12 @@
   (∇WORLD).
 
 Under time sharding (``parallel.seqpar``) ``LTVMinimumPhaseFilterPrecise``,
-``LTVMinimumPhaseFilter``, ``LTVZeroPhaseFIRFilter`` and
-``LTIAcousticFilter`` run on the rank's window with their boundary
-exchanges; the other filters have no sharded branch yet.
+``LTVMinimumPhaseFilter``, the frame-wise FIR filters, ``LTVPQMF``,
+``LTIAcousticFilter`` and the spectral filters run on the rank's window with
+their boundary exchanges (``stft_filter_sharded`` for the spectral ones);
+the sample-wise FIRs, the radiation filter and the allpass filters have no
+sharded branch, as in ``golf_tpu``. The filters with one have ``out_len``,
+the steps of their unsharded output; on the others it raises.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.sig import Sig
+from ..core.sig import Sig, bcast_len
 from ..ops import stft as stft_ops
 from ..ops.allpole import allpole, allpole_const, lfilter
 from ..ops.cepstrum import (freqt, mc2sp_log, mcep, minimum_phase_response,
@@ -101,6 +104,29 @@ def _fft_frame_conv(frames: torch.Tensor, kernels: torch.Tensor, hop: int,
     return conv[..., k - 1:k - 1 + hop]
 
 
+def _stft_filter_sharded(env, x: torch.Tensor, h: torch.Tensor, n_fft: int,
+                         hop: int, window: str, ctrl_frames: int,
+                         onesided: bool) -> torch.Tensor:
+    """``seqpar.stft_filter_sharded`` on the unsharded input's length and
+    its ``min(spectrum frames, ctrl frames)``."""
+    n_in = env.in_len or env.t_global
+    return seqpar.stft_filter_sharded(
+        x, h, n_fft, hop, window, env, onesided=onesided, n_in=n_in,
+        n_frames=min(_stft_frames(n_in, n_fft, hop, True), ctrl_frames))
+
+
+def _stft_frames(n: int, n_fft: int, hop: int, center: bool) -> int:
+    """Frames of ``ops.stft.stft`` on n samples."""
+    return (n + (2 * (n_fft // 2) if center else 0) - n_fft) // hop + 1
+
+
+def _istft_len(frames: int, n_fft: int, hop: int, center: bool,
+               length: Optional[int] = None) -> int:
+    """Samples of ``ops.stft.istft`` of ``frames`` frames."""
+    n = n_fft + hop * (frames - 1) - (2 * (n_fft // 2) if center else 0)
+    return n if length is None else min(n, length)
+
+
 class LTVMinimumPhaseFilterPrecise(LTVFilterInterface):
     """Sample-wise time-varying all-pole filter (GOLF-ss).
 
@@ -160,6 +186,9 @@ class LTVMinimumPhaseFilterPrecise(LTVFilterInterface):
         t = min(exg.steps, a_up.steps)
         return Sig(allpole(exg.data[:, :t].contiguous(),
                            a_up.data[:, :t].contiguous()), 1)
+
+    def out_len(self, n: int, gain: Sig, a: Sig) -> int:
+        return bcast_len(bcast_len(n, gain), a)
 
     def reverse(self, ex: Sig, y: Sig, gain: Sig, a: Sig
                 ) -> Tuple[Sig, Sig]:
@@ -230,6 +259,14 @@ class LTVMinimumPhaseFilter(LTVMinimumPhaseFilterPrecise):
             per_frame, exg, get_window_fn(self.window)(self.window_length),
             gain.hop, env)
 
+    def out_len(self, n: int, gain: Sig, a: Sig) -> int:
+        hop, ws = gain.hop, self.window_length
+        pad = ws // 2
+        exg = bcast_len(n if self.centred else n - hop // 2, gain)
+        f = min((exg + 2 * pad - ws) // hop + 1, a.steps)
+        out = (f - 1) * hop + ws - 2 * pad
+        return out if self.centred else out + hop // 2
+
 
 class SampleBasedLTVMinimumPhaseFilter(LTVMinimumPhaseFilterPrecise):
     """Deprecated alias of ``LTVMinimumPhaseFilterPrecise``, kept for
@@ -281,11 +318,20 @@ class LTVMinimumPhaseFIRFilter(LTVMinimumPhaseFIRFilterPrecise):
         hop = log_mag.hop
         kernel = self._window_kernel(minimum_phase_fir(log_mag.data))
         k = kernel.shape[-1]
+        env = seqpar.current()
+        if env is not None:
+            # causal: a left halo of K - 1 samples, the rank's frame rows
+            kl = seqpar.localize_frames(Sig(kernel, hop), env)
+            return Sig(seqpar.fir_frame_conv_sharded(
+                ex.data, kl.data, hop, k - 1, False, env), 1)
         frames = unfold(F.pad(ex.data, (k - 1, 0)), k + hop - 1, hop)
         f = min(frames.shape[1], kernel.shape[1])
         out = _fft_frame_conv(frames[:, :f], kernel[:, :f], hop,
                               correlate=False)
         return Sig(out.reshape(ex.shape[0], -1), 1)
+
+    def out_len(self, n: int, log_mag: Sig) -> int:
+        return min(n // log_mag.hop, log_mag.steps) * log_mag.hop
 
 
 class LTVZeroPhaseFIRFilterPrecise(LTVFilterInterface):
@@ -349,6 +395,12 @@ class LTVZeroPhaseFIRFilter(LTVZeroPhaseFIRFilterPrecise):
                               correlate=True)
         return Sig(out.reshape(ex.shape[0], -1), 1)
 
+    def out_len(self, n: int, log_mag: Sig) -> int:
+        hop = log_mag.hop
+        k = zero_phase_fir(log_mag.data[:1, :1]).shape[-1]
+        frames = (n + 2 * ((k - 1) // 2) - (k + hop - 1)) // hop + 1
+        return min(frames, log_mag.steps) * hop
+
 
 class LTVAPZeroPhaseFIRFilter(LTVZeroPhaseFIRFilter):
     """Aperiodicity variant: the ctrl is ``log(sigmoid(x) * sqrt(n_fft))``,
@@ -394,6 +446,9 @@ class LTIAcousticFilter(FilterInterface):
             * torch.fft.rfft(torch.flip(self.kernel, (0,)), n=nfft), n=nfft)
         out = F.pad(conv[:, :t - 1], (1, 0))
         return ex + Sig(out, 1)
+
+    def out_len(self, n: int) -> int:
+        return n
 
 
 class LTIRadiationFilter(FilterInterface):
@@ -449,10 +504,27 @@ class LTVPQMF(LTVFilterInterface):
         return (x,)
 
     def forward(self, ex: Sig, log_gain: Sig) -> Sig:
-        bands = pqmf_analysis(ex.data, self.filters.to(ex.dtype))
         gain = Sig(torch.exp(log_gain.data), log_gain.hop)
+        env = seqpar.current()
+        if env is not None:
+            # the bank's "same" padding from the neighbours' halos, the
+            # gains localized to the rank's window
+            x = ex.data
+            taps = self.filters.shape[-1]
+            pad_l = (taps - 1) // 2
+            ext = torch.cat([seqpar.halo_left(x, pad_l, env), x,
+                             seqpar.halo_right(x, taps - 1 - pad_l, env)],
+                            dim=1)
+            bands = F.conv1d(ext[:, None], torch.flip(
+                self.filters.to(x.dtype), (-1,))[:, None])
+            g = seqpar.localize(gain, env, 1).data     # (B, T_loc, bands)
+            return Sig(torch.sum(bands.transpose(1, 2) * g, dim=2), 1)
+        bands = pqmf_analysis(ex.data, self.filters.to(ex.dtype))
         filtered = Sig(bands.transpose(1, 2), 1) * gain
         return Sig(filtered.data.sum(dim=2), 1)
+
+    def out_len(self, n: int, log_gain: Sig) -> int:
+        return bcast_len(n, log_gain)
 
 
 class LTIComplexConjAllpassFilter(FilterInterface):
@@ -505,6 +577,11 @@ class LTVMLSAFilter(LTVFilterInterface):
       of the unwarped cepstrum (``freqt`` to ``cep_order``), C the FIR of
       taps c_1..c_K held within each frame: one FFT convolution a frame
       and stage.
+
+    Time-sharded, the rank's window takes its own frame rows: the spectral
+    route through ``seqpar.stft_filter_sharded``, each Taylor stage through
+    ``seqpar.fir_frame_conv_sharded`` with a causal halo of K samples (K at
+    most T_loc).
     """
 
     def __init__(self, filter_order: int = 24, frame_period: int = 240,
@@ -533,8 +610,8 @@ class LTVMLSAFilter(LTVFilterInterface):
     def ctrl(self, x: Sig) -> Tuple[Sig, ...]:
         return (x,)
 
-    def _filter_freq_domain(self, x: torch.Tensor,
-                            mc_d: torch.Tensor) -> torch.Tensor:
+    def _filter_freq_domain(self, x: torch.Tensor, mc_d: torch.Tensor,
+                            ctrl_frames: int) -> torch.Tensor:
         n_fft = self.fft_length
         hop = self.frame_period
         # multi-stage truncates the unwarped cepstrum at cep_order (this
@@ -547,6 +624,13 @@ class LTVMLSAFilter(LTVFilterInterface):
             h = minimum_phase_response(log_mag)
         else:
             h = torch.exp(log_mag)
+        env = seqpar.current()
+        if env is not None:
+            # the unsharded x is cut to whole frames: it reflects there
+            n_in = (env.in_len or env.t_global) // hop * hop
+            return seqpar.stft_filter_sharded(
+                x, h, n_fft, hop, self.window, env, onesided=True,
+                n_in=n_in, n_frames=min(n_in // hop, ctrl_frames))
         spec = stft_ops.stft(x, n_fft, hop, window=self.window, center=True)
         f = min(spec.shape[-1], h.shape[1])
         return stft_ops.istft(
@@ -562,8 +646,12 @@ class LTVMLSAFilter(LTVFilterInterface):
         taps = F.pad(c_lin[..., 1:], (1, 0))
         b, t = x.shape
         frames = mc_d.shape[1]
+        env = seqpar.current()
 
         def tv_fir(u: torch.Tensor) -> torch.Tensor:
+            if env is not None:
+                return seqpar.fir_frame_conv_sharded(u, taps, hop, k_ord,
+                                                     False, env)
             fr = unfold(F.pad(u, (k_ord, 0)), hop + k_ord, hop)
             seg = _fft_frame_conv(fr[:, :frames], taps, hop, correlate=False)
             return seg.reshape(b, -1)
@@ -577,8 +665,13 @@ class LTVMLSAFilter(LTVFilterInterface):
 
     def _whole_frames(self, ex: Sig, mc: Sig
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(x cut to whole frames, their rows of mc); time-sharded, the
+        rank's window and its rows."""
         if mc.hop != self.frame_period:
             raise ValueError(f"mc hop {mc.hop} != {self.frame_period}")
+        env = seqpar.current()
+        if env is not None:
+            return ex.data, seqpar.localize_frames(mc, env).data
         frames = ex.data.shape[1] // self.frame_period
         return (ex.data[:, :frames * self.frame_period],
                 mc.data[:, :frames])
@@ -587,14 +680,30 @@ class LTVMLSAFilter(LTVFilterInterface):
         x, mc_d = self._whole_frames(ex, mc)
         if self.mode == "multi-stage":
             return Sig(self._filter_multi_stage(x, mc_d), 1)
-        return Sig(self._filter_freq_domain(x, mc_d), 1)
+        return Sig(self._filter_freq_domain(x, mc_d, mc.steps), 1)
+
+    def _freq_domain_len(self, n: int, mc: Sig) -> int:
+        hop = self.frame_period
+        frames = n // hop
+        f = min(_stft_frames(frames * hop, self.fft_length, hop, True),
+                frames, mc.steps)
+        return _istft_len(f, self.fft_length, hop, True, frames * hop)
+
+    def out_len(self, n: int, mc: Sig) -> int:
+        if self.mode == "multi-stage":
+            return min(n // self.frame_period, mc.steps) * self.frame_period
+        return self._freq_domain_len(n, mc)
 
 
 class LTVMLSAFilter2(LTVMLSAFilter):
     """The spectral realization, whatever ``mode`` says."""
 
     def forward(self, ex: Sig, mc: Sig, **kwargs) -> Sig:
-        return Sig(self._filter_freq_domain(*self._whole_frames(ex, mc)), 1)
+        x, mc_d = self._whole_frames(ex, mc)
+        return Sig(self._filter_freq_domain(x, mc_d, mc.steps), 1)
+
+    def out_len(self, n: int, mc: Sig) -> int:
+        return self._freq_domain_len(n, mc)
 
 
 class LTVAPFilter(LTVMLSAFilter):
@@ -642,7 +751,10 @@ class LTVCepFilter(LTVFilterInterface):
         if ceps.hop != self.hop_length:
             raise ValueError(f"ceps hop {ceps.hop} != {self.hop_length}")
         n_fft = self.n_fft
-        c = F.pad(ceps.data, (0, n_fft // 2 - self.filter_order))
+        env = seqpar.current()
+        c = ceps.data if env is None else \
+            seqpar.localize_frames(ceps, env).data
+        c = F.pad(c, (0, n_fft // 2 - self.filter_order))
         b, f, n = c.shape
         c = F.pad(c.reshape(b * f, 1, n), (0, n_fft // 2 - 1),
                   mode="reflect").reshape(b, f, n_fft)
@@ -651,6 +763,10 @@ class LTVCepFilter(LTVFilterInterface):
             h = torch.exp(log_mag)
         else:
             h = minimum_phase_spectrum(log_mag)
+        if env is not None:
+            return Sig(_stft_filter_sharded(
+                env, ex.data, h, n_fft, self.hop_length, self.window,
+                ceps.steps, onesided=False), 1)
         h = h.transpose(1, 2)                         # (B, n_fft, F)
         spec = stft_ops.stft(ex.data, n_fft, self.hop_length,
                              window=self.window, center=True, onesided=False)
@@ -658,6 +774,11 @@ class LTVCepFilter(LTVFilterInterface):
         return Sig(stft_ops.istft(spec[..., :f] * h[..., :f], n_fft,
                                   self.hop_length, window=self.window,
                                   center=True, onesided=False), 1)
+
+    def out_len(self, n: int, ceps: Sig) -> int:
+        f = min(_stft_frames(n, self.n_fft, self.hop_length, True),
+                ceps.steps)
+        return _istft_len(f, self.n_fft, self.hop_length, True)
 
 
 class DiffWorldSPFilter(LTVFilterInterface):
@@ -693,6 +814,17 @@ class DiffWorldSPFilter(LTVFilterInterface):
     def forward(self, ex: Sig, mel_sp: Sig) -> Sig:
         if mel_sp.hop != self.hop_length:
             raise ValueError(f"mel hop {mel_sp.hop} != {self.hop_length}")
+        env = seqpar.current()
+        if env is not None:
+            if not self.center:
+                raise ValueError("the time-sharded DiffWorldSPFilter needs "
+                                 "center")
+            sp = seqpar.localize_frames(mel_sp, env).data @ \
+                self.inv_fb.to(mel_sp.dtype)
+            return Sig(_stft_filter_sharded(
+                env, ex.data, torch.sqrt(torch.clamp(sp, min=0.0)),
+                self.n_fft, self.hop_length, self.window, mel_sp.steps,
+                onesided=True), 1)
         sp = mel_sp.data @ self.inv_fb.to(mel_sp.dtype)  # (B, F, bins)
         sp = torch.sqrt(torch.clamp(sp, min=0.0)).transpose(1, 2)
         spec = stft_ops.stft(ex.data, self.n_fft, self.hop_length,
@@ -701,3 +833,8 @@ class DiffWorldSPFilter(LTVFilterInterface):
         return Sig(stft_ops.istft(spec[..., :f] * sp[..., :f], self.n_fft,
                                   self.hop_length, window=self.window,
                                   center=self.center), 1)
+
+    def out_len(self, n: int, mel_sp: Sig) -> int:
+        f = min(_stft_frames(n, self.n_fft, self.hop_length, self.center),
+                mel_sp.steps)
+        return _istft_len(f, self.n_fft, self.hop_length, self.center)

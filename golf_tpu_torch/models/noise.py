@@ -7,8 +7,10 @@ feed two implementations the same field: a normal field
 uniform in [-1, 1) a sequence (``SignFlipNoise``) or the (B, bands)
 circular offsets of ``NoiseBand``. In a data-parallel step
 (``parallel.mesh.data_parallel``) the normal field is drawn over the global
-batch and sliced to this rank's rows; under time sharding over the global
-(B, T) and sliced to the rank's rows and window.
+batch and sliced to this rank's rows; under time sharding the normal and
+the uniform fields are drawn over the global (B, ``t_global``), the shape
+of the unsharded reference that the decoder passes, and sliced to the
+rank's rows and window.
 """
 
 from __future__ import annotations
@@ -49,20 +51,26 @@ class StandardNormalNoise(NoiseInterface):
 
     def forward(self, ref: Sig, *args,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None, **kwargs) -> Sig:
+                noise: Optional[torch.Tensor] = None,
+                t_global: Optional[int] = None, **kwargs) -> Sig:
         env = seqpar.current()
         if env is not None and ref.ndim == 2:
-            # time-sharded: drawn over the global (B, T) and sliced, so the
-            # field does not depend on the layout (``noise`` is global too)
+            # time-sharded: drawn over the global (B, t_global), the
+            # unsharded reference's shape (T unless given), and sliced, so
+            # the field does not depend on the layout (``noise`` is global
+            # too)
             return ref.new(seqpar.slice_global_rng(
-                generator, (env.b_global, env.t_global), env, "normal",
-                ref.dtype, ref.data.device, field=noise))
+                generator, (env.b_global, t_global or env.t_global), env,
+                "normal", ref.dtype, ref.data.device, field=noise))
         z = _field(ref, ref.shape, noise)
         if z is None:
             z = draw_rows(lambda shape: torch.randn(
                 shape, generator=generator, dtype=ref.dtype,
                 device=ref.data.device), ref.shape)
         return ref.new(z)
+
+    def out_len(self, n: int, *params: Sig) -> int:
+        return n
 
 
 class UniformNoise(NoiseInterface):
@@ -71,12 +79,23 @@ class UniformNoise(NoiseInterface):
 
     def forward(self, ref: Sig, *args,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None, **kwargs) -> Sig:
-        u = _field(ref, ref.shape, noise)
-        if u is None:
-            u = torch.rand(ref.shape, generator=generator, dtype=ref.dtype,
-                           device=ref.data.device)
+                noise: Optional[torch.Tensor] = None,
+                t_global: Optional[int] = None, **kwargs) -> Sig:
+        env = seqpar.current()
+        if env is not None and ref.ndim == 2:
+            # time-sharded: u over the global (B, t_global), sliced
+            u = seqpar.slice_global_rng(
+                generator, (env.b_global, t_global or env.t_global), env,
+                "uniform", ref.dtype, ref.data.device, field=noise)
+        else:
+            u = _field(ref, ref.shape, noise)
+            if u is None:
+                u = torch.rand(ref.shape, generator=generator,
+                               dtype=ref.dtype, device=ref.data.device)
         return ref.new((u - 0.5) * 2 * math.sqrt(3))
+
+    def out_len(self, n: int, *params: Sig) -> int:
+        return n
 
 
 class SignFlipNoise(NoiseInterface):

@@ -10,9 +10,12 @@ weighted ones mix all of them by a softmax a frame (``weight @ table``);
 ``WrappedPhaseDownsampledIndexedGlottalFlowTable`` takes a phase that is
 already wrapped. The sine banks
 take harmonic k's phase as k times one wrapped cumsum of the base phase.
-Under time sharding (``parallel.seqpar``) the indexed tables run on this
-rank's window; the weighted tables and the sine banks have no sharded
-branch yet.
+Under time sharding (``parallel.seqpar``) the indexed tables, the sine
+banks and the pulse train run on this rank's window (the phase by the
+global wrapped cumsum, the frame-rate amplitudes localized); the weighted
+tables have no sharded branch, as in ``golf_tpu``. The sources with one
+have ``out_len``, the steps of their unsharded output; on the others it
+raises.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.sig import Sig
+from ..core.sig import Sig, bcast_len
 from ..ops.dsp import wrapped_cumsum
 from ..ops.lf import build_glottal_table
 from ..ops.lookup import lookup_blocks
@@ -140,6 +143,9 @@ class IndexedGlottalFlowTable(GlottalFlowTable):
             y = Sig(decimate(y.data, k), 1)
         return y
 
+    def out_len(self, n: int, *params: Sig) -> int:
+        return n
+
     def _forward_sharded(self, phase: Sig, table_select_weight: Sig,
                          phase_offset: Optional[Sig], env) -> Sig:
         """This shard's source: the oversampled phase of its window
@@ -247,7 +253,10 @@ class DownsampledIndexedGlottalFlowTable(IndexedGlottalFlowTable):
 class WrappedPhaseDownsampledIndexedGlottalFlowTable(
         DownsampledIndexedGlottalFlowTable):
     """``DownsampledIndexedGlottalFlowTable`` on a phase already wrapped to
-    [0, 1) at hop 1: no cumsum and no oversampling."""
+    [0, 1) at hop 1: no cumsum and no oversampling. It has no sharded
+    branch."""
+
+    out_len = Controllable.out_len
 
     def forward(self, wrapped_phase: Sig, table_select_weight: Sig,
                 phase_offset: Optional[Sig] = None) -> Sig:
@@ -281,14 +290,28 @@ class HarmonicOscillator(OscillatorInterface):
     increment reaches 0.5 cycles a sample. ``phase_offset`` (B, T) at hop
     1 adds k times itself to harmonic k, ``initial_phase`` (B, n) its own
     cycles to each harmonic. Plain PyTorch, as ``golf_tpu`` computes it
-    outside any kernel."""
+    outside any kernel. Time-sharded, the rank's phase window integrates by
+    the global wrapped cumsum and frame-rate amplitudes are localized to
+    the window."""
 
     def forward(self, phase: Sig, amplitudes: Sig,
                 initial_phase: Optional[torch.Tensor] = None,
                 phase_offset: Optional[Sig] = None) -> Sig:
         n_harm = amplitudes.shape[-1]
-        up_phase = phase.reduce_hop_length()
-        base = wrapped_cumsum(up_phase.data)
+        env = seqpar.current()
+        if env is not None:
+            if initial_phase is not None or phase_offset is not None:
+                raise NotImplementedError(
+                    "initial_phase and phase_offset are not time-sharded")
+            if phase.hop != 1:
+                raise ValueError("time sharding expects a sample-rate phase")
+            up_phase = phase
+            base = seqpar.global_wrapped_cumsum(phase.data, env)
+            if amplitudes.hop > 1:
+                amplitudes = seqpar.localize(amplitudes, env, 1)
+        else:
+            up_phase = phase.reduce_hop_length()
+            base = wrapped_cumsum(up_phase.data)
         harm_series = torch.arange(1, n_harm + 1, dtype=base.dtype,
                                    device=base.device)
         inst = base[..., None] * harm_series
@@ -305,6 +328,9 @@ class HarmonicOscillator(OscillatorInterface):
         return Sig(torch.einsum("btn,btn->bt",
                                 torch.sin(inst[:, :t] * (2 * math.pi)),
                                 amp_d), 1)
+
+    def out_len(self, n: int, *params: Sig) -> int:
+        return bcast_len(n, params[0]) if params else n
 
 
 def _num_freq_bins(phase: torch.Tensor) -> torch.Tensor:
@@ -333,6 +359,11 @@ class AdditiveSynthesizer(HarmonicOscillator):
         return (Sig(amp, amp_logits.hop),)
 
     def forward(self, phase: Sig, amplitudes: Sig, **kwargs) -> Sig:
+        env = seqpar.current()
+        if env is not None and amplitudes.hop > 1:
+            # the frame-rate amplitudes of the rank's window, before the
+            # product with its sample-rate phase
+            amplitudes = seqpar.localize(amplitudes, env, 1)
         amplitudes = amplitudes * Sig(
             torch.rsqrt(_num_freq_bins(phase.data)), phase.hop)
         return super().forward(phase, amplitudes, **kwargs)
@@ -381,6 +412,20 @@ class PulseTrain(OscillatorInterface):
     phase; none at the first sample."""
 
     def forward(self, phase: Sig, phase_offset: Optional[Sig] = None) -> Sig:
+        env = seqpar.current()
+        if env is not None:
+            if phase_offset is not None:
+                raise NotImplementedError("phase_offset is not time-sharded")
+            if phase.hop != 1:
+                raise ValueError("time sharding expects a sample-rate phase")
+            up = phase.data
+            wrapped = seqpar.global_wrapped_cumsum(up, env)
+            # the previous sample from the left neighbour; shard 0's first
+            # sees 0, no wrap, as the unsharded first sample has no pulse
+            prev = torch.cat([seqpar.halo_left(wrapped, 1, env),
+                              wrapped[:, :-1]], dim=1)
+            return Sig(torch.where((wrapped - prev) < 0, torch.rsqrt(up),
+                                   0.0), 1)
         up = phase.reduce_hop_length().data
         wrapped = wrapped_cumsum(up)
         if phase_offset is not None:
@@ -389,6 +434,9 @@ class PulseTrain(OscillatorInterface):
         pulses = torch.where(transition, torch.rsqrt(up[:, 1:]), 0.0)
         return Sig(torch.cat([torch.zeros_like(up[:, :1]), pulses], dim=1),
                    1)
+
+    def out_len(self, n: int, *params: Sig) -> int:
+        return n
 
 
 class AdditivePulseTrain(HarmonicOscillator):

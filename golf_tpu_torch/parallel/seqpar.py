@@ -1,5 +1,5 @@
-"""Sequence (time-axis) parallelism of the GOLF synthesis chain
-(counterpart of ``golf_tpu.parallel.seqpar``).
+"""Sequence (time-axis) parallelism of the synthesis chains (counterpart of
+``golf_tpu.parallel.seqpar``).
 
 The sample-rate decoder and the MSS loss run on a time window of the batch
 on each rank of a time group, the frame-rate encoder on every rank over its
@@ -12,7 +12,12 @@ data shard's rows, as ``golf_tpu``'s ``make_sharded_train_fn`` splits them:
   ``s_out = M s_in + v`` (``allpole_sharded``: B4's summary entry on the
   card, one all-gather, a local prefix, then B4 from the incoming state);
 * FIR and framed ops (noise filter, decimation, GOLF-ff's frames, the STFT
-  losses) exchange halos of their support with the neighbours;
+  losses) exchange halos of their support with the neighbours, and the
+  spectral filters (MLSA, NHV, ∇WORLD) their frames' halos and overlap-add
+  spills (``stft_filter_sharded``);
+* a composite decoder runs each stage on its unsharded input's length
+  (``stage``): past it the window holds zeros, and the spectral filters
+  reflect there, as the unsharded stage that an earlier one shortened;
 * the phase integrates with a global wrapped cumsum that equals
   ``ops.dsp.wrapped_cumsum`` on the gathered signal bit for bit;
 * random fields are drawn over the global (B, T) shape and sliced, so the
@@ -60,6 +65,9 @@ class SeqParEnv:
     # sharded chain edge-holds instead of truncating; the loss is restricted
     # to it)
     valid_len: Optional[int] = None
+    # the steps of the unsharded input of the module being called, when a
+    # composite decoder's earlier stage shortened it (``stage``; None: T)
+    in_len: Optional[int] = None
 
     @property
     def t_local(self) -> int:
@@ -254,6 +262,33 @@ def localize_frames(sig: Sig, env: SeqParEnv) -> Sig:
     return Sig(d[:, tidx(env) * f_loc:(tidx(env) + 1) * f_loc], hop)
 
 
+def cut_global(x: torch.Tensor, n: int, env: SeqParEnv) -> torch.Tensor:
+    """Zero a time-sharded (B, T_loc, ...) tensor at global steps >= n, as
+    an unsharded signal of n steps is zero-padded."""
+    if n >= env.t_global:
+        return x
+    tl = x.shape[1]
+    g = tidx(env) * tl + torch.arange(tl, device=x.device)
+    keep = (g < n).reshape(1, tl, *([1] * (x.ndim - 2)))
+    return torch.where(keep, x, torch.zeros_like(x))
+
+
+def stage(module, x: Sig, params, n_in: int, **kwargs) -> Sig:
+    """``module(x, *params)`` as a stage of a composite decoder whose
+    unsharded input has ``n_in`` steps: time-sharded, x's steps past n_in
+    are zeroed (the unsharded module's zero padding) and ``env.in_len`` is
+    n_in while the module runs (the spectral filters reflect there)."""
+    env = current()
+    if env is None:
+        return module(x, *params, **kwargs)
+    prev, env.in_len = env.in_len, n_in
+    try:
+        return module(Sig(cut_global(x.data, n_in, env), x.hop), *params,
+                      **kwargs)
+    finally:
+        env.in_len = prev
+
+
 def upsample_local(x: torch.Tensor, k: int, env: SeqParEnv) -> torch.Tensor:
     """Align-corners linear upsample by ``k`` of a time-sharded (B, T_loc)
     tensor with a one-sample right halo, exact across shard boundaries.
@@ -275,9 +310,11 @@ def slice_global_rng(generator: Optional[torch.Generator],
                      kind: str = "normal", dtype=torch.float32,
                      device=None, field: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
-    """Draw over the GLOBAL (B, T) shape from ``generator`` (or take the
+    """Draw over the GLOBAL (B, L) shape from ``generator`` (or take the
     given global ``field``) and slice this shard's rows and window, so the
-    values do not depend on the layout."""
+    values do not depend on the layout. L is the length of the unsharded
+    draw (the unsharded source's reference, at most T); past it the window
+    holds zeros."""
     if field is None:
         draw = torch.randn if kind == "normal" else torch.rand
         if kind not in ("normal", "uniform"):
@@ -287,8 +324,9 @@ def slice_global_rng(generator: Optional[torch.Generator],
     elif tuple(field.shape) != tuple(shape_global):
         raise ValueError(f"noise {tuple(field.shape)} != global "
                          f"{tuple(shape_global)}")
-    tl = shape_global[1] // env.n_time
+    tl = env.t_local
     rows = rows_of(field, env.data_index, env.n_data)
+    rows = F.pad(rows, (0, max(env.n_time * tl - rows.shape[1], 0)))
     return rows[:, tidx(env) * tl:(tidx(env) + 1) * tl].to(device=device,
                                                           dtype=dtype)
 
@@ -467,14 +505,109 @@ def frame_ola_sharded(frames_fn: Callable, exg: torch.Tensor,
     y = (buf[:, pad:-pad] + F.pad(from_left, (0, tl - pad))
          + F.pad(from_right, (tl - pad, 0)))
     f_glob = env.n_time * f_loc
-    norm = np.zeros(env.t_global + 2 * pad)
-    for i in range(f_glob):
-        norm[i * hop:i * hop + w] += window
-    norm = np.maximum(norm[pad:pad + env.t_global], 1e-9)
-    seg = torch.as_tensor(norm[tidx(env) * tl:(tidx(env) + 1) * tl],
-                          dtype=exg.dtype, device=exg.device)
+    norm = ola_norm(np.asarray(window, np.float64), hop, f_glob, env,
+                    1e-9, exg)
     env.shrink_valid((f_glob - 1) * hop)
-    return y / seg[None, :]
+    return y / norm[None, :]
+
+
+_NORMS: Dict[tuple, torch.Tensor] = {}
+
+
+def ola_norm(window: np.ndarray, hop: int, f_glob: int, env: SeqParEnv,
+             floor: float, like: torch.Tensor) -> torch.Tensor:
+    """This shard's slice of the global overlap-add normalisation: ``window``
+    added at every one of the ``f_glob`` frames' hop-starts (float64, in the
+    frames' order, floored at ``floor``), over the padded signal and
+    trimmed by half the window on each side, then cut to the shard's window
+    of samples. Built once per window, layout and device and kept there."""
+    key = (window.tobytes(), hop, f_glob, env.t_global, env.n_time,
+           tidx(env), floor, like.dtype, like.device)
+    seg = _NORMS.get(key)
+    if seg is None:
+        w = window.shape[0]
+        pad = w // 2
+        norm = np.zeros(env.t_global + 2 * pad)
+        idx = (np.arange(f_glob)[:, None] * hop
+               + np.arange(w)[None, :]).reshape(-1)
+        np.add.at(norm, idx, np.tile(window, f_glob))
+        norm = np.maximum(norm[pad:pad + env.t_global], floor)
+        tl = env.t_local
+        seg = torch.as_tensor(norm[tidx(env) * tl:(tidx(env) + 1) * tl],
+                              dtype=like.dtype, device=like.device)
+        _NORMS[key] = seg
+    return seg
+
+
+def stft_filter_sharded(x: torch.Tensor, h_local: torch.Tensor, n_fft: int,
+                        hop: int, window: str, env: SeqParEnv,
+                        onesided: bool = True, n_in: Optional[int] = None,
+                        n_frames: Optional[int] = None) -> torch.Tensor:
+    """STFT-domain LTV filtering of a time-sharded signal (the MLSA,
+    NHV-cepstral and ∇WORLD filters): analysis window, FFT, a product with
+    the frame's transfer, inverse FFT, synthesis window, and the
+    overlap-add divided by the window-square sum (``ops.stft``'s stft and
+    istft, centred with reflect padding).
+
+    Global frame f (hop-start f hop in padded coordinates) belongs to shard
+    f // F_loc, F_loc = T_loc / hop; ``h_local`` (B, F_loc, bins) holds
+    this shard's rows, real or complex, with n_fft // 2 + 1 bins when
+    ``onesided``, else n_fft. The frames read a halo of n_fft // 2 samples
+    on each side, their overlap-add spills as far into the neighbours, and
+    the normalisation counts the global frames. The unsharded signal has
+    ``n_in`` steps (T by default): the first shard reflects its own first
+    samples, and the signal past n_in is its reflection there, on the last
+    shard. Only the first ``n_frames`` global frames are added (all n F_loc
+    by default), as the unsharded filter's ``min(spectrum frames, ctrl
+    frames)``; its istft ends at (n_frames - 1) hop + n_fft - 2 (n_fft //
+    2), and ``env.valid_len`` shrinks to it. (B, T_loc)."""
+    b, tl = x.shape
+    pad = n_fft // 2
+    n_in = env.t_global if n_in is None else n_in
+    f_loc = tl // hop
+    k = tidx(env)
+    is_last = k == env.n_time - 1
+    last0 = (env.n_time - 1) * tl
+    if tl % hop or pad > tl - 2 or not last0 + pad + 2 <= n_in <= \
+            env.t_global:
+        raise ValueError(f"stft_filter_sharded: T_loc {tl}, hop {hop}, "
+                         f"n_fft {n_fft}, n_in {n_in}")
+    n_frames = env.n_time * f_loc if n_frames is None else n_frames
+    win_np = np.asarray(get_window_fn(window)(n_fft), np.float64)
+    win = torch.as_tensor(win_np, dtype=x.dtype, device=x.device)
+    # padded coordinates [k T_loc, (k + 1) T_loc + 2 pad): padded[j] =
+    # x[pad - j] at the start, and past n_in the reflection x[2 (n_in - 1)
+    # - g] of global step g, which lies on the last shard
+    left = _where(k == 0, torch.flip(x[:, 1:pad + 1], (1,)),
+                  halo_left(x, pad, env))
+    ext = torch.cat([left, x, halo_right(x, pad, env)], dim=1)
+    g = k * tl - pad + torch.arange(tl + 2 * pad, device=x.device)
+    src = torch.clamp(2 * (n_in - 1) - g - last0, 0, tl - 1)
+    ext = _where(is_last, torch.where(g >= n_in, x[:, src], ext), ext)
+    frames = unfold(ext, n_fft, hop)[:, :f_loc] * win
+    h = h_local[:, :f_loc]
+    if onesided:
+        out_f = torch.fft.irfft(torch.fft.rfft(frames) * h, n=n_fft)
+    else:
+        out_f = torch.fft.ifft(torch.fft.fft(frames) * h).real
+    used = (k * f_loc + torch.arange(f_loc, device=x.device)) < n_frames
+    out_f = out_f.to(x.dtype) * win * used[:, None].to(x.dtype)
+    # overlap-add in strips of one hop (``ops.stft.istft``'s order) into
+    # [k T_loc - pad, (k + 1) T_loc + pad), then the spilled edges go to
+    # the neighbours
+    q = -(-n_fft // hop)
+    fr = F.pad(out_f, (0, q * hop - n_fft)).reshape(b, f_loc, q, hop)
+    buf = out_f.new_zeros((b, f_loc + q, hop))
+    for j in range(q):
+        buf[:, j:j + f_loc] += fr[:, :, j]
+    buf = buf.reshape(b, -1)[:, :tl + 2 * pad]
+    from_left = halo_left(buf[:, -pad:], pad, env)
+    from_right = halo_right(buf[:, :pad], pad, env)
+    y = (buf[:, pad:-pad] + F.pad(from_left, (0, tl - pad))
+         + F.pad(from_right, (tl - pad, 0)))
+    norm = ola_norm(win_np * win_np, hop, n_frames, env, 1e-11, y)
+    env.shrink_valid((n_frames - 1) * hop + n_fft - 2 * pad)
+    return y / norm[None, :]
 
 
 # ---------------------------------------------------------------------------
@@ -574,64 +707,22 @@ def pad_to_alignment(x, f0, n_time: int, align: int):
     return x, f0, t
 
 
-def _sig_len(a: int, b_sig: Sig) -> int:
-    """Length after a hop-broadcast op of a sample-rate signal of length a
-    with ``b_sig`` (upsampled to (n - 1) hop + 1 when framed)."""
-    if b_sig.hop == 1:
-        return min(a, b_sig.shape[1])
-    return min(a, (b_sig.shape[1] - 1) * b_sig.hop + 1)
-
-
 def unsharded_decode_len(decoder, ctrl: Dict, t_phase: int,
                          voicing: Optional[Sig]) -> int:
-    """The output length of the unsharded GOLF decoder on the global shapes,
-    from the modules' length arithmetic (``golf_tpu`` takes it from
+    """The output length of the unsharded decoder on the global shapes, the
+    modules' ``out_len`` composed (``golf_tpu`` takes it from
     ``jax.eval_shape``; the card's kernels do not run on the meta device).
-    Covers the modules on GOLF-ss's and GOLF-ff's path."""
-    from ..models import filters as flt
-    from ..models.noise import StandardNormalNoise
-    from ..models.sf import SourceFilterSynth
-    from ..models.synth import IndexedGlottalFlowTable
-    from ..ops.dsp import zero_phase_fir
-
-    if not isinstance(decoder, SourceFilterSynth) or not isinstance(
-            decoder.harm_oscillator, IndexedGlottalFlowTable) or \
-            not isinstance(decoder.noise_generator, StandardNormalNoise):
+    The single-device step's loss covers exactly this support, so the
+    sharded loss's ``valid_len`` starts from it: a module's own shrink can
+    miss where its unsharded twin truncates after an upstream stage has
+    already shortened the signal (the MLSA and NHV istft). A module without
+    ``out_len`` raises ``NotImplementedError`` with its class name."""
+    out_len = getattr(decoder, "out_len", None)
+    if out_len is None:
         raise NotImplementedError(
-            f"time sharding covers GOLF's source-filter decoder, not "
+            f"time sharding has no output length for "
             f"{type(decoder).__name__}")
-    t = t_phase
-    if voicing is not None:
-        t = _sig_len(t, voicing)
-
-    def noise_filter_len(n: int) -> int:
-        nf = decoder.noise_filter
-        if not isinstance(nf, flt.LTVZeroPhaseFIRFilter):
-            raise NotImplementedError(type(nf).__name__)
-        (log_mag,) = ctrl["noise_filter_params"]
-        k = zero_phase_fir(log_mag.data[:1, :1]).shape[-1]
-        pad = (k - 1) // 2
-        frames = (n + 2 * pad - (k + log_mag.hop - 1)) // log_mag.hop + 1
-        return min(frames, log_mag.shape[1]) * log_mag.hop
-
-    src = min(t, noise_filter_len(t))
-    end = decoder.end_filter
-    gain, a = ctrl["end_filter_params"]
-    exg = _sig_len(src, gain)
-    if type(end) in (flt.LTVMinimumPhaseFilterPrecise,
-                     flt.SampleBasedLTVMinimumPhaseFilter):
-        out = _sig_len(exg, a)
-    elif type(end) is flt.LTVMinimumPhaseFilter and end.centred:
-        ws, hop = end.window_length, gain.hop
-        pad = ws // 2
-        f = min((exg + 2 * pad - ws) // hop + 1, a.shape[1])
-        out = (f - 1) * hop + ws - 2 * pad
-    else:
-        raise NotImplementedError(type(end).__name__)
-    if decoder.room_filter is not None and not isinstance(
-            decoder.room_filter, flt.LTIAcousticFilter):
-        raise NotImplementedError(type(decoder.room_filter).__name__)
-    return out
+    return out_len(t_phase, voicing=voicing, **ctrl)
 
 
 def make_sharded_train_step(task, mesh: Mesh,

@@ -230,22 +230,32 @@ def dp_worker(rank, cfg, variables, x, f0, noise, run_dir):
             "mesh": trainer.mesh.shape}
 
 
-def check_grads(grads, ref, tol):
-    """Every gradient within ``tol`` of its largest entry; the conv biases
-    in front of a train-mode batch norm against their weight's (10 x),
-    as ``test_torch_train.py`` holds them."""
+def grad_excess(grads, ref, tol, rtol=0.0):
+    """Each gradient's worst error over its largest entry, less ``tol`` and
+    ``rtol`` times the reference entry over that largest entry (> 0: out of
+    the limits); the conv biases in front of a train-mode batch norm against
+    their weight's (10 x), as ``test_torch_train.py`` holds them."""
     # the LSTM's bias_ih is frozen at zero in the port (flax has one bias)
-    ref = {k: v for k, v in ref.items()
-           if not k.split(".")[-1].startswith("bias_ih")}
+    ref, grads = ({k: v for k, v in g.items()
+                   if not k.split(".")[-1].startswith("bias_ih")}
+                  for g in (ref, grads))
     assert set(grads) == set(ref), set(grads) ^ set(ref)
-    worst = {}
+    out = {}
     for k in sorted(ref):
         scale = np.abs(ref[k]).max()
         if ".pyramid.convs." in k and k.endswith(".bias"):
             scale = 10 * np.abs(ref[k[:-4] + "weight"]).max()
         assert scale > 0, k
-        worst[k] = np.abs(grads[k] - ref[k]).max() / scale
-    bad = {k: e for k, e in worst.items() if e > tol}
+        out[k] = float(np.max((np.abs(grads[k] - ref[k])
+                               - rtol * np.abs(ref[k])) / scale - tol))
+    return out
+
+
+def check_grads(grads, ref, tol, rtol=0.0):
+    """Every gradient within ``tol`` of its largest entry (plus ``rtol`` of
+    each entry)."""
+    bad = {k: e for k, e in grad_excess(grads, ref, tol, rtol).items()
+           if e > 0}
     assert not bad, bad
 
 
@@ -350,6 +360,12 @@ def sharded_worker(rank, cfg, variables, x, f0, noise, layouts,
                               noise=torch.from_numpy(noise))
         out.append((loss, {k: g.numpy() for k, g in grads.items()}))
     return out
+
+
+def many_sharded_worker(rank, jobs, layouts):
+    """``sharded_worker`` on each (cfg, variables, x, f0, noise) of
+    ``jobs`` in turn: its results by job."""
+    return [sharded_worker(rank, *job, layouts) for job in jobs]
 
 
 def test_cli_fit_under_torchrun_on_gloo(tmp_path):
