@@ -6,10 +6,12 @@
 Phases (any failure exits non-zero):
 1. environment: versions, the card's name and power limit; TF32 off (for
    every phase, the train phase's step times included);
-2. build: the eight CUDA kernel entry points of the serving, training and
+2. build: the nine CUDA kernel entry points of the serving, training and
    sharded paths (four sources, one ``nvcc`` each, started together), from
-   ``golf_tpu_torch/kernels/csrc``, and ``tools/lookup_unsplit.cu`` beside
-   them, with ``ptxas``'s registers and spills;
+   ``golf_tpu_torch/kernels/csrc``, and ``tools/lookup_unsplit.cu`` and
+   ``tools/allpole_tv_pr15.cu`` (B4's entries before the redesign of its
+   zi and summary entries) beside them, with ``ptxas``'s registers and
+   spills;
 3. kernels vs their plain PyTorch versions, on the card, at the shapes the
    serving path (B1, B2 and its adjoint entry, B4 and its adjoint entry)
    and the training path (all seven) give them, with each one's time, its
@@ -25,6 +27,9 @@ Phases (any failure exits non-zero):
    entry also against ``allpole_chunked_plain`` (the same chunked float64
    algorithm in plain PyTorch) and the adjoint entry bit for bit against
    the forward entry on the materialised flipped, column-shifted operands;
+   at chunks of 512 (``chunk_for``'s length there) both bit for bit
+   against ``tools/allpole_tv_pr15.cu``'s, whose times run in turns with
+   theirs (``earlier_ms``);
    B1 and B2 (and its adjoint entry) also at the vocoder's serving shapes
    (``vocoder_shapes``: 601 mel frames a 6 s request); B2 also at LPCNet's
    de-emphasis, (32, 24000) with a (32, 1) of -0.85, within 1e-5 of max|y|
@@ -54,8 +59,10 @@ Phases (any failure exits non-zero):
    (4, 2400, 22) and (1, 2400, 22) against its plain version (golf_tpu's
    streaming form), a float64 scan from the same state, with a null state
    bit for bit equal to a zero state, and ten chunks chained through
-   ``zi_next`` against one-shot B4; B1 at a push's window shape; times
-   beside the byte bounds;
+   ``zi_next`` against one-shot B4, and against ``allpole_chunked_plain``
+   at ``chunk_for``'s length there (64); its time in turns with
+   ``tools/allpole_tv_pr15.cu``'s zi entry (chunks of 512); B1 at a push's
+   window shape; times beside the byte bounds;
 7. stream: the full-width encoder and GOLF-ss decoder stream B = 4
    requests of 6 s in pushes of 2400 samples (60 pushes and a flush):
    ``StreamingEncoder`` (look-ahead 24 frames) against the offline encoder
@@ -201,10 +208,16 @@ Phases (any failure exits non-zero):
     card over gloo (NCCL refuses two ranks on one device; the tensors and
     every kernel stay on the card, gloo carries the collectives' CUDA
     tensors through the host, and every time printed is gloo on one
-    card); B4's initial-state entry and the summary entry
-    (``golf_allpole_tv_summary``) at the shards' shapes, (64|32|16,
-    24 000), and B2 at a GOLF-ff shard's frames (6400, 960), each against
-    its plain version and float64; the single-process card step of each
+    card); B4's initial-state entry, the summary entry
+    (``golf_allpole_tv_summary``) and the re-run entry
+    (``golf_allpole_tv_rerun``, from the summary's chunk maps) at the
+    shards' shapes, (64|32|16, 24 000), each against its plain version and
+    float64, the summary also against its tree mirror
+    (``allpole_summary_chunked_plain``) and the re-run bit for bit against
+    the zi entry, each timed in turns with ``tools/allpole_tv_pr15.cu``,
+    and a direction's summary + re-run against the earlier summary + zi
+    entry; B2 at a GOLF-ff shard's frames (6400, 960) against its plain
+    version and float64; the single-process card step of each
     case, then DP 2 x 1 (GOLF-ss and GOLF-ff, B = 64), time 1 x 2 (both,
     B = 64) and time 2 x 2 (GOLF-ss, B = 32, four ranks), and time 1 x 2 at
     B = 64 for golf-v1, ddsp, nhv, mlsa, mlsa-taylor and world (each with
@@ -216,8 +229,9 @@ Phases (any failure exits non-zero):
     a gradient beyond 5e-4 passes only within twice the float32 step's own
     distance from it: the Taylor cascade's and the acoustic kernels'
     float32 gradients are that far off), each rank's launches of the
-    path's kernels a step (the summary and B4's zi entry twice on
-    GOLF-ss's time ranks;
+    path's kernels a step (the summary and the re-run entry exactly twice
+    on GOLF-ss's time ranks, B4's zi and adjoint entries never: phase 1
+    once a direction;
     B1, B3b, B2 and B2's adjoint entry on golf-v1's; none on the five
     baselines', checked 0); B1 and B3b at golf-v1's rank shapes ((64, 10,
     9600) x (64, 11, 2048)) against their plain versions, each rank's
@@ -232,7 +246,11 @@ Phases (any failure exits non-zero):
     the table (B3a's is null: no one call returns its three outputs); B1's
     and B3a's rows carry their split, the launch floor and, under
     ``earlier_ms``, the times of ``tools/lookup_unsplit.cu`` (before the
-    split) on the same inputs in this run; B1's, B2's and its adjoint's
+    split) on the same inputs in this run; B4's rows (its entries, at every
+    shape) carry ``chunk`` and, under ``earlier_ms``, the times of
+    ``tools/allpole_tv_pr15.cu`` in turns with theirs (``turns_ms``:
+    earlier, new, new, earlier), and the re-run entry's rows the direction's
+    summary + re-run; B1's, B2's and its adjoint's
     rows carry ``vocoder_serve`` (the vocoder's serving shapes and the
     vocoder phase's launches), B2's ``lpcnet`` (LPCNet's de-emphasis shape,
     the lpcnet phase's launches), and B2's and its adjoint's rows the
@@ -368,6 +386,25 @@ UNSPLIT_RES = kernels.CudaKernel(
     "lookup_unsplit_res", _UNSPLIT_SOURCE, "golf_lookup_unsplit_fwd_res",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     extra_flags=("--fmad=false",))
+# B4's entries before their redesign (tools/allpole_tv_pr15.cu: the zi and
+# summary entries' first design, chunks of 512), built with the kernels and
+# timed beside B4's entries as ``earlier_ms``; on no path of the port
+_EARLIER_TV_SOURCE = str(Path(__file__).resolve().parent / "tools"
+                         / "allpole_tv_pr15.cu")
+EARLIER_CHUNK = 512
+EARLIER_TV = kernels.CudaKernel(
+    "allpole_tv_earlier", _EARLIER_TV_SOURCE, "golf_allpole_tv_earlier",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+EARLIER_TV_ADJ = kernels.CudaKernel(
+    "allpole_tv_adjoint_earlier", _EARLIER_TV_SOURCE,
+    "golf_allpole_tv_earlier_adjoint", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _P])
+EARLIER_TV_SUMMARY = kernels.CudaKernel(
+    "allpole_tv_summary_earlier", _EARLIER_TV_SOURCE,
+    "golf_allpole_tv_earlier_summary", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _P])
+EARLIER = (UNSPLIT, UNSPLIT_RES, EARLIER_TV, EARLIER_TV_ADJ,
+           EARLIER_TV_SUMMARY)
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 and fp64
 # (outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -611,10 +648,11 @@ def entry_name(mangled: str) -> str:
 
 def phase_build() -> None:
     log: dict = {}
-    seconds = kernels.build(kernels.ALL + (UNSPLIT, UNSPLIT_RES), log)
+    seconds = kernels.build(kernels.ALL + EARLIER, log)
     print(f"build: {seconds:.1f} s for {len(kernels.ALL)} kernels "
-          f"({', '.join(k.source for k in kernels.ALL)}) and B1 and B3a "
-          f"before the split (tools/lookup_unsplit.cu)")
+          f"({', '.join(k.source for k in kernels.ALL)}), B1 and B3a "
+          f"before the split (tools/lookup_unsplit.cu) and B4 before its "
+          f"zi and summary entries' redesign (tools/allpole_tv_pr15.cu)")
     for name, out in log.items():
         entry = "?"
         for ln in out.splitlines():
@@ -624,6 +662,39 @@ def phase_build() -> None:
             elif "registers" in ln or "spill" in ln:
                 ln = ln.replace("ptxas info    :", "").strip()
                 print(f"  ptxas[{Path(name).name}] {entry}: {ln}")
+
+
+def earlier_tv(kernel, x: torch.Tensor, a: torch.Tensor,
+               zi: torch.Tensor = None) -> torch.Tensor:
+    """B4's forward (or adjoint) entry before the redesign, at chunks of
+    512, with its scratch: maps of all chunks but the last, then incoming
+    states."""
+    b, t = x.shape
+    p = a.shape[2]
+    k = -(-t // EARLIER_CHUNK)
+    y = torch.empty_like(x)
+    scratch = torch.empty(b * ((k - 1) * (p + 1) * p + k * p),
+                          dtype=torch.float64, device=x.device)
+    kernel.launch(x.data_ptr(), a.data_ptr(),
+                  None if zi is None else zi.data_ptr(), y.data_ptr(),
+                  scratch.data_ptr(), b, t, p, EARLIER_CHUNK,
+                  x.device.index, torch.cuda.current_stream().cuda_stream)
+    return y
+
+
+def earlier_summary(x: torch.Tensor, a: torch.Tensor):
+    """The summary entry before the redesign: (M, v) in float64."""
+    b, t = x.shape
+    p = a.shape[2]
+    m = torch.empty((b, p, p), dtype=torch.float64, device=x.device)
+    v = torch.empty((b, p), dtype=torch.float64, device=x.device)
+    scratch = torch.empty(b * -(-t // EARLIER_CHUNK) * (p + 1) * p,
+                          dtype=torch.float64, device=x.device)
+    EARLIER_TV_SUMMARY.launch(
+        x.data_ptr(), a.data_ptr(), m.data_ptr(), v.data_ptr(),
+        scratch.data_ptr(), b, t, p, EARLIER_CHUNK, x.device.index,
+        torch.cuda.current_stream().cuda_stream)
+    return m, v
 
 
 def lookup_inputs(gen, shapes):
@@ -926,26 +997,54 @@ def phase_kernels(shapes: dict, which=("lookup", "allpole_const",
               f"{same}")
         check(max(errs) <= 1e-5, "allpole_tv and its adjoint vs mirror")
         check(same, "adjoint entry bit for bit")
+        chunk = tap.chunk_for(*x.shape)
+        # at chunks of 512 the redesign's arithmetic is the earlier
+        # design's (only the taps' loads and the maps' stride changed)
+        same_old = torch.equal(out, earlier_tv(EARLIER_TV, x, a)) and \
+            torch.equal(dx, earlier_tv(EARLIER_TV_ADJ, g, a))
+        print(f"[{label}] allpole_tv (B4) at chunk_for's {chunk}: forward "
+              f"and adjoint == tools/allpole_tv_pr15.cu's (chunks of 512) "
+              f"bit for bit: {same_old}")
+        check(same_old or chunk != EARLIER_CHUNK,
+              "B4 and its adjoint equal the earlier design at 512")
         nbytes = 4 * (2 * x.numel() + a.numel())
-        n_maps = x.shape[0] * (-(-x.shape[1] // tap.CHUNK) - 1) * tap.CHUNK
+        n_maps = x.shape[0] * (-(-x.shape[1] // chunk) - 1) * chunk
         p = a.shape[2]
         # the design's float64 floor: p (p + 1) FMAs a sample in phase 1,
         # p in phase 3
         floor_ms = 2 * p * ((p + 1) * n_maps + x.numel()) \
             / PEAK_FP64_FLOPS * 1e3
+        # earlier design and this one in turns (earlier, new, new,
+        # earlier), the rows keep the means
+        e1 = cuda_ms(lambda: earlier_tv(EARLIER_TV, x, a), 20)
+        n1 = cuda_ms(lambda: allpole_cuda(x, a), 20)
+        ea1 = cuda_ms(lambda: earlier_tv(EARLIER_TV_ADJ, g, a), 20)
+        na1 = cuda_ms(lambda: allpole_adjoint_cuda(g, a), 20)
+        na2 = cuda_ms(lambda: allpole_adjoint_cuda(g, a), 20)
+        ea2 = cuda_ms(lambda: earlier_tv(EARLIER_TV_ADJ, g, a), 20)
+        n2 = cuda_ms(lambda: allpole_cuda(x, a), 20)
+        e2 = cuda_ms(lambda: earlier_tv(EARLIER_TV, x, a), 20)
         rows["allpole_tv"] = dict(
-            err=(out - ref).abs().max().item(),
-            ms=cuda_ms(lambda: allpole_cuda(x, a), 20),
+            err=(out - ref).abs().max().item(), ms=(n1 + n2) / 2,
+            earlier_ms=(e1 + e2) / 2, turns_ms=[e1, n1, n2, e2],
+            chunk=chunk,
             plain_ms=cuda_ms(lambda: allpole_plain(x, a), 1, warmup=1,
                              strict=False),
             bound=bound(nbytes, 2 * a.numel()), fp64_floor_ms=floor_ms)
         dref = allpole_adjoint_plain(g, a)
         rows["allpole_tv_adjoint"] = dict(
-            err=(dx - dref).abs().max().item(),
-            ms=cuda_ms(lambda: allpole_adjoint_cuda(g, a), 20),
+            err=(dx - dref).abs().max().item(), ms=(na1 + na2) / 2,
+            earlier_ms=(ea1 + ea2) / 2, turns_ms=[ea1, na1, na2, ea2],
+            chunk=chunk,
             plain_ms=cuda_ms(lambda: allpole_adjoint_plain(g, a), 1,
                              warmup=1, strict=False),
             bound=bound(nbytes, 2 * a.numel()), fp64_floor_ms=floor_ms)
+        for name in ("allpole_tv", "allpole_tv_adjoint"):
+            r = rows[name]
+            print(f"[{label}] {name} at chunk {chunk}: {r['ms'] * 1e3:.1f} "
+                  f"us, before the redesign {r['earlier_ms'] * 1e3:.1f} us "
+                  f"(in turns, us: "
+                  f"{[round(u * 1e3, 1) for u in r['turns_ms']]})")
         rel = rel_err(dx, dref)
         print(f"[{label}] allpole_tv_adjoint {tuple(g.shape)}: / max|ref| "
               f"{rel:.3e} against allpole_adjoint_plain (tolerance 1e-4, "
@@ -1100,9 +1199,22 @@ def phase_stream_kernels() -> dict:
               and torch.isfinite(y).all().item(), f"B4 zi entry, B={b}")
         check(same, "B4 null zi bit for bit")
         check(rel_chain <= 1e-5, "B4 chained chunks vs one-shot")
+        chunk = tap.chunk_for(b, t)
+        rel_mirror = rel_err(y, allpole_chunked_plain(x, a, zi=zi))
+        print(f"[stream] allpole_tv zi entry {tuple(x.shape)} at chunk_for's "
+              f"{chunk}: {rel_mirror:.3e} of max|y| against "
+              f"allpole_chunked_plain at that chunk (tolerance 1e-5, as at "
+              f"the training shape)")
+        check(rel_mirror <= 1e-5, f"B4 zi entry vs mirror, B={b}")
+        turns = [cuda_ms(lambda: earlier_tv(EARLIER_TV, x, a, zi), 200),
+                 cuda_ms(lambda: allpole_cuda(x, a, zi), 200),
+                 cuda_ms(lambda: allpole_cuda(x, a, zi), 200),
+                 cuda_ms(lambda: earlier_tv(EARLIER_TV, x, a, zi), 200)]
         rows[f"allpole_tv/{b}"] = dict(
-            err=(y - plain).abs().max().item(),
-            ms=cuda_ms(lambda: allpole_cuda(x, a, zi), 200),
+            err=(y - plain).abs().max().item(), err64=rel64,
+            ms=(turns[1] + turns[2]) / 2,
+            earlier_ms=(turns[0] + turns[3]) / 2, turns_ms=turns,
+            chunk=chunk,
             plain_ms=cuda_ms(lambda: allpole_stream_plain(x, a, zi), 3,
                              strict=False),
             bound=bound(4 * (2 * x.numel() + a.numel() + 2 * zi.numel()),
@@ -1115,6 +1227,10 @@ def phase_stream_kernels() -> dict:
             f", F.grid_sample {r['library_ms'] * 1e3:.2f} us, launch floor "
             f"{r['floor_ms'] * 1e3:.2f} us, split {r['split']}, before the "
             f"split {r['earlier_ms'] * 1e3:.2f} us")
+        if "chunk" in r:
+            extra = (f", chunk {r['chunk']}, before the redesign "
+                     f"{r['earlier_ms'] * 1e3:.2f} us (in turns, us: "
+                     f"{[round(u * 1e3, 2) for u in r['turns_ms']]})")
         print(f"[stream] {name}: {r['ms'] * 1e3:.2f} us a launch, bound "
               f"{r['bound'][0] * 1e3:.3f} us ({r['bound'][1]}), plain "
               f"{r['plain_ms'] * 1e3:.1f} us{extra}")
@@ -4236,7 +4352,8 @@ PAR_PATHS = {("dp", "golf-precise"): ("lookup", "lookup_dtab", "allpole_tv",
              ("dp", "golf"): ("lookup", "lookup_dtab", "allpole_const",
                               "allpole_const_adjoint"),
              ("time", "golf-precise"): ("lookup", "lookup_dtab",
-                                        "allpole_tv", "allpole_tv_summary"),
+                                        "allpole_tv_summary",
+                                        "allpole_tv_rerun"),
              ("time", "golf"): ("lookup", "lookup_dtab", "allpole_const",
                                 "allpole_const_adjoint"),
              ("time", "golf-v1"): ("lookup", "lookup_dtab", "allpole_const",
@@ -4544,12 +4661,17 @@ def par_references(work: Path) -> dict:
 
 
 def sharded_kernel_rows() -> dict:
-    """B4's initial-state entry and the summary entry at the shards'
-    shapes ((64, 24 000) a rank at 1 x 2, (16, 24 000) at 2 x 2, and the
-    (32, 24 000) of a 2 x 2 mesh at B = 64), and B2 on a GOLF-ff shard's
-    frames (64 x 100 windows of 960, golf-v1's harmonic filter's too), each
-    against its plain version and float64, with its time and bound; B1 and
-    B3b at golf-v1's rank shapes against their plain versions."""
+    """B4's initial-state entry, the summary entry and the re-run entry at
+    the shards' shapes ((64, 24 000) a rank at 1 x 2, (16, 24 000) at
+    2 x 2, and the (32, 24 000) of a 2 x 2 mesh at B = 64), each against
+    its plain version and float64 (the summary also against its tree
+    mirror, the re-run bit for bit against the zi entry), with its time,
+    the earlier design's (tools/allpole_tv_pr15.cu) in turns and its bound,
+    and a direction's summary + re-run against the earlier summary + zi
+    entry; B2 on a GOLF-ff shard's frames (64 x 100 windows of 960,
+    golf-v1's harmonic filter's too) against its plain version and
+    float64; B1 and B3b at golf-v1's rank shapes against their plain
+    versions."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
     t_loc = int(PAR_SECONDS * SR) // 2
     rows = {}
@@ -4558,27 +4680,29 @@ def sharded_kernel_rows() -> dict:
         a = tv_coeffs(gen, b, t_loc)
         zi = torch.randn((b, a.shape[2]), generator=gen, device="cuda")
         p = a.shape[2]
+        chunk = tap.chunk_for(b, t_loc)
         y = allpole_cuda(x, a, zi)
         plain = allpole_stream_plain(x, a, zi)
         ref64 = allpole_scan(x.double(), a.double(), zi.double())
-        errs = (rel_err(y, plain), rel_err(y.double(), ref64))
-        print(f"[sharded] allpole_tv (B4) zi entry {tuple(x.shape)} p={p}: "
-              f"/ max|y| {errs[0]:.3e} against allpole_stream_plain "
-              f"(tolerance 1e-4), {errs[1]:.3e} against a float64 scan "
-              f"from zi (tolerance 1e-5)")
-        check(errs[0] <= 1e-4 and errs[1] <= 1e-5
+        errs = (rel_err(y, plain), rel_err(y.double(), ref64),
+                rel_err(y, allpole_chunked_plain(x, a, zi=zi)))
+        print(f"[sharded] allpole_tv (B4) zi entry {tuple(x.shape)} p={p} "
+              f"at chunk_for's {chunk}: / max|y| {errs[0]:.3e} against "
+              f"allpole_stream_plain (tolerance 1e-4), {errs[1]:.3e} "
+              f"against a float64 scan from zi (tolerance 1e-5), "
+              f"{errs[2]:.3e} against allpole_chunked_plain at that chunk "
+              f"(tolerance 1e-5)")
+        check(errs[0] <= 1e-4 and errs[1] <= 1e-5 and errs[2] <= 1e-5
               and torch.isfinite(y).all().item(), f"B4 zi at B={b}")
-        rows[f"allpole_tv/{b}"] = dict(
-            err=(y - plain).abs().max().item(), err64=errs[1],
-            ms=cuda_ms(lambda: allpole_cuda(x, a, zi), 20),
-            plain_ms=cuda_ms(lambda: allpole_stream_plain(x, a, zi), 1,
-                             warmup=1, strict=False),
-            bound=bound(4 * (2 * x.numel() + a.numel() + zi.numel()),
-                        2 * a.numel()),
-            shapes=[list(x.shape), list(a.shape), list(zi.shape)])
-        m, v = tap.allpole_summary_cuda(x, a)
+        m, v, maps = tap.allpole_summary_cuda(x, a)
         m32, v32 = tap.allpole_summary_plain(x, a)
         m64, v64 = tap.allpole_summary_plain(x.double(), a.double())
+        # the kernel's algorithm in float64 on the card: every chunk's map,
+        # composed as the kernel's tree
+        mt, vt, maps_t = tap.allpole_summary_chunked_plain(x, a)
+        y_re = tap.allpole_rerun_cuda(x, a, zi, maps)
+        same = torch.equal(y_re, y)
+
         # over 24 000 steps M decays below float64's range (the state's
         # memory is short): a floor of 1e-30 keeps 0 / 0 out
         def rel0(u, r):
@@ -4586,21 +4710,60 @@ def sharded_kernel_rows() -> dict:
                                                     1e-30)
         e64 = max(rel0(m, m64), rel0(v, v64))
         e32 = max(rel0(m, m32.double()), rel0(v, v32.double()))
+        e_tree = max(rel0(m, mt), rel0(v, vt), rel0(maps, maps_t))
         end = torch.flip(ref64[:, -p:], (1,))
         e_end = rel_err(torch.einsum("bij,bj->bi", m, zi.double()) + v, end)
-        print(f"[sharded] allpole_tv_summary {tuple(x.shape)} p={p}: M, v "
-              f"/ max|ref| {e64:.3e} against the plain version in float64 "
-              f"(tolerance 1e-9), {e32:.3e} against it in float32 "
-              f"(tolerance 1e-3: that form's own error); the map carries zi "
-              f"to the float64 scan's end state within {e_end:.3e} "
-              f"(tolerance 1e-5)")
-        check(e64 <= 1e-9 and e32 <= 1e-3 and e_end <= 1e-5,
-              f"summary entry at B={b}")
+        print(f"[sharded] allpole_tv_summary {tuple(x.shape)} p={p} at chunk "
+              f"{chunk} ({maps.shape[1]} maps a row, a tree of "
+              f"{tap.tree_group(p)} a group): M, v / max|ref| {e64:.3e} "
+              f"against the plain version in float64 (tolerance 1e-9), "
+              f"{e32:.3e} against it in float32 (tolerance 1e-3: that "
+              f"form's own error), {e_tree:.3e} against the tree mirror "
+              f"(allpole_summary_chunked_plain, float64, its maps too; "
+              f"tolerance 1e-9); the map carries zi to the float64 scan's "
+              f"end state within {e_end:.3e} (tolerance 1e-5); the re-run "
+              f"from its maps == the zi entry bit for bit: {same}")
+        check(e64 <= 1e-9 and e32 <= 1e-3 and e_end <= 1e-5
+              and e_tree <= 1e-9, f"summary entry at B={b}")
+        check(same, f"re-run from the summary's maps == zi entry at B={b}")
+
+        def shard_direction():
+            """A time rank's all-pole work a direction: summary, then the
+            re-run from its maps (the exchange between them is gloo's)."""
+            m_, v_, maps_ = tap.allpole_summary_cuda(x, a)
+            return tap.allpole_rerun_cuda(x, a, zi, maps_)
+
+        def shard_direction_earlier():
+            earlier_summary(x, a)
+            return earlier_tv(EARLIER_TV, x, a, zi)
+
+        def turns(new, old, reps=20):
+            t = [cuda_ms(old, reps), cuda_ms(new, reps), cuda_ms(new, reps),
+                 cuda_ms(old, reps)]
+            return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+        zi_ms, zi_old, zi_turns = turns(lambda: allpole_cuda(x, a, zi),
+                                        lambda: earlier_tv(EARLIER_TV, x, a,
+                                                           zi))
+        su_ms, su_old, su_turns = turns(
+            lambda: tap.allpole_summary_cuda(x, a),
+            lambda: earlier_summary(x, a))
+        dir_ms, dir_old, dir_turns = turns(shard_direction,
+                                           shard_direction_earlier)
         n = x.numel()
+        rows[f"allpole_tv/{b}"] = dict(
+            err=(y - plain).abs().max().item(), err64=errs[1], ms=zi_ms,
+            earlier_ms=zi_old, turns_ms=zi_turns, chunk=chunk,
+            plain_ms=cuda_ms(lambda: allpole_stream_plain(x, a, zi), 1,
+                             warmup=1, strict=False),
+            bound=bound(4 * (2 * n + a.numel() + zi.numel()),
+                        2 * a.numel()),
+            shapes=[list(x.shape), list(a.shape), list(zi.shape)])
         rows[f"allpole_tv_summary/{b}"] = dict(
             err=max((m - m32.double()).abs().max().item(),
                     (v - v32.double()).abs().max().item()), err64=e64,
-            ms=cuda_ms(lambda: tap.allpole_summary_cuda(x, a), 20),
+            err_tree=e_tree, ms=su_ms, earlier_ms=su_old, turns_ms=su_turns,
+            chunk=chunk,
             plain_ms=cuda_ms(lambda: tap.allpole_summary_plain(x, a), 1,
                              warmup=1, strict=False),
             # x and a read once, M and v written; p (p + 1) float64 FMAs a
@@ -4608,7 +4771,29 @@ def sharded_kernel_rows() -> dict:
             bound=bound(4 * (n + a.numel()) + 8 * b * p * (p + 1),
                         2 * p * (p + 1) * n, fp64=True),
             shapes=[list(x.shape), list(a.shape)])
-        del x, a, zi, y, plain, ref64
+        rows[f"allpole_tv_rerun/{b}"] = dict(
+            err=(y_re - plain).abs().max().item(), err64=errs[1],
+            bit_for_bit_zi=same,
+            ms=cuda_ms(lambda: tap.allpole_rerun_cuda(x, a, zi, maps), 20),
+            chunk=chunk,
+            plain_ms=cuda_ms(lambda: tap.allpole_rerun_plain(x, a, zi, maps),
+                             1, warmup=1, strict=False),
+            # x, a, zi and the maps read once, y written; p FMAs a sample
+            bound=bound(4 * (2 * n + a.numel() + zi.numel())
+                        + 8 * maps.numel(), 2 * a.numel()),
+            shapes=[list(x.shape), list(a.shape), list(zi.shape),
+                    list(maps.shape)],
+            direction_ms=dir_ms, direction_earlier_ms=dir_old,
+            direction_turns_ms=dir_turns)
+        print(f"[sharded] ({b}, {t_loc}) a direction (summary + re-run): "
+              f"{dir_ms * 1e3:.1f} us, before the redesign (summary + zi "
+              f"entry, chunks of 512) {dir_old * 1e3:.1f} us; zi entry "
+              f"{zi_ms * 1e3:.1f} us ({zi_old * 1e3:.1f}), summary "
+              f"{su_ms * 1e3:.1f} us ({su_old * 1e3:.1f}); in turns, us: "
+              f"{[round(u * 1e3, 1) for u in dir_turns]}, "
+              f"{[round(u * 1e3, 1) for u in zi_turns]}, "
+              f"{[round(u * 1e3, 1) for u in su_turns]}")
+        del x, a, zi, y, y_re, plain, ref64, maps, maps_t
     n_ff = 64 * t_loc // 240
     x = torch.randn((n_ff, 960), generator=gen, device="cuda")
     a = lpc_coeffs(gen, (n_ff, 22), "cuda")
@@ -4816,10 +5001,23 @@ def phase_parallel() -> tuple:
             b_loc = batch // d
             t_loc = int(PAR_SECONDS * SR) // t
             want = [[b_loc, t_loc], [b_loc, t_loc, 22]]
-            check(all(want in res["shapes"]["allpole_tv"]
+            check(all(want in res["shapes"]["allpole_tv_rerun"]
                       and want in res["shapes"]["allpole_tv_summary"]
                       for res in ranks),
-                  f"{label}: B4 and the summary at {want}")
+                  f"{label}: the summary and the re-run at {want}")
+            # phase 1 once a direction: the summary (phase 1 and the tree)
+            # and the re-run from its maps once each in the forward and in
+            # the backward, and neither B4 entry that runs its own phase 1
+            once = [{name: res["counts"][name] for name in (
+                "allpole_tv_summary", "allpole_tv_rerun", "allpole_tv",
+                "allpole_tv_adjoint")} for res in ranks]
+            print(f"parallel {label}: B4's launches a rank step "
+                  f"{once} (phase 1 runs in the summary alone: once a "
+                  f"direction)")
+            check(all(c == {"allpole_tv_summary": 2, "allpole_tv_rerun": 2,
+                            "allpole_tv": 0, "allpole_tv_adjoint": 0}
+                      for c in once),
+                  f"{label}: phase 1 once a direction")
         if decoder == "golf-v1":
             want = v1_rank_shapes(batch // d, int(PAR_SECONDS * SR) // t)
             for name, shape in want.items():
@@ -4956,9 +5154,10 @@ def main() -> int:
     t0 = done("parallel", t0)
     parallel["phase_s"] = phase_s["parallel"]
     print(json.dumps({"parallel": {**parallel, "launches": par_counts}}))
-    rows["allpole_tv_summary"] = par_rows["allpole_tv_summary/64"]
-    train_shapes["allpole_tv_summary"] = tuple(
-        tuple(s) for s in par_rows["allpole_tv_summary/64"]["shapes"])
+    for name in ("allpole_tv_summary", "allpole_tv_rerun"):
+        rows[name] = par_rows[f"{name}/64"]
+        train_shapes[name] = tuple(
+            tuple(s) for s in par_rows[f"{name}/64"]["shapes"])
     print(json.dumps({"recipe": {
         "disk_fit_step_ms": [t * 1e3 for t in disk_probe.times],
         "golf_fs": fs,
@@ -4981,7 +5180,11 @@ def main() -> int:
                 "allpole_tv": "golf_tpu/ops/allpole_pallas.py:33",
                 "allpole_tv_adjoint": "golf_tpu/ops/allpole_pallas.py:33",
                 # no Pallas kernel: XLA's scan in golf_tpu
-                "allpole_tv_summary": "golf_tpu/parallel/seqpar.py:338"}
+                "allpole_tv_summary": "golf_tpu/parallel/seqpar.py:338",
+                # the shard's filter from its incoming state, which
+                # golf_tpu runs as _allpole_impl (allpole_pallas where its
+                # dispatch picks it)
+                "allpole_tv_rerun": "golf_tpu/parallel/seqpar.py:397"}
     table = []
     for k in kernels.ALL:
         r = rows[k.name]
@@ -5008,11 +5211,20 @@ def main() -> int:
                 "corner differences")
         if k.name == "allpole_const_adjoint":
             entry["also_replaces"] = "golf_tpu/ops/allpole.py:403-404"
-        if k.name == "allpole_tv_summary":
+        if k.name in ("allpole_tv_summary", "allpole_tv_rerun"):
             entry["shapes_note"] = ("a rank's window at 1 x 2, B = 64 x 2 s; "
                                     "launches: the parallel phase's timed "
                                     "steps, every rank")
             entry["err64"] = r["err64"]
+        for key in ("chunk", "earlier_ms", "turns_ms", "err_tree",
+                    "bit_for_bit_zi", "direction_ms", "direction_earlier_ms",
+                    "direction_turns_ms"):
+            if key in r:
+                entry[key] = r[key]
+        if "earlier_ms" in r and k.name.startswith("allpole_tv"):
+            entry["earlier"] = ("tools/allpole_tv_pr15.cu (chunks of 512, "
+                                "the summary's serial composition), timed "
+                                "in this run in turns")
         # the shards' shapes (phase parallel): B4's zi entry and the
         # summary at (64|32|16, 24000), B2 on a GOLF-ff (and golf-v1)
         # shard's frames, B1 and B3b on a golf-v1 rank's window
@@ -5026,7 +5238,12 @@ def main() -> int:
                     "err_vs_float64": row.get("err64"), "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
                     "bound_by": row["bound"][1],
-                    "library_ms": row.get("library_ms")}
+                    "library_ms": row.get("library_ms"),
+                    **{key: row[key] for key in (
+                        "chunk", "earlier_ms", "turns_ms", "err_tree",
+                        "bit_for_bit_zi", "direction_ms",
+                        "direction_earlier_ms", "direction_turns_ms")
+                       if key in row}}
                 for b, row in sharded.items()}
             entry["sharded_launches_per_rank_step"] = {
                 label: case["launches_per_rank"][0][k.name]
@@ -5061,7 +5278,11 @@ def main() -> int:
                 r1 = stream_rows["allpole_tv/1"]
                 entry["stream"]["b1"] = {
                     "shapes": r1["shapes"], "ms": r1["ms"],
-                    "plain_ms": r1["plain_ms"], "bound_ms": r1["bound"][0]}
+                    "plain_ms": r1["plain_ms"], "bound_ms": r1["bound"][0],
+                    "earlier_ms": r1["earlier_ms"], "chunk": r1["chunk"],
+                    "turns_ms": r1["turns_ms"]}
+                for key in ("chunk", "turns_ms", "err64"):
+                    entry["stream"][key] = stream_row[key]
         voc_name = "allpole_const" if k.name == "allpole_const_adjoint" \
             else k.name
         if voc_name in voc_shapes:

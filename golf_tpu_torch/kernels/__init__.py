@@ -158,15 +158,23 @@ ALLPOLE_CONST = CudaKernel(
 ALLPOLE_CONST_ADJ = CudaKernel(
     "allpole_const_adjoint", "allpole_const.cu", "golf_allpole_const_adjoint",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+# the time-varying entries take the chunk length planned by
+# ops/allpole.py::chunk_for and the chunks a CTA of phase 3 by rerun_chunks
 ALLPOLE_TV = CudaKernel(
     "allpole_tv", "allpole_tv.cu", "golf_allpole_tv",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 ALLPOLE_TV_ADJ = CudaKernel(
     "allpole_tv_adjoint", "allpole_tv.cu", "golf_allpole_tv_adjoint",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+# the summary also keeps every chunk's map for the re-run entry, which
+# runs the forward entry's carry and re-run from them; it takes the tree's
+# group from ops/allpole.py::tree_group
 ALLPOLE_TV_SUMMARY = CudaKernel(
     "allpole_tv_summary", "allpole_tv.cu", "golf_allpole_tv_summary",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+ALLPOLE_TV_RERUN = CudaKernel(
+    "allpole_tv_rerun", "allpole_tv.cu", "golf_allpole_tv_rerun",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 
 ALL = (LOOKUP, LOOKUP_RES, LOOKUP_DTAB, ALLPOLE_CONST, ALLPOLE_CONST_ADJ,
-       ALLPOLE_TV, ALLPOLE_TV_ADJ, ALLPOLE_TV_SUMMARY)
+       ALLPOLE_TV, ALLPOLE_TV_ADJ, ALLPOLE_TV_SUMMARY, ALLPOLE_TV_RERUN)

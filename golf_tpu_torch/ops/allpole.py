@@ -13,15 +13,21 @@ the blocked two-pass form of ``golf_tpu``). Both are
 filter on the reversed cotangent.
 
 The time-varying kernel is chunked: float64 state maps of every chunk of
-``CHUNK`` steps, a float64 carry of the state across chunks, then every
-chunk re-run from its incoming state. Its adjoint entry
+``chunk_for(B, T)`` steps, a float64 carry of the state across chunks, then
+every chunk re-run from its incoming state. Its adjoint entry
 (``allpole_adjoint_cuda``) reads the cotangent and the coefficients where
 they lie, so the backward builds no column-shifted or flipped (B, T, p)
 copy; on the CPU the adjoint stays ``golf_tpu``'s materialised form.
 ``allpole_chunked_plain`` is the kernel's algorithm in plain PyTorch (both
 entries), for the tests and ``chip_smoke.py``; no route runs it.
 ``allpole_stream`` (streaming, no gradient) runs the forward entry from an
-initial state ``zi``, the last p outputs of the previous chunk.
+initial state ``zi``, the last p outputs of the previous chunk. The
+time-sharded filter takes the summary entry (``allpole_summary_cuda``: a
+row's float64 end-state map, composed as a tree from every chunk's map,
+which it returns too) and then the re-run entry (``allpole_rerun_cuda``:
+the carry and the re-run from those maps), so phase 1 runs once;
+``allpole_summary_chunked_plain`` and ``allpole_rerun_plain`` are their
+algorithms in plain PyTorch.
 
 The constant-coefficient kernel is the sequential recurrence with a
 float64 state, one row a thread. Its adjoint entry
@@ -45,15 +51,78 @@ import torch
 
 from ..core.sig import linear_upsample
 from ..kernels import (ALLPOLE_CONST, ALLPOLE_CONST_ADJ, ALLPOLE_TV,
-                       ALLPOLE_TV_ADJ, ALLPOLE_TV_SUMMARY)
+                       ALLPOLE_TV_ADJ, ALLPOLE_TV_RERUN, ALLPOLE_TV_SUMMARY)
 from ._checks import check_kernel_inputs
 from .dsp import rc2lpc
 
 MAX_ORDER = 64
-# steps a chunk of the time-varying kernel (and of its plain mirror); of
-# 256, 384 and 512, 512 ran fastest at both the training and the serving
-# shape on the H100 (PERF.md)
+# steps a chunk of the time-varying kernel (and of its plain mirror) at the
+# training and serving shapes: of 256, 384 and 512, 512 ran fastest at both
+# on the H100 (PERF.md)
 CHUNK = 512
+# the shorter chunks chunk_for may take, longest first
+SHORT_CHUNKS = (256, 128, 64)
+# CTAs of a one-warp phase that keep the H100's 132 SMs busy: a chunk's
+# steps are a serial chain, so an SM needs several in flight
+FILL_CTAS = 8 * 132
+# the carry's serial chain a row, at most, where a shorter chunk would
+# lengthen it: each map costs ~0.4 us on the H100, so at test_rtf's
+# (1, 144 000) chunks of 256 or less run slower than 512 (PERF.md)
+MAX_CARRY = 96
+
+
+def chunk_for(b: int, t: int) -> int:
+    """The time-varying kernel's chunk length for B rows of T steps:
+    ``CHUNK`` where B ceil(T / CHUNK) one-warp CTAs fill the card, else the
+    longest of ``SHORT_CHUNKS`` that does or, where none does, the
+    shortest; never one whose ceil(T / L) chunks exceed ``MAX_CARRY``
+    (``CHUNK`` stays then). A shorter chunk cuts each CTA's serial chain
+    and lengthens the carry's, ceil(T / L) dependent p x p products
+    (``tools/allpole_chunk_sweep.py`` measures the trade-off). The kernel's
+    wrappers and ``allpole_chunked_plain`` take L from here."""
+    best = CHUNK
+    for chunk in (CHUNK,) + SHORT_CHUNKS:
+        if chunk != CHUNK and -(-t // chunk) > MAX_CARRY:
+            break
+        best = chunk
+        if b * -(-t // chunk) >= FILL_CTAS:
+            break
+    return best
+
+
+# the only order whose phase 3 the kernel runs two chunks a warp (its
+# register ring, kRingOrder in allpole_tv.cu)
+PAIR_ORDER = 22
+
+
+def rerun_chunks(b: int, t: int, p: int) -> int:
+    """Chunks a CTA of the time-varying kernel's phase 3 (its entries take
+    it as nc): 2 at ``PAIR_ORDER`` where the B ceil(T / L) chunks reach
+    twice ``FILL_CTAS``, so that the paired grid still fills the card, else
+    1. On the H100 pairs ran faster than one chunk a CTA at the training
+    shape and a (64, 24 000) shard, and slower at a push (152 chunks leave
+    SMs idle); four or eight chunks a CTA ran slower than two (PERF.md).
+    Either way the outputs are the same bit for bit."""
+    chunks = b * -(-t // chunk_for(b, t))
+    return 2 if p == PAIR_ORDER and chunks >= 2 * FILL_CTAS else 1
+
+
+# maps a CTA of the summary's tree composes, at most, and the tree's shared
+# memory
+TREE_MAPS = 16
+TREE_SMEM = 200 * 1024
+
+
+def tree_group(p: int) -> int:
+    """NB, the maps a CTA of the summary's composition takes (its entry
+    takes it as nb): the largest power of two up to ``TREE_MAPS`` whose NB
+    maps and NB / 2 products, p (p + 1) doubles each, fit ``TREE_SMEM``;
+    at least 2."""
+    per = (p + 1) * p * 8
+    nb = TREE_MAPS
+    while nb > 2 and (nb + nb // 2) * per > TREE_SMEM:
+        nb //= 2
+    return nb
 
 
 def _choose_block(t: int) -> int:
@@ -142,20 +211,14 @@ def allpole_plain(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return _allpole_blocked(x, a, zi, block)
 
 
-def allpole_chunked_plain(x: torch.Tensor, a: torch.Tensor,
-                          chunk: int = CHUNK,
-                          adjoint: bool = False,
-                          zi: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The time-varying kernel's algorithm, vectorised over chunks of
-    ``chunk`` steps (2 chunk + ceil(T / chunk) Python steps): each chunk's
-    state map and zero-state offset in float64, the float64 carry of the
-    state across chunks from the initial state ``zi`` (B, p) in float64
-    (zero when None), then every chunk re-run from its incoming state,
-    also in float64. With ``adjoint`` it returns the transposed filter of
-    the cotangent ``x``, ``flip(allpole(flip(x), flip(_shift_columns(a))))``,
-    indexing ``x`` and ``a`` in place as the adjoint entry does: reversed
-    step m reads x[T - 1 - m] and, for tap j < m, a[T - m + j, j]."""
-    b, t = x.shape
+def _chunk_operands(x: torch.Tensor, a: torch.Tensor, chunk: int,
+                    adjoint: bool):
+    """The chunked kernel's view of (x, a): the float64 inputs (B, chunks,
+    chunk) of every chunk's steps (zero past T) and ``coef(u)``, the
+    (B, chunks, p) float64 taps of step u of every chunk (zero past T), read
+    in place for the adjoint: reversed step m reads x[T - 1 - m] and, for
+    tap j < m, a[T - m + j, j]. Also returns the steps (chunks, chunk)."""
+    t = x.shape[1]
     p = a.shape[-1]
     n_chunks = -(-t // chunk)
     steps = torch.arange(n_chunks * chunk, device=x.device).view(n_chunks,
@@ -165,26 +228,54 @@ def allpole_chunked_plain(x: torch.Tensor, a: torch.Tensor,
     xs = torch.where(steps < t, x[:, src.clamp(0, t - 1)], 0).double()
 
     def coef(u: int) -> torch.Tensor:
-        """(B, chunks, p) coefficients of step u of every chunk."""
         m = steps[:, u, None]
         rows = t - m + taps if adjoint else m.expand(n_chunks, p)
         ok = (rows < t) & (m < t)
         return torch.where(ok, a[:, rows.clamp(0, t - 1), taps], 0).double()
 
-    # maps: columns c < p follow each incoming state component, column p
-    # the zero-state response; state component i is the output i + 1 back
+    return xs, coef, steps
+
+
+def allpole_chunk_maps_plain(x: torch.Tensor, a: torch.Tensor,
+                             chunk: Optional[int] = None,
+                             adjoint: bool = False) -> torch.Tensor:
+    """Phase 1 of the time-varying kernel: every chunk's float64 state map,
+    (B, chunks, p + 1, p), [b, k, c, i] component i of the chunk's end state
+    for a unit incoming component c (c = p: the zero-state response to the
+    chunk's inputs); state component i is the output i + 1 steps back. The
+    last chunk runs its steps below T only, as the kernel's does."""
+    b, t = x.shape
+    p = a.shape[-1]
+    chunk = chunk_for(b, t) if chunk is None else chunk
+    xs, coef, steps = _chunk_operands(x, a, chunk, adjoint)
     s = torch.cat([torch.eye(p, dtype=torch.float64, device=x.device),
                    x.new_zeros((1, p), dtype=torch.float64)])
-    s = s.expand(b, n_chunks, p + 1, p)
+    s = s.expand(b, steps.shape[0], p + 1, p)
     for u in range(chunk):
         r = -(s * coef(u)[:, :, None, :]).sum(-1)
         r[..., p] += xs[:, :, u]
-        s = torch.cat([r[..., None], s[..., :-1]], dim=-1)
+        step = torch.cat([r[..., None], s[..., :-1]], dim=-1)
+        s = torch.where((steps[:, u] < t)[None, :, None, None], step, s)
+    return s
+
+
+def allpole_rerun_plain(x: torch.Tensor, a: torch.Tensor,
+                        zi: Optional[torch.Tensor], maps: torch.Tensor,
+                        chunk: Optional[int] = None,
+                        adjoint: bool = False) -> torch.Tensor:
+    """Phases 2 and 3 of the time-varying kernel from the chunk maps (the
+    first ceil(T / chunk) - 1 are read): the float64 carry of the state
+    from ``zi`` (B, p) (zero when None), then every chunk re-run from its
+    incoming state in float64. Returns y in x's dtype."""
+    b, t = x.shape
+    p = a.shape[-1]
+    chunk = chunk_for(b, t) if chunk is None else chunk
+    xs, coef, steps = _chunk_operands(x, a, chunk, adjoint)
     s_in = [x.new_zeros((b, p), dtype=torch.float64) if zi is None
             else zi.double()]
-    for k in range(n_chunks - 1):
-        s_in.append(torch.einsum("bji,bj->bi", s[:, k, :p], s_in[-1])
-                    + s[:, k, p])
+    for k in range(steps.shape[0] - 1):
+        s_in.append(torch.einsum("bji,bj->bi", maps[:, k, :p], s_in[-1])
+                    + maps[:, k, p])
     state = torch.stack(s_in, dim=1)
     ys = []
     for u in range(chunk):
@@ -193,6 +284,80 @@ def allpole_chunked_plain(x: torch.Tensor, a: torch.Tensor,
         ys.append(y_u)
     y = torch.stack(ys, dim=2).reshape(b, -1)[:, :t].to(x.dtype)
     return torch.flip(y, (1,)) if adjoint else y
+
+
+def allpole_chunked_plain(x: torch.Tensor, a: torch.Tensor,
+                          chunk: Optional[int] = None,
+                          adjoint: bool = False,
+                          zi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The time-varying kernel's algorithm, vectorised over chunks of
+    ``chunk`` steps (``chunk_for`` by default; 2 chunk + ceil(T / chunk)
+    Python steps): each chunk's state map and zero-state offset in float64
+    (``allpole_chunk_maps_plain``), the float64 carry of the state across
+    chunks from the initial state ``zi`` (B, p) in float64 (zero when
+    None), then every chunk re-run from its incoming state, also in float64
+    (``allpole_rerun_plain``). With ``adjoint`` it returns the transposed
+    filter of the cotangent ``x``,
+    ``flip(allpole(flip(x), flip(_shift_columns(a))))``, indexing ``x`` and
+    ``a`` in place as the adjoint entry does."""
+    maps = allpole_chunk_maps_plain(x, a, chunk, adjoint)
+    return allpole_rerun_plain(x, a, zi, maps, chunk, adjoint)
+
+
+def _compose_maps(later: torch.Tensor, earlier: torch.Tensor
+                  ) -> torch.Tensor:
+    """later o earlier for maps stored by column (..., p + 1, p): column
+    c < p is later's M times earlier's column c, column p adds later's
+    offset (the kernel's ``compose_entry``)."""
+    p = later.shape[-1]
+    out = torch.einsum("...cj,...ji->...ci", earlier, later[..., :p, :])
+    return torch.cat([out[..., :p, :], out[..., p:, :] + later[..., p:, :]],
+                     dim=-2)
+
+
+def _tree(maps: torch.Tensor) -> torch.Tensor:
+    """(..., n, p + 1, p) maps in time order composed as the kernel's tree:
+    each level multiplies neighbours (2j + 1 after 2j) and passes an odd
+    last map on. Returns (..., p + 1, p)."""
+    while maps.shape[-3] > 1:
+        n = maps.shape[-3]
+        pairs = _compose_maps(maps[..., 1:n - n % 2:2, :, :],
+                              maps[..., 0:n - n % 2:2, :, :])
+        maps = torch.cat([pairs, maps[..., n - n % 2:, :, :]], dim=-3)
+    return maps[..., 0, :, :]
+
+
+def compose_tree_plain(maps: torch.Tensor) -> torch.Tensor:
+    """The summary entry's composition of a row's chunk maps (B, K, p + 1,
+    p), in the kernel's order: groups of NB (``tree_group``) maps each
+    composed as a tree, then the group products, NB at a time, the product
+    so far first in each round after the first. Returns the row's map
+    (B, p + 1, p)."""
+    b, k, _, p = maps.shape
+    nb = tree_group(p)
+    parts = [_tree(maps[:, g:g + nb]) for g in range(0, k, nb)]
+    if len(parts) == 1:
+        return parts[0]
+    w, g0 = None, 0
+    while g0 < len(parts):
+        lead = [] if w is None else [w]
+        take = parts[g0:g0 + nb - len(lead)]
+        w = _tree(torch.stack(lead + take, dim=1))
+        g0 += len(take)
+    return w
+
+
+def allpole_summary_chunked_plain(x: torch.Tensor, a: torch.Tensor,
+                                  chunk: Optional[int] = None):
+    """The summary entry's algorithm in plain PyTorch, float64: every
+    chunk's map (``allpole_chunk_maps_plain``, the last chunk included),
+    composed as the kernel's tree (``compose_tree_plain``). Returns (M
+    (B, p, p), v (B, p), the maps (B, chunks, p + 1, p)), s_out = M s_in +
+    v."""
+    maps = allpole_chunk_maps_plain(x, a, chunk)
+    w = compose_tree_plain(maps)
+    p = a.shape[-1]
+    return w[:, :p].transpose(1, 2), w[:, p], maps
 
 
 def resonant_inputs(seed: int, b: int = 4, t: int = 4800, p: int = 22,
@@ -317,10 +482,9 @@ def resonant_const_inputs(seed: int, n: int = 256, t: int = 960,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _allpole_tv_launch(kernel, name: str, x: torch.Tensor, a: torch.Tensor,
-                       zi: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch one entry of the time-varying kernel with the (nullable)
-    initial state zi."""
+def _check_tv(name: str, x: torch.Tensor, a: torch.Tensor,
+              zi: Optional[torch.Tensor] = None) -> int:
+    """Check the time-varying kernel's operands; returns p."""
     check_kernel_inputs(name, x=x, a=a,
                         **({} if zi is None else {"zi": zi}))
     if x.ndim != 2 or not 1 <= x.shape[0] <= 65535:
@@ -334,17 +498,30 @@ def _allpole_tv_launch(kernel, name: str, x: torch.Tensor, a: torch.Tensor,
     if zi is not None and tuple(zi.shape) != (b, p):
         raise ValueError(f"{name}: zi must be (B, p) = {(b, p)}, got "
                          f"{tuple(zi.shape)}")
+    return p
+
+
+def _stream_of(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _allpole_tv_launch(kernel, name: str, x: torch.Tensor, a: torch.Tensor,
+                       zi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the forward or adjoint entry of the time-varying kernel with
+    the (nullable) initial state zi, at ``chunk_for``'s chunk length."""
+    p = _check_tv(name, x, a, zi)
+    b, t = x.shape
     y = torch.empty_like(x)
     if x.numel():
-        n_chunks = -(-t // CHUNK)
-        # float64 maps (B, chunks - 1, p + 1, p), then incoming states
-        scratch = torch.empty(b * ((n_chunks - 1) * (p + 1) * p
-                                   + n_chunks * p),
+        chunk = chunk_for(b, t)
+        n_chunks = -(-t // chunk)
+        # float64 maps (B, chunks, p + 1, p), then incoming states
+        scratch = torch.empty(b * n_chunks * ((p + 1) * p + p),
                               dtype=torch.float64, device=x.device)
         kernel.launch(x.data_ptr(), a.data_ptr(),
                       None if zi is None else zi.data_ptr(), y.data_ptr(),
-                      scratch.data_ptr(), b, t, p, CHUNK, x.device.index,
-                      torch.cuda.current_stream(x.device).cuda_stream,
+                      scratch.data_ptr(), b, t, p, chunk,
+                      rerun_chunks(b, t, p), x.device.index, _stream_of(x),
                       shapes=(tuple(x.shape), tuple(a.shape)))
     return y
 
@@ -366,26 +543,55 @@ def allpole_adjoint_cuda(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 def allpole_summary_cuda(x: torch.Tensor, a: torch.Tensor):
     """The time-varying kernel's summary entry: the affine end-state map of
     each row, ``s_out = M s_in + v`` (state component i the output i + 1
-    steps back), as float64 M (B, p, p) and v (B, p). x: (B, T), a:
-    (B, T, p), fp32, contiguous."""
-    check_kernel_inputs("allpole_summary", x=x, a=a)
+    steps back), as float64 M (B, p, p) and v (B, p), and every chunk's
+    float64 map (B, chunks, p + 1, p) at ``chunk_for``'s length, which
+    ``allpole_rerun_cuda`` takes. x: (B, T), a: (B, T, p), fp32,
+    contiguous."""
+    p = _check_tv("allpole_summary", x, a)
     b, t = x.shape
-    if a.ndim != 3 or a.shape[:2] != (b, t) or \
-            not 1 <= a.shape[2] <= MAX_ORDER or not 1 <= b <= 65535 or t < 1:
-        raise ValueError(f"allpole_summary: x (B, T) and a (B, T, "
-                         f"1..{MAX_ORDER}), got {tuple(x.shape)}, "
-                         f"{tuple(a.shape)}")
-    p = a.shape[2]
+    if t < 1:
+        raise ValueError("allpole_summary: T must be at least 1")
+    n_chunks = -(-t // chunk_for(b, t))
+    nb = tree_group(p)
     m = torch.empty((b, p, p), dtype=torch.float64, device=x.device)
     v = torch.empty((b, p), dtype=torch.float64, device=x.device)
-    scratch = torch.empty(b * -(-t // CHUNK) * (p + 1) * p,
+    maps = torch.empty((b, n_chunks, p + 1, p), dtype=torch.float64,
+                       device=x.device)
+    # the tree's group products (NB maps a group), then b counters
+    scratch = torch.empty(b * -(-n_chunks // nb) * (p + 1) * p + -(-b // 2),
                           dtype=torch.float64, device=x.device)
     ALLPOLE_TV_SUMMARY.launch(
         x.data_ptr(), a.data_ptr(), m.data_ptr(), v.data_ptr(),
-        scratch.data_ptr(), b, t, p, CHUNK, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        maps.data_ptr(), scratch.data_ptr(), b, t, p, chunk_for(b, t), nb,
+        x.device.index, _stream_of(x),
         shapes=(tuple(x.shape), tuple(a.shape)))
-    return m, v
+    return m, v, maps
+
+
+def allpole_rerun_cuda(x: torch.Tensor, a: torch.Tensor, zi: torch.Tensor,
+                       maps: torch.Tensor) -> torch.Tensor:
+    """The forward entry from ``allpole_summary_cuda``'s maps of the same
+    (x, a): the float64 carry from zi (B, p) and the re-run of every chunk
+    (no phase 1). Equals ``allpole_cuda(x, a, zi)`` bit for bit."""
+    p = _check_tv("allpole_rerun", x, a, zi)
+    b, t = x.shape
+    n_chunks = -(-t // chunk_for(b, t))
+    if maps.dtype != torch.float64 or maps.device != x.device or \
+            tuple(maps.shape) != (b, n_chunks, p + 1, p) or \
+            not maps.is_contiguous():
+        raise ValueError(f"allpole_rerun: maps must be the summary's "
+                         f"contiguous float64 {(b, n_chunks, p + 1, p)} on "
+                         f"{x.device}, got {maps.dtype} {tuple(maps.shape)} "
+                         f"on {maps.device}")
+    y = torch.empty_like(x)
+    s_in = torch.empty(b * n_chunks * p, dtype=torch.float64,
+                       device=x.device)
+    ALLPOLE_TV_RERUN.launch(
+        x.data_ptr(), a.data_ptr(), zi.data_ptr(), maps.data_ptr(),
+        y.data_ptr(), s_in.data_ptr(), b, t, p, chunk_for(b, t),
+        rerun_chunks(b, t, p), x.device.index, _stream_of(x),
+        shapes=(tuple(x.shape), tuple(a.shape)))
+    return y
 
 
 def _divisor_block(t: int) -> int:
@@ -422,14 +628,6 @@ def allpole_summary_plain(x: torch.Tensor, a: torch.Tensor):
         w = torch.cat([r[:, :, None, :], w[:, :, :-1, :]], dim=2)
     m_cum, v_cum = _scan_affine(w[..., :p], w[..., p])
     return m_cum[:, -1], v_cum[:, -1]
-
-
-def allpole_summary(x: torch.Tensor, a: torch.Tensor):
-    """The affine end-state map (M, v) of each row: the summary entry for a
-    CUDA tensor (float64), the plain version for a CPU one (x's dtype)."""
-    if x.is_cuda:
-        return allpole_summary_cuda(x.contiguous(), a.contiguous())
-    return allpole_summary_plain(x, a)
 
 
 def _check_const_shapes(name: str, x: torch.Tensor, a: torch.Tensor

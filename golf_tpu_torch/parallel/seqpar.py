@@ -10,7 +10,8 @@ data shard's rows, as ``golf_tpu``'s ``make_sharded_train_fn`` splits them:
   window's sample-rate values (the hop algebra's linear upsample, sliced);
 * the all-pole filter exchanges each window's affine end-state map
   ``s_out = M s_in + v`` (``allpole_sharded``: B4's summary entry on the
-  card, one all-gather, a local prefix, then B4 from the incoming state);
+  card, one all-gather, a local prefix, then B4's re-run entry from the
+  incoming state and the summary's chunk maps);
 * FIR and framed ops (noise filter, decimation, GOLF-ff's frames, the STFT
   losses) exchange halos of their support with the neighbours, and the
   spectral filters (MLSA, NHV, ∇WORLD) their frames' halos and overlap-add
@@ -41,7 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.sig import Sig, linear_upsample
-from ..ops.allpole import allpole_cuda, allpole_stream_plain, allpole_summary
+from ..ops.allpole import (allpole_rerun_cuda, allpole_stream_plain,
+                           allpole_summary_cuda, allpole_summary_plain)
 from ..ops.dsp import PHASE_BLOCK, _mod1_scan, get_window_fn, unfold
 from . import collectives
 from .mesh import Mesh, data_parallel, data_shard, rows_of, shard_batch
@@ -335,16 +337,14 @@ def slice_global_rng(generator: Optional[torch.Generator],
 # the all-pole filter across shards
 # ---------------------------------------------------------------------------
 
-def incoming_state(x: torch.Tensor, a: torch.Tensor, env: SeqParEnv,
+def incoming_state(m: torch.Tensor, v: torch.Tensor, env: SeqParEnv,
                    reverse: bool = False) -> torch.Tensor:
-    """This shard's true incoming state: every shard's summary (B4's summary
-    entry on the card, float64; its plain version on the CPU), one
-    all-gather, then the composition of the shards before this one in the
-    filter's order: the shards to the left, or with ``reverse`` (the
-    globally time-reversed problem, whose shards each rank holds locally
-    flipped) the shards to the right, nearest last. Returns (B, p) in x's
-    dtype."""
-    m, v = allpole_summary(x, a)
+    """This shard's true incoming state from every shard's summary (M, v)
+    of this one's (one all-gather): the composition of the shards before
+    this one in the filter's order, the shards to the left, or with
+    ``reverse`` (the globally time-reversed problem, whose shards each rank
+    holds locally flipped) the shards to the right, nearest last. Returns
+    (B, p) in v's dtype."""
     m_all = collectives.all_gather(m[None], env.time_group)
     v_all = collectives.all_gather(v[None], env.time_group)
     k = tidx(env)
@@ -352,17 +352,23 @@ def incoming_state(x: torch.Tensor, a: torch.Tensor, env: SeqParEnv,
     s = torch.zeros_like(v)
     for j in order:
         s = torch.einsum("bij,bj->bi", m_all[j], s) + v_all[j]
-    return s.to(x.dtype)
+    return s
 
 
 def _allpole_sharded_fwd(x: torch.Tensor, a: torch.Tensor, env: SeqParEnv,
                          reverse: bool = False) -> torch.Tensor:
-    """Forward on this shard: B4 from the incoming state on the card,
-    ``golf_tpu``'s form from the state on the CPU."""
-    zi = incoming_state(x, a, env, reverse)
+    """Forward on this shard from its true incoming state. On the card B4's
+    summary entry (float64) keeps its chunk maps and the re-run entry takes
+    them, so phase 1 runs once; on the CPU ``golf_tpu``'s summary and its
+    form from the state."""
     if x.is_cuda:
-        return allpole_cuda(x.contiguous(), a.contiguous(), zi.contiguous())
-    return allpole_stream_plain(x, a, zi)
+        x, a = x.contiguous(), a.contiguous()
+        m, v, maps = allpole_summary_cuda(x, a)
+        zi = incoming_state(m, v, env, reverse).to(x.dtype)
+        return allpole_rerun_cuda(x, a, zi, maps)
+    m, v = allpole_summary_plain(x, a)
+    return allpole_stream_plain(x, a,
+                                incoming_state(m, v, env, reverse).to(x.dtype))
 
 
 def _shift_columns_sharded(a: torch.Tensor, env: SeqParEnv) -> torch.Tensor:

@@ -186,6 +186,35 @@ def test_cuda_allpole_chunked_matches_mirror(cuda_device, b, t, p):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,t", [(48, 512 * 45), (50, 512 * 42 + 77)])
+def test_cuda_allpole_paired_rerun(cuda_device, monkeypatch, b, t):
+    """With B ceil(T / 512) >= 2112 chunks the re-run pairs them in a CTA
+    (an odd count and a ragged last chunk in the second case): the forward
+    from zi and the adjoint against ``allpole_chunked_plain`` (1e-5 of
+    max|y|), the adjoint bit for bit against the forward entry on the
+    materialised operands, and both entries bit for bit against one chunk
+    a CTA. The coefficients are ``resonant_inputs``' (frame-rate, capped at
+    0.95): i.i.d. ones a sample diverge over this many steps."""
+    x, a = tap.resonant_inputs(b + t, b=b, t=t)
+    zi = torch.from_numpy(np.random.default_rng(t).standard_normal(
+        (b, 22)).astype(np.float32))
+    x, a, zi = x.cuda(), a.cuda(), zi.cuda()
+    assert tap.rerun_chunks(b, t, 22) == 2
+    y = tap.allpole_cuda(x, a, zi)
+    ref = tap.allpole_chunked_plain(x, a, zi=zi)
+    assert ((y - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+    dx = tap.allpole_adjoint_cuda(x, a)
+    ref = tap.allpole_chunked_plain(x, a, adjoint=True)
+    assert ((dx - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+    c = torch.flip(tap._shift_columns(a), (1,)).contiguous()
+    assert torch.equal(dx, torch.flip(tap.allpole_cuda(
+        torch.flip(x, (1,)).contiguous(), c), (1,)))
+    monkeypatch.setattr(tap, "rerun_chunks", lambda *_: 1)
+    assert torch.equal(tap.allpole_cuda(x, a, zi), y)
+    assert torch.equal(tap.allpole_adjoint_cuda(x, a), dx)
+
+
+@pytest.mark.cuda
 def test_cuda_allpole_adjoint_is_the_materialised_adjoint(cuda_device):
     """The adjoint entry, reading g and a in place, equals the forward entry
     on the flipped cotangent and the flipped, column-shifted coefficients,
@@ -299,6 +328,14 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
         tap.allpole_const_cuda(x.t(), torch.zeros(8, 3, device=cuda_device))
     with pytest.raises(ValueError):
         tap.allpole_cuda(x, torch.zeros(2, 7, 3, device=cuda_device))
+    a3 = torch.zeros(2, 8, 3, device=cuda_device)
+    _, _, maps = tap.allpole_summary_cuda(x, a3)
+    with pytest.raises(ValueError):
+        tap.allpole_rerun_cuda(x, a3, torch.zeros(2, 3, device=cuda_device),
+                               maps[:, :, :-1].contiguous())
+    with pytest.raises(ValueError):
+        tap.allpole_rerun_cuda(x, a3, torch.zeros(2, 3, device=cuda_device),
+                               maps.float())
     with pytest.raises(ValueError):
         lookup_blocks_cuda(torch.zeros(1, 2, 4, device=cuda_device),
                            torch.zeros(1, 2, 8, device=cuda_device), 4)
@@ -321,11 +358,12 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
 @pytest.mark.parametrize("b,t,p", [(4, 2400, 22), (1, 2400, 22), (2, 300, 22),
                                    (2, 700, 5), (3, 1500, 40)])
 def test_cuda_allpole_zi_entry(cuda_device, b, t, p):
-    """B4's forward entry from a random initial state, with one chunk of
-    the kernel (T <= CHUNK: no maps, the re-run starts from zi) and several:
+    """B4's forward entry from a random initial state, at ``chunk_for``'s
+    chunk length (64 at a push's (4 | 1, 2400)) over several chunks:
     against its plain version (golf_tpu's streaming form, 1e-4 of max|y|),
-    against a float64 scan from the same state (1e-5), and with a null
-    state bit for bit equal to a zero state."""
+    against a float64 scan from the same state (1e-5), against
+    ``allpole_chunked_plain`` from it (1e-5), and with a null state bit for
+    bit equal to a zero state."""
     rng = np.random.default_rng(b * t + p)
     x = torch.from_numpy(rng.standard_normal((b, t)).astype(np.float32))
     a = rc2lpc(torch.tanh(torch.from_numpy(
@@ -339,6 +377,8 @@ def test_cuda_allpole_zi_entry(cuda_device, b, t, p):
     assert ((y.double() - ref64).abs().max() / scale).item() <= 1e-5
     plain = tap.allpole_stream_plain(x, a, zi)
     assert ((y - plain).abs().max() / plain.abs().max()).item() <= 1e-4
+    mirror = tap.allpole_chunked_plain(x, a, zi=zi)
+    assert ((y - mirror).abs().max() / mirror.abs().max()).item() <= 1e-5
     assert torch.equal(tap.allpole_cuda(x, a),
                        tap.allpole_cuda(x, a, torch.zeros_like(zi)))
     with pytest.raises(ValueError):
@@ -520,27 +560,39 @@ def test_cuda_optimizer_step_equals_the_cpus(cuda_device, optimizer):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,p", [(4, 512 * 3, 22), (2, 512 * 24, 22),
-                                   (3, 1234, 22), (2, 512, 22), (2, 700, 5),
-                                   (2, 1500, 40)])
-def test_cuda_allpole_summary_entry(cuda_device, b, t, p):
+@pytest.mark.parametrize("b,t,p,scale", [
+    (4, 512 * 3, 22, 0.2), (2, 512 * 24, 22, 0.2), (3, 1234, 22, 0.2),
+    (2, 512, 22, 0.2), (2, 700, 5, 0.2), (2, 1500, 40, 0.2),
+    (2, 1500, 64, 0.1)])
+def test_cuda_allpole_summary_entry(cuda_device, b, t, p, scale):
     """The summary entry (the affine end-state map of each row, float64) at
-    T a multiple of the chunk and at ragged lengths: against a float64 run
-    of its plain version (golf_tpu's ``_local_affine_summary``; 1e-9 of
-    max|ref|) and against the float32 plain version (1e-3: that form's own
-    error); its map then carries a random state to the filter's end state,
-    within 1e-5 of a float64 scan."""
+    T a multiple of the chunk and at ragged lengths, its tree in one round
+    and in two (24 chunks of 64 at p = 64, which takes 4 maps a group;
+    there the coefficients' scale is 0.1: at 0.2 M outgrows float32, which
+    the float32 plain version needs): against a float64 run of its plain
+    version (golf_tpu's
+    ``_local_affine_summary``; 1e-9 of max|ref|), against its tree mirror
+    (``allpole_summary_chunked_plain``, maps too; 1e-9) and against the
+    float32 plain version (1e-3: that form's own error); its map then
+    carries a random state to the filter's end state, within 1e-5 of a
+    float64 scan; the re-run entry from its maps equals the zi entry bit
+    for bit."""
     rng = np.random.default_rng(b * t + p)
     x = torch.from_numpy(rng.standard_normal((b, t)).astype(np.float32))
     a = rc2lpc(torch.tanh(torch.from_numpy(
-        0.2 * rng.standard_normal((b, t, p)).astype(np.float32))))
+        scale * rng.standard_normal((b, t, p)).astype(np.float32))))
     x, a = x.contiguous().to(cuda_device), a.contiguous().to(cuda_device)
-    m, v = tap.allpole_summary_cuda(x, a)
+    m, v, maps = tap.allpole_summary_cuda(x, a)
     assert m.dtype == torch.float64 and m.shape == (b, p, p)
     assert v.shape == (b, p)
     m64, v64 = tap.allpole_summary_plain(x.double(), a.double())
-    for got, ref in ((m, m64), (v, v64)):
-        assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-9
+    mt, vt, maps_t = tap.allpole_summary_chunked_plain(x, a)
+    assert maps.shape == maps_t.shape
+    # over many steps M decays below float64's range: a floor of 1e-30
+    # keeps 0 / 0 out
+    for got, ref in ((m, m64), (v, v64), (m, mt), (v, vt), (maps, maps_t)):
+        assert ((got - ref).abs().max()
+                / ref.abs().max().clamp_min(1e-30)).item() <= 1e-9
     # over hundreds of steps of a low-order filter M decays below float32's
     # range: the float32 form holds zeros there, hence the floor
     m32, v32 = tap.allpole_summary_plain(x, a)
@@ -552,6 +604,9 @@ def test_cuda_allpole_summary_entry(cuda_device, b, t, p):
     end = torch.flip(y[:, -p:], (1,))
     got = torch.einsum("bij,bj->bi", m, zi) + v
     assert ((got - end).abs().max() / end.abs().max()).item() <= 1e-5
+    zi32 = zi.float().contiguous()
+    assert torch.equal(tap.allpole_rerun_cuda(x, a, zi32, maps),
+                       tap.allpole_cuda(x, a, zi32))
     launches = tap.ALLPOLE_TV_SUMMARY.launches
-    tap.allpole_summary(x, a)
+    tap.allpole_summary_cuda(x, a)
     assert tap.ALLPOLE_TV_SUMMARY.launches == launches + 1

@@ -11,7 +11,12 @@ Tolerances: the inverse filter and the decoders' pairs within 1e-5 of
 max|y| (sums in another order), but the source's within 1e-4, as
 ``tests/test_torch_decoder.py`` holds the decoders (the wrapped phase's
 scans); the loss and its metrics within 1e-5 relative; every gradient
-within 1e-3 of its max-abs."""
+within 1e-3 of its max-abs on a batch with -20 dB of added noise. At
+batch()'s own -30 dB the float32 gradients of both packages are only as
+close to float64 as the float32 rounding of the encoder's f0 map allows
+(a fault of the reference that the port shares; the limits PORT32_TOL,
+GOLF32_TOL, F0_MAP64_TOL and PORT_VS_GOLF_TOL are the readings of
+``tools/inverse_precision_torch.py`` with about a third to spare)."""
 
 import json
 import os
@@ -203,17 +208,21 @@ def jax_inverse_step():
     return run_jax_inverse_step()
 
 
-def run_jax_inverse_step():
+@pytest.fixture(scope="module")
+def jax_inverse_step_30db():
+    return run_jax_inverse_step(extra_noise=False)
+
+
+def run_jax_inverse_step(extra_noise=True):
     """golf_tpu's inverse-mode training step with golf.yaml: the loss, its
-    metrics, the gradients, the seeded variables and the noise drawn."""
+    metrics, the gradients, the seeded variables and the noise drawn. The
+    batch is batch()'s (white noise at -30 dB of full scale), with more
+    white noise (-20 dB, as chip_smoke.py's card-vs-CPU steps add) where
+    ``extra_noise``."""
     x, f0 = batch()
-    # white noise at -20 dB of full scale, as chip_smoke.py's card-vs-CPU
-    # steps add: at batch()'s -30 dB some mel bins are near silent, the
-    # log amplifies their float32 rounding, and every float32 gradient
-    # strays from a float64 run of the port by up to 9e-3 of its max-abs
-    # (golf_tpu's by 1e-3); here both stay within 2e-5 of it
-    x = (x + 0.1 * np.random.default_rng(12).standard_normal(x.shape)
-         ).astype(np.float32)
+    if extra_noise:
+        x = (x + 0.1 * np.random.default_rng(12).standard_normal(x.shape)
+             ).astype(np.float32)
     task = jvoc.build_ddsp_vocoder(_inverse_cfg(j_cfg))
     # the forward task's init: golf_tpu's inverse-mode init never calls the
     # room filter, so its kernel would be missing (see
@@ -248,8 +257,99 @@ def test_inverse_training_step_matches_golf_tpu(jax_inverse_step,
     """The excitation-domain loss (MSS, masked L1, log-f0 and voicing
     losses) and every trainable parameter's gradient against golf_tpu's;
     no all-pole filter runs, and the lookup's forward is B1's plain twin
-    (the phase of the detached f0 needs no gradient)."""
-    step = jax_inverse_step
+    (the phase of the detached f0 needs no gradient). The batch carries
+    -20 dB of white noise."""
+    _check_inverse_step(jax_inverse_step, monkeypatch)
+
+
+# the inverse step's float32 gradients at -30 dB, each gradient's largest
+# error over its largest value in a float64 run of the port, as
+# tools/inverse_precision_torch.py reads them, each limit that reading with
+# about a third to spare: the port's 8.94e-3, golf_tpu's 1.06e-3, the
+# port's with its f0 map rounded once 1.14e-3; and the port's against
+# golf_tpu's (over golf_tpu's largest) 1.00e-2
+PORT32_TOL = 1.2e-2
+GOLF32_TOL = 1.5e-3
+F0_MAP64_TOL = 1.5e-3
+PORT_VS_GOLF_TOL = 1.4e-2
+
+
+def _port_inverse_grads(step, dtype, f0_map64=False, monkeypatch=None):
+    """The port's inverse-mode step in ``dtype``: (loss, metrics, every
+    gradient in float64); with ``f0_map64`` the encoder's f0 map runs in
+    float64 and is rounded once to ``dtype``."""
+    from golf_tpu_torch.models import enc as port_enc
+    if f0_map64:
+        orig = port_enc.VocoderParameterEncoderInterface.params_from_head
+
+        def params_from_head(self, h):
+            out = orig(self, h)
+            logits = port_enc.split_heads(h, *self.layout)["f0"][0].data
+            lo, hi = np.log(self.f0_min), np.log(self.f0_max)
+            out["f0"] = TSig(torch.exp(torch.sigmoid(logits.double())
+                                       * (hi - lo) + lo).to(logits.dtype),
+                             out["f0"].hop)
+            return out
+        monkeypatch.setattr(port_enc.VocoderParameterEncoderInterface,
+                            "params_from_head", params_from_head)
+    task = tvoc.build_ddsp_vocoder(_inverse_cfg(t_cfg), device="cpu")
+    load_flax_variables(task, np_tree(step["variables"]))
+    task = task.to(dtype)
+    task.train()
+    loss, metrics = task.training_step(
+        TSig(torch.from_numpy(step["x"]).to(dtype), 1),
+        TSig(torch.from_numpy(step["f0"]).to(dtype), 1),
+        noise=torch.from_numpy(step["noise"]).to(dtype))
+    loss.backward()
+    if f0_map64:
+        monkeypatch.undo()
+    return loss.item(), {k: v.item() for k, v in metrics.items()}, {
+        k: p.grad.double() for k, p in task.named_parameters()
+        if p.grad is not None}
+
+
+def test_inverse_step_at_minus_30_db_f0_rounding_is_shared(
+        jax_inverse_step_30db, monkeypatch):
+    """At batch()'s own -30 dB (no added noise) the inverse step's loss and
+    metrics match golf_tpu's, but its float32 gradients are only as close
+    to float64 as the float32 rounding of the encoder's f0 map lets them
+    be, in both packages (a fault of the reference that the port shares,
+    ROADMAP.md section C): the unvoiced frames' phase integrates that f0,
+    and a one-ulp change of it moves the masked L1's signs and the phase.
+    Both packages compute the same float32 map (golf_tpu's jitted f0 is the
+    port's bit for bit in 80% of frames and one ulp off elsewhere), and
+    the distance follows the map's values, not the package: golf_tpu's
+    step given the port's f0 values stands 1.8e-2 from the float64 step,
+    the port's given golf_tpu's 2.5e-3, each with its own map moved one
+    ulp up 2.3e-3 and 2.6e-3 (``tools/inverse_precision_torch.py``).
+    Held: the port's float32 gradients within PORT32_TOL of the float64
+    step, golf_tpu's within GOLF32_TOL, the port's with the map rounded
+    once within F0_MAP64_TOL, and the port's against golf_tpu's within
+    PORT_VS_GOLF_TOL of golf_tpu's max-abs."""
+    step = jax_inverse_step_30db
+    loss, metrics, g32 = _port_inverse_grads(step, torch.float32)
+    assert abs(loss - step["loss"]) <= LOSS_TOL * abs(step["loss"])
+    for k, v in step["metrics"].items():
+        assert abs(metrics[k] - v) <= LOSS_TOL * abs(v), k
+    _, _, g64 = _port_inverse_grads(step, torch.float64)
+    _, _, g_map = _port_inverse_grads(step, torch.float32, True,
+                                      monkeypatch)
+    ref = flax_to_state_dict({"params": np_tree(step["grads"])})
+
+    def dist(grads, to):
+        return max(((torch.as_tensor(np.asarray(grads[k]),
+                                     dtype=torch.float64) - g).abs().max()
+                    / g.abs().max()).item() for k, g in to.items()
+                   if g.abs().max() > 0)
+    golf = {k: torch.as_tensor(np.asarray(g), dtype=torch.float64)
+            for k, g in ref.items() if k in g32}
+    assert dist(g32, g64) <= PORT32_TOL
+    assert dist(ref, g64) <= GOLF32_TOL
+    assert dist(g_map, g64) <= F0_MAP64_TOL
+    assert dist(g32, golf) <= PORT_VS_GOLF_TOL
+
+
+def _check_inverse_step(step, monkeypatch):
     calls = {"fwd": 0, "res": 0}
 
     def counted(name, fn):

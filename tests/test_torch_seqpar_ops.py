@@ -13,7 +13,9 @@ the tests hold them, concatenated along time, against golf_tpu's:
   reversed cumsum's;
 * the summary's plain version against ``_local_affine_summary``: both
   float32 runs against a float64 one, the port's within twice golf_tpu's
-  distance;
+  distance; the summary entry's tree mirror against it in float64, and on
+  resonant filters no further from a float64 scan than golf_tpu's float32
+  run;
 * ``allpole_sharded`` at order 22, forward and gradients, against
   golf_tpu's unsharded ``allpole`` on a shorter version of
   ``tests/test_seqpar.py``'s order-22 case, with its limits (1e-3, 2e-3);
@@ -244,6 +246,68 @@ def test_summary_plain_matches_golf_tpu(t):
     for j, tt, r in zip(got_j, got_t, ref64):
         r = r.numpy()
         assert rel(tt.numpy(), r) <= 2 * rel(np.asarray(j), r) + 1e-7
+
+
+# (T, p, chunk): several groups of the tree with a ragged last chunk, one
+# group, an order whose tree takes 8 maps a group, and chunk_for's length at
+# a push (64: 38 chunks, three groups)
+TREE_CASES = [(600, 22, 64), (1000, 22, 128), (1300, 40, 64), (2400, 22, 64)]
+
+
+@pytest.mark.parametrize("t,p,chunk", TREE_CASES)
+def test_summary_tree_mirror_matches_golf_tpu_float64(t, p, chunk):
+    """The summary entry's plain mirror (every chunk's map, composed as the
+    kernel's tree) against golf_tpu's ``_local_affine_summary``, both in
+    float64, at the model's scale: 1e-9 of max|ref| (the same products in
+    another order; measured 1e-13 and below)."""
+    import jax
+    import jax.numpy as jnp
+    from golf_tpu.parallel.seqpar import _local_affine_summary
+    from golf_tpu_torch.ops.allpole import allpole_summary_chunked_plain
+    from golf_tpu_torch.ops.dsp import rc2lpc
+    rng = np.random.default_rng(t + p)
+    x = rng.standard_normal((B, t))
+    a = rc2lpc(torch.tanh(torch.from_numpy(
+        0.2 * rng.standard_normal((B, t, p))))).numpy()
+    with jax.enable_x64(True):
+        ref = jax.jit(lambda u, v: _local_affine_summary(u, v, 0))(
+            jnp.asarray(x), jnp.asarray(a))
+        ref = [np.asarray(r) for r in ref]
+    assert ref[0].dtype == np.float64
+    m, v, maps = allpole_summary_chunked_plain(
+        torch.from_numpy(x), torch.from_numpy(a), chunk)
+    assert maps.shape == (B, -(-t // chunk), p + 1, p)
+    for got, r in zip((m, v), ref):
+        assert rel(got.numpy(), r) <= 1e-9
+
+
+@pytest.mark.parametrize("cap,seed", [(0.95, 0), (0.95, 1), (None, 2)])
+def test_summary_tree_mirror_on_resonant_filters(cap, seed):
+    """On resonant filters (``resonant_inputs``) the tree mirror's map,
+    applied to a state, lands no further from a float64 scan's end state
+    than golf_tpu's float32 ``_local_affine_summary`` does."""
+    import jax
+    import jax.numpy as jnp
+    from golf_tpu.parallel.seqpar import _local_affine_summary
+    from golf_tpu_torch.ops.allpole import (allpole_scan,
+                                            allpole_summary_chunked_plain,
+                                            resonant_inputs)
+    x, a = resonant_inputs(seed, b=2, t=1200, cap=cap)
+    zi = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (2, 22)))
+    end = torch.flip(allpole_scan(x.double(), a.double(), zi)[:, -22:],
+                     (1,)).numpy()
+
+    def err(m, v):
+        got = np.einsum("bij,bj->bi", np.asarray(m, np.float64),
+                        zi.numpy()) + np.asarray(v, np.float64)
+        return rel(got, end)
+
+    m32, v32 = jax.jit(lambda u, w: _local_affine_summary(u, w, 0))(
+        jnp.asarray(x.numpy()), jnp.asarray(a.numpy()))
+    m, v, _ = allpole_summary_chunked_plain(x, a, 64)
+    assert np.isfinite(end).all()
+    assert err(m, v) <= err(m32, v32)
 
 
 @pytest.mark.parametrize("name,tol", [("allpole", 1e-3),
