@@ -201,8 +201,24 @@ Phases (any failure exits non-zero):
     CPU run, within 1e-3 or twice the CPU float32's distance), TTSPN (its
     defaults, the same dropout masks) over TopNGenerator's tokens, and the
     one-way LSTM, each card vs CPU (loss 1e-4 relative, gradients 1e-3 of
-    max-abs; the CPU's reference runs with oneDNN off); a ``tools`` JSON
-    line;
+    max-abs; the CPU's reference runs with oneDNN off);
+    ``tools/lpc_anchor_torch.py`` on a 5.5 s wav of the tree (B4's
+    generic-order instantiation, p = 26, exactly once on (1, T) and no other
+    kernel; the wav card vs CPU within 1e-4 of max|y|; B4 on those inputs
+    against ``allpole_chunked_plain`` and a float64 scan within 1e-5 of
+    max|y|, timed beside its byte bound and ``golf_tpu``'s float32 form);
+    ``tools/time_l2_torch.py --iters 5`` on the test split's first item
+    with phase disk's GOLF-ff checkpoint, in the run's config with
+    golf.yaml's and with golf-precise.yaml's decoder (B3a, B2 and B2's
+    adjoint, without ``da``, or B3a, B4 and B4's adjoint once an iteration,
+    B1 and B2 or B4 once for the last decode; the iteration-0 loss card vs
+    CPU within 1e-5 relative, the offsets' gradient within 1e-3 of max-abs
+    or twice the CPU's float32 distance of a float64 CPU run), B1, B3a,
+    B3b, B2 and B4 at its shapes against their plain versions;
+    ``tools/rd_stats_torch.py --items 16`` (no kernel; card vs CPU, every
+    Rd within 1e-4 of the mean); ``tools/convert_ckpt_torch.py``, a
+    permutation of the head's blocks and its inverse give the checkpoint
+    back bit for bit; a ``tools`` JSON line;
 18. parallel: data-parallel and time-sharded training at full vctk width
     (2 s segments, dropout 0, seeded weights): ranks spawned on the one
     card over gloo (NCCL refuses two ranks on one device; the tensors and
@@ -260,6 +276,10 @@ Phases (any failure exits non-zero):
     ``weighted_ds`` and ``weighted`` (the weighted tables' shapes, with the
     variants phase's launches at them); B1's, B2's and B4's rows carry
     ``rtf`` (test_rtf_torch's shapes, the tools phase's launches there);
+    the rows of B1, B3a, B3b, B2, B4 and their adjoints carry ``time_l2``
+    (its shapes, launches and launches an iteration); one more row,
+    ``allpole_tv_p26``: B4's generic-order instantiation at
+    lpc_anchor_torch's (1, T, 26), with its float64 error;
 20. last line: ``{"ok": true, "device": {...}}``.
 Each phase's seconds are printed as it ends.
 
@@ -3851,10 +3871,10 @@ RTF_PATH = {"golf": {"lookup": 1, "allpole_const": 1},
             "golf-precise": {"lookup": 1, "allpole_tv": 1}}
 
 
-def _script(name: str):
-    """A module of ``scripts/`` by file name."""
+def _script(name: str, folder: str = "scripts"):
+    """A module of ``scripts/`` (or ``folder``) by file name."""
     import importlib.util
-    path = Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    path = Path(__file__).resolve().parent / folder / f"{name}.py"
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -4296,11 +4316,289 @@ def tools_models() -> dict:
     return out
 
 
-def phase_tools(tree: Path, out: Path, shapes: dict) -> tuple:
-    """The tools phase on the VCTK tree of phase disk; ``shapes`` are the
+ANCHOR_ORDER = 26           # tools/lpc_anchor.py's default
+ANCHOR_TOL = 1e-4            # lpc_anchor's wav card vs CPU, of max|y|
+P26_TOL = 1e-5               # B4 at p = 26 vs its chunked mirror and float64
+TIME_L2_ITERS = 5
+TIME_L2_GRAD_TOL = 1e-3      # time_l2's offsets gradient, of max-abs
+# a time_l2 iteration's launches: the phase takes a gradient, so B3a runs
+# where B1 would; the task is frozen, so no table gradient (B3b) and no da
+TIME_L2_PATH = {"golf": {"lookup_res": 1, "allpole_const": 1,
+                         "allpole_const_adjoint": 1},
+                "golf-precise": {"lookup_res": 1, "allpole_tv": 1,
+                                 "allpole_tv_adjoint": 1}}
+# and the decode of the best offsets at the end, without a gradient
+TIME_L2_DECODE = {"golf": {"lookup": 1, "allpole_const": 1},
+                  "golf-precise": {"lookup": 1, "allpole_tv": 1}}
+CONVERT_SIZES = (22, 1, 22, 1, 64)
+CONVERT_ORDER = (4, 1, 0, 3, 2)
+
+
+def kernel(name: str) -> kernels.CudaKernel:
+    return next(k for k in kernels.ALL if k.name == name)
+
+
+def scan64(x: np.ndarray, a: np.ndarray) -> np.ndarray:
+    """The time-varying all-pole on one row in float64, sample by sample:
+    x (T,), a (T, p) -> (T,)."""
+    t, p = a.shape
+    y = np.zeros(t + p)
+    for n in range(t):
+        y[n + p] = x[n] - a[n] @ y[n + p - 1:n - 1 if n else None:-1]
+    return y[p:]
+
+
+def run_json(main, argv) -> dict:
+    """A tool's ``main(argv)``, its output echoed, its last line as JSON."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(main(argv) == 0, f"{argv} returned 0")
+    print(buf.getvalue().rstrip())
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def tools_lpc_anchor(tree: Path, out: Path) -> tuple:
+    """``tools/lpc_anchor_torch.py`` on one 5.5 s wav of the tree: B4 (its
+    generic-order instantiation, p = 26) exactly once on (1, T) and no other
+    kernel; the written wav against the anchor on the CPU; B4 on those
+    inputs against ``allpole_chunked_plain`` and a float64 scan, with its
+    time, ``golf_tpu``'s float32 form's and the byte bound."""
+    anchor = _script("lpc_anchor_torch", "tools")
+    spk = DISK_TEST[0]
+    wav = tree / spk / f"{spk}_001_mic1.wav"
+    x, sr = read_wav(str(wav))
+    zero_counts()
+    t0 = time.perf_counter()
+    check(anchor.main([str(wav), str(out / "anchor.wav")]) == 0,
+          "lpc_anchor_torch ran")
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    src, a = anchor.interpolate(*anchor.excitation(x, sr), 80)
+    t = len(src)
+    shapes = ((1, t), (1, t, ANCHOR_ORDER))
+    check_exact("lpc_anchor", counts, {"allpole_tv": 1}, 1)
+    check(kernel("allpole_tv").last_shapes == shapes,
+          f"lpc_anchor: B4 at {kernel('allpole_tv').last_shapes} == {shapes}")
+    got, _ = read_wav(str(out / "anchor.wav"))
+    ref = anchor.anchor(x, sr, device="cpu")
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    print(f"lpc_anchor: {wav.name} ({len(x) / sr:.1f} s) in {seconds:.2f} s, "
+          f"launches {counts}; card vs CPU {rel:.3e} of max|y| (tolerance "
+          f"{ANCHOR_TOL:g})")
+    check(got.shape == x.shape and np.isfinite(got).all()
+          and rel <= ANCHOR_TOL, "lpc_anchor card vs CPU")
+
+    xs = torch.tensor(src[None], dtype=torch.float32, device="cuda")
+    as_ = torch.tensor(a[None], dtype=torch.float32,
+                       device="cuda").contiguous()
+    y = allpole_cuda(xs, as_)
+    mirror = allpole_chunked_plain(xs, as_)
+    y64 = scan64(xs[0].double().cpu().numpy(), as_[0].double().cpu().numpy())
+    plain = allpole_plain(xs, as_)
+    peak64 = np.abs(y64).max()
+    err64 = float(np.abs(y[0].double().cpu().numpy() - y64).max() / peak64)
+    plain64 = float(np.abs(plain[0].double().cpu().numpy() - y64).max()
+                    / peak64)
+    err = rel_err(y, mirror)
+    chunk, nc = tap.chunk_for(1, t), tap.rerun_chunks(1, t, ANCHOR_ORDER)
+    print(f"[lpc_anchor] allpole_tv (B4) {shapes[0]} p={ANCHOR_ORDER}, "
+          f"chunk {chunk}, re-run chunks {nc}: / max|y| {err:.3e} against "
+          f"allpole_chunked_plain, {err64:.3e} against a float64 scan "
+          f"(tolerance {P26_TOL:g} each); golf_tpu's float32 form "
+          f"(allpole_plain) {plain64:.3e} from the float64 scan")
+    check(err <= P26_TOL and err64 <= P26_TOL
+          and torch.isfinite(y).all().item(), "B4 at p = 26")
+    check(chunk == 512 and nc == 1, "B4 at p = 26: chunk 512, one re-run "
+          "chunk a CTA")
+    row = dict(err=(y - mirror).abs().max().item(), err64=err64,
+               plain_err64=plain64, chunk=chunk,
+               ms=cuda_ms(lambda: allpole_cuda(xs, as_), 50),
+               plain_ms=cuda_ms(lambda: allpole_plain(xs, as_), 3,
+                                strict=False),
+               bound=bound(4 * (2 * xs.numel() + as_.numel()),
+                           2 * as_.numel()),
+               shapes=[list(s) for s in shapes])
+    # the p = 22 instantiation (kRingOrder) on a row of the same length
+    a22 = tv_coeffs(torch.Generator(device="cuda").manual_seed(SEED), 1, t)
+    row["p22_ms"] = cuda_ms(lambda: allpole_cuda(xs, a22), 50)
+    print(f"[lpc_anchor] allpole_tv at p={ANCHOR_ORDER}: {row['ms'] * 1e3:.1f} "
+          f"us, bound {row['bound'][0] * 1e3:.2f} us ({row['bound'][1]}), "
+          f"plain {row['plain_ms'] * 1e3:.1f} us; p = 22 on the same row "
+          f"{row['p22_ms'] * 1e3:.1f} us")
+    return counts, {"wav": wav.name, "s": seconds, "vs_cpu": rel}, row
+
+
+def tools_time_l2(run: Path, ckpt: Path, out: Path) -> tuple:
+    """``tools/time_l2_torch.py --iters 5`` on the test split's item 0
+    with the disk phase's GOLF-ff checkpoint, in the run's config with
+    golf.yaml's decoder and with golf-precise.yaml's (the two share one
+    layout): each iteration launches
+    B3a, B2 and B2's adjoint (GOLF-ss: B4 and its adjoint) once, B2's
+    adjoint without ``da``; the loss at iteration 0 card vs CPU (1e-5
+    relative) and the offsets' gradient card vs CPU (1e-3 of max-abs, or
+    within twice the CPU's float32 distance of a float64 CPU run). Returns
+    (launches, summary, the kernels' shapes there)."""
+    import yaml
+
+    tl2 = _script("time_l2_torch", "tools")
+    total = {k.name: 0 for k in kernels.ALL}
+    summary = {}
+    shapes = None
+    for decoder, per in TIME_L2_PATH.items():
+        model = f"cfg/ae/decoder/{decoder}.yaml"
+        # the run's config with this decoder (a merge over golf.yaml's
+        # would keep its frame-wise keys)
+        cfg = load_config([str(run / "config.yaml")])
+        cfg["model"]["init_args"]["decoder"] = load_config([model])["decoder"]
+        config = str(out / f"time_l2_{decoder}.yaml")
+        out.mkdir(parents=True, exist_ok=True)
+        with open(config, "w") as f:
+            yaml.safe_dump(cfg, f, sort_keys=False)
+        with_da = []
+        orig = tap.CONST_CUDA_OPS
+
+        def adj(g, y, a, flag=True, orig=orig, seen=with_da):
+            seen.append(flag)
+            return orig.adj(g, y, a, flag)
+
+        tap.CONST_CUDA_OPS = tap.ConstOps(orig.fwd, adj)
+        zero_counts()
+        try:
+            t0 = time.perf_counter()
+            report = run_json(tl2.main, [
+                "--config", config, "--model", model, "--ckpt", str(ckpt),
+                "--iters", str(TIME_L2_ITERS), "--out",
+                str(out / f"time_l2_{decoder}.wav")])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            tap.CONST_CUDA_OPS = orig
+        counts = read_counts()
+        for name, n in counts.items():
+            total[name] += n
+        want = {name: per.get(name, 0) * TIME_L2_ITERS
+                + TIME_L2_DECODE[decoder].get(name, 0) for name in counts}
+        print(f"time_l2 {decoder}: {TIME_L2_ITERS} iterations in "
+              f"{seconds:.2f} s, launches {counts}; B2's adjoint formed da: "
+              f"{with_da}")
+        check_exact(f"time_l2 {decoder}", counts, want, 1)
+        check(not any(with_da) and len(with_da) == counts[
+            "allpole_const_adjoint"], f"time_l2 {decoder}: no da")
+        check(np.isfinite(report["final_l2"])
+              and report["final_mse"] <= report["initial_mse"],
+              f"time_l2 {decoder} report")
+
+        grads, losses = [], []
+        for dtype, dev in ((torch.float32, "cuda"), (torch.float32, "cpu"),
+                           (torch.float64, "cpu")):
+            t_, dm, _ = tl2.load(config, model, str(ckpt), dev)
+            dm.setup("test")
+            x_np, f0_np = dm.test_dataset[0]
+            obj = tl2.PhaseOffsetL2(
+                t_.to(dtype), torch.from_numpy(x_np)[None].to(dev, dtype),
+                torch.from_numpy(f0_np)[None].to(dev, dtype), 1200)
+            loss, grad = obj.loss_and_grad(obj.initial_offsets().to(dtype))
+            losses.append(float(loss))
+            grads.append(grad.double().cpu())
+        shapes = main_path_shapes(1, len(x_np))
+        for name in per:
+            check(kernel(name).last_shapes == shapes[name],
+                  f"time_l2 {decoder}: {name} at {kernel(name).last_shapes}"
+                  f" == {shapes[name]}")
+        loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+        gap, gap64, cpu64 = (rel_err(grads[0], grads[1]),
+                             rel_err(grads[0], grads[2]),
+                             rel_err(grads[1], grads[2]))
+        print(f"time_l2 {decoder}: iteration 0 card vs CPU: loss "
+              f"{loss_rel:.3e} relative (tolerance {TEST_REL_TOL:g}); the "
+              f"offsets' gradient {gap:.3e} of max-abs, card {gap64:.3e} and "
+              f"CPU float32 {cpu64:.3e} from a float64 CPU run (tolerance "
+              f"{TIME_L2_GRAD_TOL:g}, or twice the CPU's)")
+        check(loss_rel <= TEST_REL_TOL, f"time_l2 {decoder} loss card vs CPU")
+        check(gap <= TIME_L2_GRAD_TOL
+              or gap64 <= max(TIME_L2_GRAD_TOL, 2 * cpu64),
+              f"time_l2 {decoder} gradient card vs CPU")
+        summary[decoder] = {**report, "s": seconds,
+                            "launches_per_iteration": per,
+                            "loss_vs_cpu": loss_rel, "grad_vs_cpu": gap,
+                            "grad_vs_float64": gap64,
+                            "cpu_grad_vs_float64": cpu64}
+    return total, summary, shapes
+
+
+def tools_rd_stats(run: Path, ckpt: Path) -> dict:
+    """``tools/rd_stats_torch.py --items 16`` with the disk phase's
+    checkpoint on the validation split: no kernel launches; card vs CPU,
+    every Rd within 1e-4 of the CPU's mean Rd, the counts equal."""
+    rd = _script("rd_stats_torch", "tools")
+    argv = ["--config", str(run / "config.yaml"), "--ckpt", str(ckpt),
+            "--items", "16"]
+    zero_counts()
+    t0 = time.perf_counter()
+    card = run_json(rd.main, argv)
+    seconds = time.perf_counter() - t0
+    check_exact("rd_stats", read_counts(), {}, 1)
+    cpu = run_json(rd.main, [*argv, "--device", "cpu"])
+    scale = cpu["rd_mean"]
+    gap = max(abs(a - b) for key in ("rd_mean", "rd_std", "rd_min", "rd_max",
+                                     "rd_deciles")
+              for a, b in zip(np.atleast_1d(card[key]),
+                              np.atleast_1d(cpu[key]))) / scale
+    print(f"rd_stats: {card['n_voiced_frames']} of {card['n_frames']} frames "
+          f"voiced in {seconds:.2f} s; card vs CPU: every Rd within "
+          f"{gap:.3e} of the mean Rd (tolerance 1e-4)")
+    check(card["n_voiced_frames"] > 0 and all(
+        card[k] == cpu[k] for k in ("n_voiced_frames", "n_frames"))
+        and gap <= 1e-4, "rd_stats card vs CPU")
+    return {**card, "s": seconds, "vs_cpu": gap}
+
+
+def same_tree(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(same_tree, a, b))
+    if torch.is_tensor(a):
+        return torch.equal(a, b)
+    return a == b
+
+
+def tools_convert_ckpt(ckpt: Path, out: Path) -> dict:
+    """``tools/convert_ckpt_torch.py`` on the disk phase's checkpoint: a
+    permutation of the head's blocks, then its inverse, give the checkpoint
+    back bit for bit (the optimizer state untouched by both)."""
+    conv = _script("convert_ckpt_torch", "tools")
+    inverse = [int(i) for i in np.argsort(CONVERT_ORDER)]
+    sizes = [CONVERT_SIZES[i] for i in CONVERT_ORDER]
+    for src, dst, sz, order in ((ckpt, out / "perm.pt", CONVERT_SIZES,
+                                 CONVERT_ORDER),
+                                (out / "perm.pt", out / "back.pt", sizes,
+                                 inverse)):
+        check(conv.main(["--in", str(src), "--out", str(dst), "--old-sizes",
+                         *map(str, sz), "--new-order", *map(str, order)])
+              == 0, f"convert_ckpt_torch {dst.name}")
+    orig, perm, back = (ckpt_lib.load(str(p), map_location="cpu") for p in
+                        (ckpt, out / "perm.pt", out / "back.pt"))
+    moved = [k for k in orig["model"] if "out_linear" in k]
+    changed = all(not torch.equal(perm["model"][k], orig["model"][k])
+                  for k in moved)
+    same = same_tree(back, orig)
+    untouched = same_tree(perm["optimizer"], orig["optimizer"])
+    print(f"convert_ckpt: {moved} permuted ({CONVERT_SIZES}, order "
+          f"{CONVERT_ORDER}): changed {changed}; the inverse gives the "
+          f"checkpoint back bit for bit: {same}; optimizer state untouched: "
+          f"{untouched}")
+    check(moved and changed and same and untouched, "convert_ckpt round trip")
+    return {"keys": moved, "round_trip": same}
+
+
+def phase_tools(tree: Path, out: Path, shapes: dict, run: Path) -> tuple:
+    """The tools phase on the VCTK tree of phase disk and its GOLF-ff run
+    directory ``run`` (``config.yaml``, ``ckpt/last``); ``shapes`` are the
     kernels' operands in test_rtf's synthesis. Returns (the launches of
     its kernel paths, a summary, the kernel rows at ``shapes``, the
-    launches of each decoder's test_rtf run)."""
+    launches of each decoder's test_rtf run, B4's row at p = 26 and the
+    kernel rows at time_l2's shapes)."""
     summary = {"build": tools_build()}
     counts = {k.name: 0 for k in kernels.ALL}
     rtf_counts = {}
@@ -4326,7 +4624,30 @@ def phase_tools(tree: Path, out: Path, shapes: dict) -> tuple:
     summary["pitchnet"] = tools_pitchnet()
     summary["fad"] = tools_fad(tree, out / "hn" / "harm")
     summary["models"] = tools_models()
-    return counts, summary, rows, rtf_counts
+    ckpt = run / "ckpt" / "last"
+    c, summary["lpc_anchor"], p26_row = tools_lpc_anchor(tree, out)
+    p26_row["launches"] = c["allpole_tv"]
+    for name, n in c.items():
+        counts[name] += n
+    c, summary["time_l2"], l2_shapes = tools_time_l2(run, ckpt, out)
+    for name, n in c.items():
+        counts[name] += n
+    l2_rows = phase_kernels(l2_shapes, ("lookup", "lookup_res",
+                                        "lookup_dtab", "allpole_const",
+                                        "allpole_tv"), label="time_l2")
+    l2_rows = {name: {**r, "shapes": [list(s) for s in l2_shapes[name]],
+                      "launches": sum(
+                          summary["time_l2"][d]["launches_per_iteration"]
+                          .get(name, 0) * TIME_L2_ITERS
+                          + TIME_L2_DECODE[d].get(name, 0)
+                          for d in TIME_L2_PATH),
+                      "launches_per_iteration": {
+                          d: summary["time_l2"][d]["launches_per_iteration"]
+                          .get(name, 0) for d in TIME_L2_PATH}}
+               for name, r in l2_rows.items()}
+    summary["rd_stats"] = tools_rd_stats(run, ckpt)
+    summary["convert_ckpt"] = tools_convert_ckpt(ckpt, out)
+    return counts, summary, rows, rtf_counts, p26_row, l2_rows
 
 
 # ---------------------------------------------------------------------------
@@ -5144,8 +5465,8 @@ def main() -> int:
     add(var_counts)
     t0 = done("variants", t0)
     rtf_shapes = main_path_shapes(1, int(TOOLS_SECONDS * SR))
-    tools_counts, tools, rtf_rows, rtf_counts = phase_tools(
-        tree, out / "tools", rtf_shapes)
+    tools_counts, tools, rtf_rows, rtf_counts, p26_row, l2_rows = \
+        phase_tools(tree, out / "tools", rtf_shapes, out / "ff")
     add(tools_counts)
     disk_tmp.cleanup()
     t0 = done("tools", t0)
@@ -5315,6 +5636,16 @@ def main() -> int:
                 "plain_ms": rr["plain_ms"], "bound_ms": rr["bound"][0],
                 "bound_by": rr["bound"][1],
                 "library_ms": rr.get("library_ms")}
+        if k.name in l2_rows:
+            # tools/time_l2_torch.py on a 2 s item (phase tools)
+            lr = l2_rows[k.name]
+            entry["time_l2"] = {
+                "shapes": lr["shapes"], "launches": lr["launches"],
+                "launches_per_iteration": lr["launches_per_iteration"],
+                "max_abs_err": lr["err"], "ms": lr["ms"],
+                "plain_ms": lr["plain_ms"], "bound_ms": lr["bound"][0],
+                "bound_by": lr["bound"][1],
+                "library_ms": lr.get("library_ms")}
         if k.name == "allpole_const":
             entry["lpcnet"] = {
                 "shapes": lpc_row["shapes"],
@@ -5335,6 +5666,22 @@ def main() -> int:
                 if key in sr_:
                     entry["serve"][key] = sr_[key]
         table.append(entry)
+    # B4's generic-order instantiation (every p but 22), on
+    # tools/lpc_anchor_torch.py's one row at p = 26 (phase tools)
+    table.append({
+        "name": "allpole_tv_p26", "route": "cuda",
+        "source": "golf_tpu_torch/kernels/csrc/allpole_tv.cu",
+        "replaces": replaces["allpole_tv"], "launches": p26_row["launches"],
+        "max_abs_err": p26_row["err"], "ms": p26_row["ms"],
+        "plain_ms": p26_row["plain_ms"], "bound_ms": p26_row["bound"][0],
+        "bound_by": p26_row["bound"][1], "library_ms": None,
+        "shapes": p26_row["shapes"], "chunk": p26_row["chunk"],
+        "err_vs_float64": p26_row["err64"],
+        "plain_err_vs_float64": p26_row["plain_err64"],
+        "p22_ms": p26_row["p22_ms"],
+        "note": ("max_abs_err against allpole_chunked_plain; launches: "
+                 "one lpc_anchor_torch run, one an utterance; p22_ms: the "
+                 "p = 22 instantiation on a row of the same length")})
 
     def composite_note(e):
         note = ""
@@ -5352,7 +5699,7 @@ def main() -> int:
                     f"{sv['bound_ms'] * 1e3:.1f} us, plain "
                     f"{sv['plain_ms'] * 1e3:.1f} us" + composite_note(sv))
         for key in ("lfilter_train", "lfilter_serve", "cascade_p2",
-                    "weighted_ds", "weighted", "rtf"):
+                    "weighted_ds", "weighted", "rtf", "time_l2"):
             if key in e:
                 r = e[key]
                 shape = f"p={r['shapes'][1][1]}" if key.startswith(
@@ -5379,8 +5726,9 @@ def main() -> int:
     print("kernels: [" + "; ".join(
         f"{e['name']}: launches {e['launches']}, {e['ms'] * 1e3:.1f} us, "
         f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']}), plain "
-        f"{e['plain_ms'] * 1e3:.1f} us{composite_note(e)} (training "
-        f"shapes){serve_note(e)}"
+        f"{e['plain_ms'] * 1e3:.1f} us{composite_note(e)} "
+        f"({'lpc_anchor' if 'note' in e else 'training'} shapes)"
+        f"{serve_note(e)}"
         for e in table) + "]")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

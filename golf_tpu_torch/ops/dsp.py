@@ -361,6 +361,16 @@ def get_radiation_time_filter(num_zeros: int = 16,
     return out
 
 
+def smooth_phase_offset(phase_offset: torch.Tensor) -> torch.Tensor:
+    """Unwrap phase-offset jumps into [-0.5, 0.5) increments along dim 1:
+    the first offset, then the cumulative sum of ``(diff + 0.5) % 1 -
+    0.5``. ``torch.remainder`` takes the divisor's sign, as ``jnp``'s
+    ``%`` does, so a difference of -0.5 or 0.5 becomes -0.5 in both."""
+    diffs = torch.remainder(torch.diff(phase_offset, dim=1) + 0.5, 1) - 0.5
+    return torch.cumsum(torch.cat([phase_offset[:, :1], diffs], dim=1),
+                        dim=1)
+
+
 def freq2cent(f0):
     """Hz -> cents above A4 (host numpy, as ``golf_tpu``'s)."""
     return 1200 * np.log2(f0 / 440)

@@ -111,6 +111,28 @@ def trainer_kwargs(cfg: Dict) -> Dict:
         early_stop_patience=patience, check_finite=check_finite)
 
 
+BUILD_FNS = {"VoiceAutoEncoder": build_voice_autoencoder,
+             "DDSPVocoder": build_ddsp_vocoder,
+             "LPCNetVocoder": build_lpcnet_vocoder,
+             "WORLDAutoEncoder": build_world_autoencoder}
+
+
+def build_from_config(cfg: Dict, device=None):
+    """(task, datamodule, Trainer arguments) from a resolved config tree
+    (``golf_tpu``'s ``build_from_config``): the task named by
+    ``model.class_path`` on ``device`` (CUDA unless given), its weights
+    seeded by ``seed_everything``, and the data module of ``data``."""
+    model_node = cfg["model"]
+    class_path = model_node.get("class_path", "")
+    build = BUILD_FNS.get(class_path.rpartition(".")[2])
+    if build is None:
+        raise ValueError(f"task {class_path!r} is not ported")
+    torch.manual_seed(cfg.get("seed_everything") or 2434)
+    task = build(model_node.get("init_args", model_node),
+                 device=resolve_device(device))
+    return task, instantiate(cfg["data"]), trainer_kwargs(cfg)
+
+
 def run(argv: List[str], default_config: Optional[str] = None) -> int:
     """Run one subcommand; ``default_config`` is read when no ``--config``
     is given."""
@@ -131,19 +153,7 @@ def run(argv: List[str], default_config: Optional[str] = None) -> int:
         with open(os.path.join(run_dir, "config.yaml"), "w") as f:
             yaml.safe_dump(cfg, f, sort_keys=False)
 
-    model_node = cfg["model"]
-    class_path = model_node.get("class_path", "")
-    build_fns = {"VoiceAutoEncoder": build_voice_autoencoder,
-                 "DDSPVocoder": build_ddsp_vocoder,
-                 "LPCNetVocoder": build_lpcnet_vocoder,
-                 "WORLDAutoEncoder": build_world_autoencoder}
-    build = build_fns.get(class_path.rpartition(".")[2])
-    if build is None:
-        raise ValueError(f"task {class_path!r} is not ported")
-    init_args = model_node.get("init_args", model_node)
-    torch.manual_seed(cfg.get("seed_everything") or 2434)
-    task = build(init_args, device=device)
-    datamodule = instantiate(cfg["data"])
+    task, datamodule, kwargs = build_from_config(cfg, device)
     if isinstance(task, WORLDAutoEncoder):
         return _run_world(args.subcommand, task, datamodule, run_dir)
     if isinstance(task, LPCNetVocoder) and args.subcommand == "predict":
@@ -154,7 +164,7 @@ def run(argv: List[str], default_config: Optional[str] = None) -> int:
             "ar_dump_dir=<dir>")
     ckpt_path = args.ckpt_path or cfg.get("ckpt_path")
 
-    trainer = Trainer(task, run_dir=run_dir, **trainer_kwargs(cfg))
+    trainer = Trainer(task, run_dir=run_dir, **kwargs)
     if args.subcommand == "fit":
         trainer.fit(datamodule, ckpt_path=ckpt_path)
         return 0
@@ -183,6 +193,7 @@ def run(argv: List[str], default_config: Optional[str] = None) -> int:
     if not main:
         return 0        # rank 0 writes the predictions
     task.eval()
+    init_args = cfg["model"].get("init_args", cfg["model"])
     sr = init_args.get("sample_rate", 24000)
     out_dir = os.path.join(run_dir, "predictions")
     generator = torch.Generator(device=device).manual_seed(0)

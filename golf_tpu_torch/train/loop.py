@@ -120,18 +120,23 @@ class ClippedOptimizer:
         return self.lr
 
     def _direction(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The update before the learning rate scales it."""
+        """The update before the learning rate scales it, in optax's order
+        of float32 operations: each moment ``(1 - b) g^k + b m``, divided
+        by its bias correction ``1 - b^n`` rounded in float32 (at n = 1,
+        1 - 0.999 is 1.3e-5 off in float32, which optax keeps)."""
         if self.optimizer == "sgd":
             return grads
         mu, nu = self.moments["mu"], self.moments["nu"]
         b1, b2 = self.B1, self.B2
         torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, grads, alpha=1 - b1)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
         torch._foreach_mul_(nu, b2)
-        torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
-        n = self.count + 1
-        mu_hat = torch._foreach_div(mu, 1 - b1 ** n)
-        nu_hat = torch._foreach_div(nu, 1 - b2 ** n)
+        sq = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(sq, 1 - b2)
+        torch._foreach_add_(nu, sq)
+        n = np.float32(self.count + 1)
+        mu_hat = torch._foreach_div(mu, float(1 - np.float32(b1) ** n))
+        nu_hat = torch._foreach_div(nu, float(1 - np.float32(b2) ** n))
         if self.optimizer == "amsgrad":
             torch._foreach_maximum_(self.moments["nu_max"], nu_hat)
             nu_hat = self.moments["nu_max"]
@@ -139,9 +144,19 @@ class ClippedOptimizer:
         torch._foreach_add_(denom, self.EPS)
         direction = torch._foreach_div(mu_hat, denom)
         if self.optimizer == "adamw":
-            torch._foreach_add_(direction, [p.detach() for p in self.params],
-                                alpha=self.WEIGHT_DECAY)
+            torch._foreach_add_(direction, torch._foreach_mul(
+                [p.detach() for p in self.params], self.WEIGHT_DECAY))
         return direction
+
+    @torch.no_grad()
+    def apply_update(self, grads: List[torch.Tensor]) -> None:
+        """The optimizer's update of ``grads`` at the learning rate, with
+        no clip and no finite guard (the bare optax optimizer, as
+        ``optax.adam(lr)``); counts the update."""
+        updates = torch._foreach_mul(self._direction(grads),
+                                     -self.learning_rate())
+        torch._foreach_add_([p.detach() for p in self.params], updates)
+        self.count += 1
 
     @torch.no_grad()
     def step(self) -> Dict[str, torch.Tensor]:
@@ -160,10 +175,7 @@ class ClippedOptimizer:
                 keep = g_norm < self.grad_clip
                 grads = [torch.where(keep, g, g / g_norm * self.grad_clip)
                          for g in grads]
-            torch._foreach_add_([p.detach() for p in self.params],
-                                self._direction(grads),
-                                alpha=-self.learning_rate())
-            self.count += 1
+            self.apply_update(grads)
         return {"grad_norm": g_norm,
                 "update_applied": torch.tensor(float(applied))}
 
