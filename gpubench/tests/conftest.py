@@ -1,0 +1,21 @@
+"""The benchmark's tests import ``gpubench`` and the program from the
+checkout's root; tests marked ``cuda`` take the card from a fixture, which
+skips where there is none."""
+
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+@pytest.fixture
+def cuda_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
