@@ -10,6 +10,8 @@ machine may have no ``nvcc``.
 
 Each kernel keeps a plain-int launch count, raised by one on every launch
 and nowhere else, so a run can show that its path went through the kernel.
+While ``utils.profiling``'s recorder is on, each launch's C call is the
+span ``kernel.<name>`` and ``build`` the span ``build.kernels``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence
+
+from ..utils import profiling
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
@@ -59,6 +63,7 @@ class CudaKernel:
         self.last_shapes: tuple = ()
         # launches by operand shapes, kept until a caller clears it
         self.by_shapes: Dict[tuple, int] = {}
+        self.span_name = f"kernel.{name}"
         self._fn = None
 
     @property
@@ -87,7 +92,8 @@ class CudaKernel:
         counted in ``by_shapes``."""
         if self._fn is None:
             build([self])
-        rc = self._fn(*args)
+        with profiling.span(self.span_name):
+            rc = self._fn(*args)
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {rc}")
@@ -102,6 +108,11 @@ def build(kernels: Iterable[CudaKernel], log: Optional[Dict] = None
     kernel whose library is missing; kernels that share a source share its
     library. Returns the wall time in seconds; ``log`` receives each build's
     compiler output (``-Xptxas -v``), by source."""
+    with profiling.span("build.kernels"):
+        return _build(kernels, log)
+
+
+def _build(kernels: Iterable[CudaKernel], log: Optional[Dict]) -> float:
     t0 = time.perf_counter()
     BUILD.mkdir(parents=True, exist_ok=True)
     pending: Dict[Path, list] = {}

@@ -16,6 +16,7 @@ from ..core.sig import Sig, true_divide
 from ..ops import stft as stft_ops
 from ..parallel.collectives import all_min_max
 from ..parallel.mesh import current_data
+from ..utils import profiling
 from .ctrl import split_heads
 from .rnn import BiLSTM
 
@@ -85,7 +86,13 @@ class VocoderParameterEncoderInterface(nn.Module):
 
     def forward(self, x: Sig, f0: Optional[Sig] = None, train: bool = False
                 ) -> Dict[str, Any]:
-        return self.params_from_head(self.backbone(x, f0=f0, train=train))
+        """The raw parameter groups; the layer ``encoder`` of
+        ``utils.profiling``, whose ``encoder.head`` (opened by a backbone
+        that has one) ends with ``params_from_head``."""
+        x, f0 = profiling.enter("encoder", (x, f0))
+        params = self.params_from_head(self.backbone(x, f0=f0, train=train))
+        return profiling.leave("encoder", profiling.leave("encoder.head",
+                                                          params))
 
     def params_from_head(self, h: Sig) -> Dict[str, Any]:
         """The head's rows (B, T, channels) -> the named raw parameter

@@ -39,6 +39,7 @@ from ..ops import stft as stft_ops
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.mesh import train_batch_norm
+from ..utils import profiling
 from .enc import BackboneModelInterface, _running_minmax, check_mode
 from .lru import LRU
 from .rnn import BiLSTM
@@ -272,14 +273,22 @@ class UNetEncoder(BackboneModelInterface):
                 ) -> Sig:
         """``train`` updates the running min/max; the batch norms and the
         recurrent stack's dropout follow the module's mode. ``golf_tpu``
-        drives all three from ``train``, so the two must agree."""
+        drives all three from ``train``, so the two must agree. The stages
+        are the layers ``encoder.features``, ``encoder.pyramid``,
+        ``encoder.lstm`` and ``encoder.head`` of ``utils.profiling``."""
         check_mode(self, train)
-        h = self.rows(*self.features(x, f0, train))
+        feats = profiling.leave("encoder.features", self.features(
+            *profiling.enter("encoder.features", (x, f0)), train))
+        h = profiling.leave("encoder.pyramid", self.rows(
+            *profiling.enter("encoder.pyramid", feats)))
+        h = profiling.enter("encoder.lstm", h)
         if self.use_lru:
             h = self.lru_block(h.to(self.out_linear.weight.dtype))
         else:
             h = self.lstm(h)
-        return Sig(self.head(h), self.hop_length)
+        h = profiling.leave("encoder.lstm", h)
+        return Sig(self.head(profiling.enter("encoder.head", h)),
+                   self.hop_length)
 
     def rows(self, feature: torch.Tensor, f0_d: Optional[torch.Tensor]
              ) -> torch.Tensor:

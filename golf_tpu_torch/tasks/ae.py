@@ -28,6 +28,7 @@ from ..models.enc import VocoderParameterEncoderInterface, full_layout
 from ..ops.cepstrum import mcep
 from ..ops.stft import spectrogram
 from ..parallel.mesh import batch_sum, draw_rows
+from ..utils import profiling
 
 
 def masked_l1(pred: torch.Tensor, target: torch.Tensor,
@@ -87,7 +88,9 @@ class VoiceAutoEncoder(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None,
                 return_ctrl: bool = False):
-        y, ctrl = decode(self.decoder, params, generator, noise)
+        params = profiling.enter("decoder", params)
+        y, ctrl = profiling.leave(
+            "decoder", decode(self.decoder, params, generator, noise))
         return (y, ctrl) if return_ctrl else y
 
     def forward(self, x: Optional[Sig] = None, f0: Optional[Sig] = None,
@@ -121,10 +124,15 @@ class VoiceAutoEncoder(nn.Module):
     def predict_step(self, x: Sig, f0_in_hz: Sig,
                      generator: Optional[torch.Generator] = None,
                      noise: Optional[torch.Tensor] = None):
-        if self.train_with_true_f0:
-            return self(x, f0_in_hz, {"phase": self.phase_from_f0(f0_in_hz)},
-                        generator=generator, noise=noise)
-        return self(x, generator=generator, noise=noise)
+        """(signal, encoder parameters); recorded as a step, the span
+        ``predict``."""
+        profiling.begin_step()
+        with profiling.span("predict"):
+            if self.train_with_true_f0:
+                return self(x, f0_in_hz,
+                            {"phase": self.phase_from_f0(f0_in_hz)},
+                            generator=generator, noise=noise)
+            return self(x, generator=generator, noise=noise)
 
     # -- training ----------------------------------------------------------
     def prepare_training(self, x: Sig, f0_in_hz: Sig, train: bool = True,
@@ -209,7 +217,9 @@ class VoiceAutoEncoder(nn.Module):
         x_hat, ctrl_params = self._decode(params, generator, noise,
                                           return_ctrl=True)
         t = min(x_hat.shape[1], x.shape[1])
-        loss = self.criterion(x_hat.data[:, :t], x.data[:, :t])
+        pred, target = profiling.enter("loss", (x_hat.data[:, :t],
+                                                x.data[:, :t]))
+        loss = profiling.leave("loss", self.criterion(pred, target))
         aux, metrics = self.aux_losses(f0_hat, voicing_logits, ctrl_params,
                                        f0_in_hz)
         loss = loss + aux
@@ -264,9 +274,11 @@ class VoiceAutoEncoder(nn.Module):
         init runs one train-mode forward on the first batch, which sets the
         encoder's running min/max (they start at +-inf) and leaves the batch
         norms' running statistics at their initial values. Without it an
-        uninitialised predict divides by inf."""
-        f0 = f0_in_hz if self.train_with_true_f0 else None
-        self.encoder.backbone.features(x, f0, train=True)
+        uninitialised predict divides by inf. Recorded as the span
+        ``init_running_stats``."""
+        with profiling.span("init_running_stats"):
+            f0 = f0_in_hz if self.train_with_true_f0 else None
+            self.encoder.backbone.features(x, f0, train=True)
 
 
 def build_encoder(encoder_class_path: str, encoder_init_args: Dict,
@@ -296,10 +308,16 @@ def build_voice_autoencoder(model_cfg: Dict,
                             device: Optional[Union[str, torch.device]] = None
                             ) -> VoiceAutoEncoder:
     """Build the task from a ``model.init_args`` config subtree, on CUDA
-    unless ``device`` says otherwise."""
+    unless ``device`` says otherwise; recorded as the span
+    ``build.model``."""
+    with profiling.span("build.model"):
+        return _build_voice_autoencoder(model_cfg, resolve_device(device))
+
+
+def _build_voice_autoencoder(model_cfg: Dict, dev: torch.device
+                             ) -> VoiceAutoEncoder:
     from ..config.registry import instantiate
 
-    dev = resolve_device(device)
     decoder = instantiate(model_cfg["decoder"])
     criterion = instantiate(model_cfg["criterion"]) \
         if model_cfg.get("criterion") else None

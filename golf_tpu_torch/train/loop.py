@@ -35,6 +35,7 @@ from ..core.sig import Sig
 from ..parallel import collectives
 from ..parallel.mesh import (data_parallel, data_shard, make_mesh, rows_of,
                              shard_batch)
+from ..utils import profiling
 from . import checkpoint as ckpt_lib
 
 
@@ -161,23 +162,27 @@ class ClippedOptimizer:
     @torch.no_grad()
     def step(self) -> Dict[str, torch.Tensor]:
         """Clip and apply the gradients in ``.grad``; returns the raw
-        gradients' global norm and whether the step was applied."""
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in self.params]
-        g_norm = global_norm(grads)
-        finite = bool(torch.stack([torch.isfinite(g).all()
-                                   for g in grads]).all())
-        self.notfinite_count = 0 if finite else self.notfinite_count + 1
-        applied = finite or \
-            self.notfinite_count > self.MAX_CONSECUTIVE_ERRORS
-        if applied:
-            if self.grad_clip and self.grad_clip > 0:
-                keep = g_norm < self.grad_clip
-                grads = [torch.where(keep, g, g / g_norm * self.grad_clip)
-                         for g in grads]
-            self.apply_update(grads)
-        return {"grad_norm": g_norm,
-                "update_applied": torch.tensor(float(applied))}
+        gradients' global norm and whether the step was applied. Recorded
+        as the span ``trainer.optimizer``; its finite check, a host sync, as
+        ``optimizer.finite_check``."""
+        with profiling.span("trainer.optimizer"):
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in self.params]
+            g_norm = global_norm(grads)
+            with profiling.span("optimizer.finite_check"):
+                finite = bool(torch.stack([torch.isfinite(g).all()
+                                           for g in grads]).all())
+            self.notfinite_count = 0 if finite else self.notfinite_count + 1
+            applied = finite or \
+                self.notfinite_count > self.MAX_CONSECUTIVE_ERRORS
+            if applied:
+                if self.grad_clip and self.grad_clip > 0:
+                    keep = g_norm < self.grad_clip
+                    grads = [torch.where(keep, g, g / g_norm * self.grad_clip)
+                             for g in grads]
+                self.apply_update(grads)
+            return {"grad_norm": g_norm,
+                    "update_applied": torch.tensor(float(applied))}
 
     def state_dict(self) -> Dict:
         return {"optimizer": self.optimizer, "count": self.count,
@@ -314,7 +319,9 @@ class Trainer:
         the metrics. Data-parallel, each rank takes its rows (and those of
         ``noise`` and ``random_f0``, global fields that replace the
         generator's draws) and the gradients are averaged over the data
-        group."""
+        group. Recorded as a step: spans ``trainer.forward`` and
+        ``trainer.backward`` (the all-reduce included)."""
+        profiling.begin_step()
         self.task.train()
         self.optimizer.zero_grad()
         shard = self._shard()
@@ -326,19 +333,22 @@ class Trainer:
                                 for t in (noise, random_f0))
         fields = {"noise": noise} if random_f0 is None else \
             {"noise": noise, "random_f0": random_f0}
-        with data_parallel(shard):
+        with data_parallel(shard), profiling.span("trainer.forward"):
             loss, metrics = self.task.training_step(
                 x, f0, train=True, generator=self.generator, **fields)
-        loss.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if shard is not None:
-            with_grad = [p for p in self.optimizer.params
-                         if p.grad is not None]
-            for p, g in zip(with_grad, collectives.psum_all(
-                    (p.grad for p in with_grad), shard.group)):
-                p.grad = g / shard.size
-            metrics = {k: collectives.pmean(torch.as_tensor(v), shard.group)
-                       for k, v in metrics.items()}
+        with profiling.span("trainer.backward"):
+            loss.backward()
+            profiling.backward_done()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if shard is not None:
+                with_grad = [p for p in self.optimizer.params
+                             if p.grad is not None]
+                for p, g in zip(with_grad, collectives.psum_all(
+                        (p.grad for p in with_grad), shard.group)):
+                    p.grad = g / shard.size
+                metrics = {k: collectives.pmean(torch.as_tensor(v),
+                                                shard.group)
+                           for k, v in metrics.items()}
         return metrics
 
     def _split_for_mesh(self, x: Sig, f0: Sig):

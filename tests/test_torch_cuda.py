@@ -294,6 +294,49 @@ def test_cuda_allpole_const_backward_launches_the_adjoint_entry(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_recorder_spans_each_kernel_launch(cuda_device):
+    """While recording, every launch is a ``kernel.<name>`` span with
+    device time; the forward and adjoint entries of B2 once each."""
+    from golf_tpu_torch import kernels
+    from golf_tpu_torch.utils import profiling
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((40, 960)).astype(np.float32))
+    a = _lpc(rng, (40, 22), 0.2)
+    x, a = x.cuda().requires_grad_(), a.cuda().requires_grad_()
+    fwd, adj = kernels.ALLPOLE_CONST, kernels.ALLPOLE_CONST_ADJ
+    before = (fwd.launches, adj.launches)
+    with profiling.recording() as rec:
+        y = tap.allpole_const(x, a)
+        y.backward(torch.ones_like(y))
+    totals = rec.totals()
+    assert (totals["kernel.allpole_const"]["n"],
+            totals["kernel.allpole_const_adjoint"]["n"]) == \
+        (fwd.launches - before[0], adj.launches - before[1]) == (1, 1)
+    for name in ("kernel.allpole_const", "kernel.allpole_const_adjoint"):
+        assert totals[name]["device_ms"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_recorder_counts_the_finite_check_sync(cuda_device):
+    """``host_syncs`` counts ``ClippedOptimizer.step``'s finite check, its
+    one synchronizing call, in the span ``optimizer.finite_check``; the
+    sync debug mode is restored after."""
+    from golf_tpu_torch.train.loop import ClippedOptimizer
+    from golf_tpu_torch.utils import profiling
+    params = [torch.nn.Parameter(torch.randn(64, 32, device="cuda")),
+              torch.nn.Parameter(torch.randn(32, device="cuda"))]
+    for p in params:
+        p.grad = torch.randn_like(p)
+    opt = ClippedOptimizer(params)
+    mode = torch.cuda.get_sync_debug_mode()
+    with profiling.recording() as rec:
+        opt.step()
+    assert rec.counts["host_syncs"] == {"optimizer.finite_check": 1}
+    assert torch.cuda.get_sync_debug_mode() == mode
+    assert rec.totals()["trainer.optimizer"]["device_ms"] > 0
+
+
+@pytest.mark.cuda
 def test_cuda_allpole_const_resonant_within_float64_scan(cuda_device):
     """On resonant constant filters (capped at 0.95 and uncapped) B2's y
     and the adjoint's dx are within 1e-6 of max-abs of a float64 scan, and
