@@ -6,8 +6,8 @@
 Phases (any failure exits non-zero):
 1. environment: versions, the card's name and power limit; TF32 off (for
    every phase, the train phase's step times included);
-2. build: the nine CUDA kernel entry points of the serving, training and
-   sharded paths (four sources, one ``nvcc`` each, started together), from
+2. build: the eleven CUDA kernel entry points of the serving, training and
+   sharded paths (five sources, one ``nvcc`` each, started together), from
    ``golf_tpu_torch/kernels/csrc``, and ``tools/lookup_unsplit.cu`` and
    ``tools/allpole_tv_pr15.cu`` (B4's entries before the redesign of its
    zi and summary entries) beside them, with ``ptxas``'s registers and
@@ -33,9 +33,14 @@ Phases (any failure exits non-zero):
    B1 and B2 (and its adjoint entry) also at the vocoder's serving shapes
    (``vocoder_shapes``: 601 mel frames a 6 s request); B2 also at LPCNet's
    de-emphasis, (32, 24000) with a (32, 1) of -0.85, within 1e-5 of max|y|
-   of its plain version and 1e-6 of its float64 mirror; then each autograd
-   Function's backward through the kernels against the same Function on the
-   plain versions, on the same cotangent;
+   of its plain version and 1e-6 of its float64 mirror; P1 (the conv
+   pyramid's stage, both entries) at the recipe's four stages (B = 64 x
+   2 s): on the first 4 rows within 1.5x cuDNN's fp32 error from float64,
+   on all within 1e-5 of max|ref|, bit for bit on a second run, with its
+   time beside the bound, the plain versions' and
+   ``F.conv2d``'s under cuDNN's heuristics and in benchmark mode; then
+   each autograd Function's backward through the kernels against the same
+   Function on the plain versions, on the same cotangent;
    resonance: on resonant filters (capped at 0.95 and uncapped) B4's error
    against a float64 scan must be no larger than the float32 scan's, and
    B2's y and its adjoint's dx within 1e-6 of a float64 scan (da within
@@ -44,12 +49,15 @@ Phases (any failure exits non-zero):
    ``cfg/ae/vctk.yaml``) with the GOLF-ff decoder (``golf.yaml``), then the
    GOLF-ss decoder (``golf-precise.yaml``), seeded random weights, answers
    4 synthetic 6 s requests batched as B = 4; each kernel's launch count
-   must move; one 2 s request is held against the port's own CPU run;
+   must move (P1's eval entry once a pyramid stage a request batch, its
+   bias-only entry never); one 2 s request is held against the port's own
+   CPU run;
 5. train: the same two models take 3 Adam steps each through the port's
    ``Trainer`` on B = 64 synthetic items of 2 s; every loss must be finite
    and B1, B3b, B2 and B2's adjoint entry (GOLF-ff) or B1, B3b, B4 and
    B4's adjoint entry (GOLF-ss) must launch once each a step, B3a never
-   (the phase of the true f0 needs no gradient); one step at B = 2 x 1 s
+   (the phase of the true f0 needs no gradient), P1's bias-only entry once
+   a pyramid stage a step (its eval entry never); one step at B = 2 x 1 s
    (dropout 0, train mode) is held against the port's CPU run, loss and
    every gradient; then (phase train_f0) GOLF-ff with the phase from the
    encoder's own f0 (``learn_f0``, no f0 conditioning,
@@ -331,6 +339,7 @@ from golf_tpu_torch.ops.allpole import (allpole, allpole_const,
                                         resonant_const_inputs,
                                         resonant_inputs)
 from golf_tpu_torch.ops import allpole as tap
+from golf_tpu_torch.ops import pyramid as pyr
 from golf_tpu_torch.ops.dsp import rc2lpc
 from golf_tpu_torch.serve import GOLFStream, StreamingEncoder, chunk_ctrl
 from golf_tpu_torch.tasks import cli
@@ -425,6 +434,11 @@ EARLIER_TV_SUMMARY = kernels.CudaKernel(
                                      _P])
 EARLIER = (UNSPLIT, UNSPLIT_RES, EARLIER_TV, EARLIER_TV_ADJ,
            EARLIER_TV_SUMMARY)
+# the encoder's kernels (P1: the conv pyramid's stage) and the decoders'
+# (B1-B4): each phase's launch checks count the decoders' kernels; P1's
+# launches are checked where the recipe's encoder runs (serve, train)
+PYRAMID = (kernels.PYRAMID_CONV, kernels.PYRAMID_CONV_EVAL)
+DSP_KERNELS = tuple(k for k in kernels.ALL if k not in PYRAMID)
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 and fp64
 # (outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -1073,6 +1087,139 @@ def phase_kernels(shapes: dict, which=("lookup", "allpole_const",
     return rows
 
 
+# the recipe's pyramid stages at the training shapes (cfg/ae/vctk.yaml:
+# 513 bins; 2 s at hop 240 is 200 frames on the f0 grid): (Cin, Cout, F),
+# s = 4
+PYRAMID_STAGES = ((1, 32, 513), (32, 64, 128), (64, 128, 32), (128, 256, 8))
+PYRAMID_T = 200
+PYRAMID_S = 4
+
+
+def pyramid_stage_inputs(batch: int, cin: int, cout: int, f: int, t: int,
+                         s: int, seed: int):
+    """x (batch, cin, f, t), a seeded conv and an eval-mode batch norm with
+    seeded running statistics and scales of both signs."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    conv = torch.nn.Conv2d(cin, cout, (2 * s + 1, 3), padding=(s, 1)).cuda()
+    norm = torch.nn.BatchNorm2d(cout, eps=1e-5).cuda()
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen,
+                                      device="cuda")
+                          / (cin * 3 * (2 * s + 1)) ** 0.5)
+        conv.bias.copy_(0.1 * torch.randn(cout, generator=gen,
+                                          device="cuda"))
+        norm.running_var.uniform_(0.5, 2.0, generator=gen)
+        norm.running_mean.normal_(0.0, 0.2, generator=gen)
+        norm.weight.normal_(0.0, 1.0, generator=gen)
+    x = torch.randn((batch, cin, f, t), generator=gen, device="cuda")
+    return x, conv.eval(), norm.eval()
+
+
+def pyramid_stage64(x, conv, norm, s: int) -> torch.Tensor:
+    """The eval stage in float64: conv, batch norm, ReLU, the pool."""
+    y = torch.nn.functional.conv2d(x.double(), conv.weight.double(),
+                                   conv.bias.double(), padding=(s, 1))
+    y = torch.nn.functional.batch_norm(
+        y, norm.running_mean.double(), norm.running_var.double(),
+        norm.weight.double(), norm.bias.double(), False, 0.0, norm.eps)
+    return pyr.strided_max(torch.relu(y), s, axis=2)
+
+
+def phase_pyramid() -> list:
+    """P1's two entries at the recipe's four stages, B = 64 x 2 s: on the
+    first 4 batch rows (tests/test_torch_cuda.py's criterion) each one's
+    max-abs error from float64 within 1.5x cuDNN's fp32 error on the same
+    inputs (TF32 off); on the whole batch within 1e-5 of max|ref| (there
+    cuDNN's heuristics pick another algorithm at stage 4, whose blocked
+    sum is more accurate than one fp32 chain: both errors are recorded);
+    bit for bit on a second run; their times beside the bound (operations
+    at the fp32 peak, or bytes where more: stage 1's output), their plain
+    versions' (``F.conv2d``; the eval chain conv, batch norm, ReLU, pool)
+    and the library's: ``F.conv2d`` under cuDNN's heuristics, and under
+    ``torch.backends.cudnn.benchmark``, set only around that timing.
+    Returns a row a stage."""
+    s, t, rows = PYRAMID_S, PYRAMID_T, []
+    for i, (cin, cout, f) in enumerate(PYRAMID_STAGES):
+        x, conv, norm = pyramid_stage_inputs(TRAIN_BATCH, cin, cout, f, t, s,
+                                             SEED + i)
+        w, b = conv.weight, conv.bias
+        row = {"shapes": [list(x.shape), list(w.shape)]}
+        with torch.no_grad():
+            for key, fn, plain, ref in (
+                    ("conv", lambda v: pyr.pyramid_conv_cuda(v, w, b),
+                     lambda v: pyr.pyramid_conv_plain(v, w, b),
+                     lambda v: torch.nn.functional.conv2d(
+                         v.double(), w.double(), b.double(),
+                         padding=(s, 1))),
+                    ("eval", lambda v: pyr.pyramid_stage_eval_cuda(
+                        v, conv, norm, s),
+                     lambda v: pyr.pyramid_stage_eval_plain(v, conv, norm, s),
+                     lambda v: pyramid_stage64(v, conv, norm, s))):
+                errs = {}
+                for part, v in (("b4", x[:4]), ("all", x)):
+                    r64 = ref(v)
+                    got = fn(v)
+                    errs[part] = ((got.double() - r64).abs().max().item(),
+                                  (plain(v).double() - r64).abs().max()
+                                  .item(), r64.abs().max().item())
+                    del r64
+                same = torch.equal(got, fn(x))
+                err, lib_err, top = errs["all"]
+                check(errs["b4"][0] <= 1.5 * errs["b4"][1] and
+                      err <= 1e-5 * top and same,
+                      f"pyramid stage {i + 1} {key}: error at B = 4 "
+                      f"{errs['b4'][0]:.3e} within 1.5x cuDNN's "
+                      f"{errs['b4'][1]:.3e}, at B = 64 {err:.3e} within 1e-5 "
+                      f"of max|ref| {top:.3e}, deterministic {same}")
+                rows_c = f if key == "conv" else (f // s) * s
+                flops = 2.0 * TRAIN_BATCH * cout * rows_c * t * cin * 3 * \
+                    (2 * s + 1)
+                out_bytes = 4.0 * got.numel()
+                row[key] = dict(
+                    err=err, cudnn_err=lib_err, err_b4=errs["b4"][0],
+                    cudnn_err_b4=errs["b4"][1],
+                    ms=cuda_ms(lambda: fn(x), 10),
+                    plain_ms=cuda_ms(lambda: plain(x), 5, strict=False),
+                    bound=bound(4.0 * x.numel() + out_bytes, flops),
+                    gflop=flops / 1e9)
+                row[key]["tflops"] = flops / row[key]["ms"] / 1e9
+            lib = lambda: torch.nn.functional.conv2d(  # noqa: E731
+                x, w, b, padding=(s, 1))
+            row["library_ms"] = cuda_ms(lib, 10)
+            prev = torch.backends.cudnn.benchmark
+            torch.backends.cudnn.benchmark = True
+            try:
+                row["library_benchmark_ms"] = cuda_ms(lib, 10, warmup=3)
+            finally:
+                torch.backends.cudnn.benchmark = prev
+        row["plan"] = list(pyr.plan_conv(TRAIN_BATCH, cin, cout, f, t, s))
+        row["plan_eval"] = list(pyr.plan_conv(TRAIN_BATCH, cin, cout,
+                                              (f // s) * s, t, s))
+        c, e = row["conv"], row["eval"]
+        print(f"[train] pyramid stage {i + 1} x {tuple(x.shape)} -> {cout}: "
+              f"pyramid_conv {c['ms'] * 1e3:.1f} us ({c['tflops']:.1f} "
+              f"TFLOP/s, {c['tflops'] / PEAK_FP32_FLOPS * 1e14:.1f}% of "
+              f"the fp32 peak; bound {c['bound'][0] * 1e3:.1f} us, "
+              f"{c['bound'][1]}), eval entry {e['ms'] * 1e3:.1f} us (bound "
+              f"{e['bound'][0] * 1e3:.1f} us); plain {c['plain_ms'] * 1e3:.1f}"
+              f" | eval chain {e['plain_ms'] * 1e3:.1f} us; F.conv2d "
+              f"heuristics {row['library_ms'] * 1e3:.1f} us, benchmark mode "
+              f"{row['library_benchmark_ms'] * 1e3:.1f} us; max abs err "
+              f"{c['err']:.3e} | {e['err']:.3e} (cuDNN {c['cudnn_err']:.3e} | "
+              f"{e['cudnn_err']:.3e}), the first 4 rows {c['err_b4']:.3e} | "
+              f"{e['err_b4']:.3e} (cuDNN {c['cudnn_err_b4']:.3e} | "
+              f"{e['cudnn_err_b4']:.3e}); tiles {row['plan']} | "
+              f"{row['plan_eval']}")
+        rows.append(row)
+        del x, conv, norm
+    torch.cuda.empty_cache()
+    return rows
+
+
+def pyramid_launches() -> list:
+    return [k.launches for k in PYRAMID]
+
+
 def grads_of(fn, inputs, g):
     outs = fn(*inputs)
     return torch.autograd.grad(outs, inputs, g)
@@ -1351,7 +1498,7 @@ def phase_stream(shapes: dict) -> dict:
         if out is not None:
             dec_parts.append(out)
 
-    for k in kernels.ALL:
+    for k in DSP_KERNELS:
         k.launches = 0
     with torch.inference_mode():
         enc_parts, enc_lat, enc_flush_s = stream_encoder(se, xs, f0s,
@@ -1360,13 +1507,13 @@ def phase_stream(shapes: dict) -> dict:
         out, dec_flush_s = timed(lambda: stream.flush(
             chunk_ctrl(ctrl, n, STREAM_CHUNK, rest=True)))
         dec_parts.append(out)
-    counts = {k.name: k.launches for k in kernels.ALL}
+    counts = {k.name: k.launches for k in DSP_KERNELS}
     print(f"stream: {n} pushes of {STREAM_CHUNK} samples and a flush, "
           f"B={BATCH}; launches {counts}")
     for name in ("lookup", "allpole_tv"):
         check(counts[name] == n, f"stream launched {name} once an emitted "
               f"chunk: {counts[name]} for {n}")
-        k = next(k for k in kernels.ALL if k.name == name)
+        k = next(k for k in DSP_KERNELS if k.name == name)
         check(k.last_shapes == shapes[name],
               f"{name} shapes {k.last_shapes} == {shapes[name]}")
 
@@ -1440,10 +1587,10 @@ def phase_test(decoder: str) -> dict:
         # one warm-up call: the solver's and the FFT plans' set-up
         _, warm_secs = timed(lambda: task.test_step(*args,
                                                     noise=noise.to(dev)))
-        for k in kernels.ALL:
+        for k in DSP_KERNELS:
             k.launches = 0
         out, secs = timed(lambda: task.test_step(*args, noise=noise.to(dev)))
-    counts = {k.name: k.launches for k in kernels.ALL}
+    counts = {k.name: k.launches for k in DSP_KERNELS}
     cpu_task = seeded_model(decoder, "cpu")
     cpu_task.load_state_dict({k: v.cpu() for k, v in
                               task.state_dict().items()})
@@ -1509,8 +1656,9 @@ def phase_serve(decoder: str, expect: dict) -> tuple:
     # the baselines' decoders run no kernel
     path = {"golf": ("lookup", "allpole_const"),
             "golf-precise": ("lookup", "allpole_tv")}.get(decoder, ())
-    for k in kernels.ALL:
+    for k in DSP_KERNELS:
         k.launches = 0
+    p1 = pyramid_launches()
     latencies = []
     with torch.inference_mode():
         for _ in range(3):
@@ -1519,14 +1667,19 @@ def phase_serve(decoder: str, expect: dict) -> tuple:
             y, _ = task.predict_step(xs, f0s, generator=gen)
             torch.cuda.synchronize()
             latencies.append(time.perf_counter() - t0)
-    counts = {k.name: k.launches for k in kernels.ALL}
-    print(f"serve {decoder}: out {tuple(y.shape)}, launches {counts}")
+    counts = {k.name: k.launches for k in DSP_KERNELS}
+    p1 = [n - n0 for n, n0 in zip(pyramid_launches(), p1)]
+    stages = len(task.encoder.backbone.pyramid.convs)
+    print(f"serve {decoder}: out {tuple(y.shape)}, launches {counts}; P1 "
+          f"(pyramid_conv, pyramid_conv_eval) {p1}")
+    check(p1 == [0, 3 * stages], f"{decoder} serve: P1's eval entry once a "
+          f"pyramid stage a predict, its bias-only entry never: {p1}")
     check(torch.isfinite(y.data).all().item(), f"{decoder} output finite")
     check(y.shape[0] == BATCH and y.shape[1] > 0.99 * SECONDS * SR,
           f"{decoder} output shape {y.shape}")
     for name in path:
         check(counts[name] > 0, f"{decoder} launched {name}")
-        k = next(k for k in kernels.ALL if k.name == name)
+        k = next(k for k in DSP_KERNELS if k.name == name)
         check(k.last_shapes == expect[name],
               f"{name} shapes {k.last_shapes} == {expect[name]}")
     for name, n in counts.items():
@@ -1583,19 +1736,23 @@ def train_steps(tasks: dict, steps: int, label: str) -> dict:
             task, run_dir="chiprun_out/chip_smoke_" + label.replace(" ", "_"),
             max_steps=steps, seed=SEED)
         task.init_running_stats(xs, f0s)
-    out = {name: {"counts": {k.name: 0 for k in kernels.ALL},
+    out = {name: {"counts": {k.name: 0 for k in DSP_KERNELS},
+                  "pyramid": [0] * len(PYRAMID),
                   "step_ms": [], "losses": [], "peak_gib": 0.0}
            for name in tasks}
     for _ in range(steps):
         for name, trainer in trainers.items():
-            for k in kernels.ALL:
+            for k in DSP_KERNELS:
                 k.launches = 0
             torch.cuda.reset_peak_memory_stats()
+            p1 = pyramid_launches()
             metrics, secs = timed(lambda: trainer.train_step(xs, f0s))
             trainer.step += 1
             rec = out[name]
-            for k in kernels.ALL:
+            for k in DSP_KERNELS:
                 rec["counts"][k.name] += k.launches
+            rec["pyramid"] = [a + n - n0 for a, n, n0 in zip(
+                rec["pyramid"], pyramid_launches(), p1)]
             rec["step_ms"].append(secs * 1e3)
             rec["losses"].append(metrics["loss"].item())
             rec["grad_norm"] = metrics["grad_norm"].item()
@@ -1628,6 +1785,10 @@ def phase_train(decoder: str, expect: dict) -> tuple:
                              "allpole_tv_adjoint")}.get(decoder, ())
     counts = rec["counts"]
     check_train_launches(decoder, counts, path, TRAIN_STEPS, expect)
+    stages = len(task.encoder.backbone.pyramid.convs)
+    check(rec["pyramid"] == [stages * TRAIN_STEPS, 0],
+          f"{decoder} train: P1's bias-only entry once a pyramid stage a "
+          f"step, its eval entry never: {rec['pyramid']}")
     for name, n in counts.items():
         check(name in path or n == 0, f"{decoder} train launched {name}")
     return counts, {"step_ms": rec["step_ms"], "peak_gib": rec["peak_gib"]}
@@ -1642,7 +1803,7 @@ def check_train_launches(label: str, counts: dict, path, steps: int,
         check(counts[name] == steps,
               f"{label} train launched {name} {counts[name]} times")
         if expect is not None:
-            k = next(k for k in kernels.ALL if k.name == name)
+            k = next(k for k in DSP_KERNELS if k.name == name)
             check(k.last_shapes == expect[name],
                   f"{name} shapes {k.last_shapes} == {expect[name]}")
     other = "lookup_res" if "lookup" in path else "lookup"
@@ -1668,14 +1829,14 @@ def phase_train_f0() -> dict:
     trainer = Trainer(task, run_dir="chiprun_out/chip_smoke_train_f0",
                       max_steps=2, seed=SEED)
     task.init_running_stats(xs, f0s)
-    for k in kernels.ALL:
+    for k in DSP_KERNELS:
         k.launches = 0
     losses = []
     for _ in range(2):
         metrics = trainer.train_step(xs, f0s)
         losses.append(metrics["loss"].item())
         trainer.step += 1
-    counts = {k.name: k.launches for k in kernels.ALL}
+    counts = {k.name: k.launches for k in DSP_KERNELS}
     print(f"train_f0 golf (phase from the encoder's f0): B={TRAIN_BATCH} x "
           f"{TRAIN_SECONDS:.0f} s, losses "
           f"{', '.join(f'{v:.5f}' for v in losses)}, f0 loss "
@@ -1806,7 +1967,7 @@ def phase_baselines() -> tuple:
     B = 2 x 1 s training step card vs CPU (``phase_train_vs_cpu``). These
     decoders are FFT and elementwise work: no kernel may launch. Returns
     (launches, the summary for the ``baselines`` line)."""
-    counts = {k.name: 0 for k in kernels.ALL}
+    counts = {k.name: 0 for k in DSP_KERNELS}
     summary = {}
     for decoder in BASELINES:
         serve_counts, serve = phase_serve(decoder, {})
@@ -1825,7 +1986,7 @@ def phase_baselines_cli(tree: Path, out: Path) -> tuple:
     that checkpoint (the 64-segment test split) from the VCTK tree, for nhv
     and world; finite losses and metrics, no kernel launched. Returns
     (launches, the step times and test metrics)."""
-    counts = {k.name: 0 for k in kernels.ALL}
+    counts = {k.name: 0 for k in DSP_KERNELS}
     summary = {}
     for decoder in ("nhv", "world"):
         yaml_path = str(_CFG_DIR / f"{decoder}.yaml")
@@ -1909,7 +2070,7 @@ class StepProbe:
         def train_step(trainer, x, f0):
             if probe.batch is None:
                 probe.batch = (x.data.cpu().numpy(), f0.data.cpu().numpy())
-            before = {k.name: k.launches for k in kernels.ALL}
+            before = {k.name: k.launches for k in DSP_KERNELS}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = probe._orig(trainer, x, f0)
@@ -1917,7 +2078,7 @@ class StepProbe:
             probe.times.append(time.perf_counter() - t0)
             probe.losses.append(out["loss"].item())
             probe.launches.append({k.name: k.launches - before[k.name]
-                                   for k in kernels.ALL})
+                                   for k in DSP_KERNELS})
             return out
 
         Trainer.train_step = train_step
@@ -1950,11 +2111,11 @@ def cli_run(argv, default_config: str = None) -> dict:
     from 0 over the run; returns them."""
     entry = "main_torch.py" if default_config else "autoencode_torch.py"
     print(f"$ {entry} {' '.join(argv)}", flush=True)
-    for k in kernels.ALL:
+    for k in DSP_KERNELS:
         k.launches = 0
     check(cli.run(argv, default_config=default_config) == 0,
           f"{entry} {argv[0]} returned 0")
-    return {k.name: k.launches for k in kernels.ALL}
+    return {k.name: k.launches for k in DSP_KERNELS}
 
 
 def disk_overrides(tree: Path) -> list:
@@ -2056,12 +2217,12 @@ def phase_fs(tree: Path, ckpt: Path, out: Path) -> tuple:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated() / 2 ** 30
-        for k in kernels.ALL:
+        for k in DSP_KERNELS:
             k.launches = 0
         got, secs = timed(lambda: tasks["cuda"].test_step(
             *args, noise=noise.cuda()))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        step_counts = {k.name: k.launches for k in kernels.ALL}
+        step_counts = {k.name: k.launches for k in DSP_KERNELS}
         t0 = time.perf_counter()
         ref = tasks["cpu"].test_step(Sig(xs, 1), Sig(f0s, 1), noise=noise)
         cpu_s = time.perf_counter() - t0
@@ -2186,7 +2347,7 @@ def vocoder_shapes(batch: int, t: int, train: bool) -> dict:
 
 def check_shapes(label: str, expect: dict) -> None:
     for name, shapes in expect.items():
-        k = next(k for k in kernels.ALL if k.name == name)
+        k = next(k for k in DSP_KERNELS if k.name == name)
         check(k.last_shapes == shapes,
               f"{label}: {name} shapes {k.last_shapes} == {shapes}")
 
@@ -2292,14 +2453,14 @@ def phase_vocoder_serve(out: Path) -> tuple:
     task.init_running_stats(xs, Sig(f0.to(dev), 1))
     task.eval()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    for k in kernels.ALL:
+    for k in DSP_KERNELS:
         k.launches = 0
     latencies = []
     with torch.inference_mode():
         for _ in range(3):
             y, secs = timed(lambda: task.predict_step(xs, generator=gen)[0])
             latencies.append(secs)
-    counts = {k.name: k.launches for k in kernels.ALL}
+    counts = {k.name: k.launches for k in DSP_KERNELS}
     print(f"vocoder serve: out {tuple(y.shape)}, latency per predict (B="
           f"{BATCH} x {SECONDS:.0f} s, batched) first "
           f"{latencies[0] * 1e3:.1f} ms, then "
@@ -2325,12 +2486,12 @@ def phase_vocoder_serve(out: Path) -> tuple:
 
     with torch.inference_mode():
         chunked_ola_predict(resynth, xl.numpy(), SR)      # warm-up
-        for k in kernels.ALL:
+        for k in DSP_KERNELS:
             k.launches = 0
         t0 = time.perf_counter()
         ola = chunked_ola_predict(resynth, xl.numpy(), SR)
         ola_s = time.perf_counter() - t0
-    ola_counts = {k.name: k.launches for k in kernels.ALL}
+    ola_counts = {k.name: k.launches for k in DSP_KERNELS}
     rtf = xl.shape[1] / SR / ola_s
     print(f"vocoder OLA: a 14 s request in 3 chunks of 6 s: out "
           f"{ola.shape}, {ola_s * 1e3:.1f} ms host time with the copies "
@@ -2453,7 +2614,7 @@ def phase_vocoder_steps(decoder: str, expect: dict) -> tuple:
     task.init_running_stats(xs, f0s)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.ALL:
+    for k in DSP_KERNELS:
         k.launches = 0
     losses, times = [], []
     for _ in range(DISK_STEPS):
@@ -2461,7 +2622,7 @@ def phase_vocoder_steps(decoder: str, expect: dict) -> tuple:
         losses.append(metrics["loss"].item())
         times.append(secs)
         trainer.step += 1
-    counts = {k.name: k.launches for k in kernels.ALL}
+    counts = {k.name: k.launches for k in DSP_KERNELS}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"vocoder train {decoder}: B={TRAIN_BATCH} x {TRAIN_SECONDS:.0f} s, "
           f"losses {', '.join(f'{v:.5f}' for v in losses)}; step wall time "
@@ -2482,7 +2643,7 @@ def phase_vocoder() -> tuple:
     tree (fit, test), serving, a training step card vs CPU, and ddsp.yaml
     (155 harmonics, no kernel) at full width. Returns (launches, the
     summary for the ``vocoder`` line)."""
-    counts = {k.name: 0 for k in kernels.ALL}
+    counts = {k.name: 0 for k in DSP_KERNELS}
 
     def add(c: dict) -> None:
         for name, n in c.items():
@@ -2599,7 +2760,7 @@ def phase_lpcnet_steps() -> dict:
     task.init_running_stats(xs, f0s)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.ALL:
+    for k in DSP_KERNELS:
         k.launches = 0
     losses, times = [], []
     for _ in range(DISK_STEPS):
@@ -2607,7 +2768,7 @@ def phase_lpcnet_steps() -> dict:
         losses.append(metrics["loss"].item())
         times.append(secs)
         trainer.step += 1
-    counts = {k.name: k.launches for k in kernels.ALL}
+    counts = {k.name: k.launches for k in DSP_KERNELS}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"lpcnet train: B={LPCNET_BATCH} x {LPCNET_SECONDS:.0f} s, losses "
           f"{', '.join(f'{v:.5f}' for v in losses)} (ll "
@@ -2727,11 +2888,11 @@ def phase_lpcnet_generate() -> tuple:
     task.init_running_stats(xs, Sig(f0.to(dev), 1))
     task.eval()
     gen = torch.Generator(dev).manual_seed(SEED)
-    for k in kernels.ALL:
+    for k in DSP_KERNELS:
         k.launches = 0
     with torch.inference_mode():
         y, secs = timed(lambda: task.generate(xs, generator=gen))
-    counts = {k.name: k.launches for k in kernels.ALL}
+    counts = {k.name: k.launches for k in DSP_KERNELS}
     t = int(LPCNET_SECONDS * SR)
     print(f"lpcnet generate: B={LPCNET_BATCH} x {LPCNET_SECONDS:.0f} s, out "
           f"{tuple(y.shape)}, max|y| {y.abs().max().item():.3f}; host time "
@@ -2985,7 +3146,7 @@ def check_exact(label: str, counts: dict, per_step: dict, steps: int
                 ) -> None:
     """Each kernel launched exactly ``per_step[name] * steps`` times (0
     for the kernels not named)."""
-    for k in kernels.ALL:
+    for k in DSP_KERNELS:
         want = per_step.get(k.name, 0) * steps
         check(counts[k.name] == want,
               f"{label}: {k.name} launched {counts[k.name]}, not {want}")
@@ -3185,12 +3346,12 @@ def phase_options_lru() -> tuple:
     x, f0 = requests(BATCH, SECONDS)
     xs, f0s = Sig(x.to(dev), 1), Sig(f0.to(dev), 1)
     task.eval()
-    for k in kernels.ALL:
+    for k in DSP_KERNELS:
         k.launches = 0
     with torch.inference_mode():
         y, predict_s = timed(lambda: task.predict_step(
             xs, f0s, generator=torch.Generator(dev).manual_seed(SEED))[0])
-        predict_counts = {k.name: k.launches for k in kernels.ALL}
+        predict_counts = {k.name: k.launches for k in DSP_KERNELS}
         off = leaves(task.encoder(xs, f0s))
         se = StreamingEncoder(task.encoder, lookahead=STREAM_LOOKAHEAD,
                               batch=BATCH)
@@ -3250,7 +3411,7 @@ def phase_options_params() -> tuple:
     launches exact (GOLF-ff: B1, B3b, B2 and B2's adjoint once a step;
     GOLF-ss: B1, B3b, B4 and B4's adjoint)."""
     dev = torch.device("cuda")
-    counts = {k.name: 0 for k in kernels.ALL}
+    counts = {k.name: 0 for k in DSP_KERNELS}
     summary = {}
     for rep in ("coef", "conj", "real", "lsp2lpc"):
         end = {"lpc_parameterisation": rep}
@@ -3277,7 +3438,7 @@ def phase_options_allpass() -> tuple:
     (launches, summary, the room filter's B2 shapes and B2's and its
     adjoint's launches at those shapes, counted as they ran)."""
     dev = torch.device("cuda")
-    counts = {k.name: 0 for k in kernels.ALL}
+    counts = {k.name: 0 for k in DSP_KERNELS}
     summary, shapes = {}, {}
     room_launches = {"lfilter_train": 0, "lfilter_train_adjoint": 0,
                      "lfilter_serve": 0}
@@ -3303,7 +3464,7 @@ def phase_options_allpass() -> tuple:
         room_launches["lfilter_train_adjoint"] += adj.by_shapes.get(
             train[0], 0)
         task.eval()
-        for k in kernels.ALL:
+        for k in DSP_KERNELS:
             k.launches = 0
         fwd.by_shapes.clear()
         with torch.inference_mode():
@@ -3314,7 +3475,7 @@ def phase_options_allpass() -> tuple:
               f"{list(fwd.by_shapes)}")
         shapes["serve"] = serve[0]
         room_launches["lfilter_serve"] += fwd.by_shapes[serve[0]]
-        pc = {k.name: k.launches for k in kernels.ALL}
+        pc = {k.name: k.launches for k in DSP_KERNELS}
         check_exact(f"{room} predict", pc,
                     {"lookup": 1, "allpole_const": 2}, 1)
         check(torch.isfinite(y.data).all().item(), f"{room} predict finite")
@@ -3445,7 +3606,7 @@ def phase_options_kernels(shapes: dict, room_launches: dict) -> dict:
     bi = torch.cat([torch.ones((TRAIN_BATCH, frames, 11, 1), device=dev),
                     a2.reshape(TRAIN_BATCH, frames, 1, 2).expand(
                         -1, -1, 11, -1)], -1)
-    for k in kernels.ALL:
+    for k in DSP_KERNELS:
         k.launches = 0
     with torch.inference_mode():
         y = synth(torch.randn((TRAIN_BATCH, frames * 240), generator=gen,
@@ -3467,7 +3628,7 @@ def phase_options() -> tuple:
     """The encoder's options, the parameterisations, the allpass room
     filters and B2 at their shapes. Returns (launches, summary, B2's
     rows)."""
-    counts = {k.name: 0 for k in kernels.ALL}
+    counts = {k.name: 0 for k in DSP_KERNELS}
     summary = {}
 
     def add(c):
@@ -3573,7 +3734,7 @@ def phase_variants_encoders(tree: Path, out: Path) -> tuple:
     tree, DISK_STEPS steps at B = 64 x 2 s (B1, B3b, B2 and B2's adjoint
     once a step, B3a never), with the run's peak memory; one B = 2 x 1 s
     step card vs CPU. Returns (launches, summary)."""
-    counts = {k.name: 0 for k in kernels.ALL}
+    counts = {k.name: 0 for k in DSP_KERNELS}
     summary = {}
     for backbone in BACKBONES:
         name = backbone.rsplit(".", 1)[1]
@@ -3635,7 +3796,7 @@ def phase_variants_inverse(tree: Path, out: Path) -> tuple:
             "--run_dir", str(out / "inverse"), f"trainer.max_steps={DISK_STEPS}"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.ALL:
+    for k in DSP_KERNELS:
         k.by_shapes.clear()
     with StepProbe() as probe:
         counts = cli_run(argv, VOCODER_CONFIG)
@@ -3684,7 +3845,7 @@ def phase_variants_decoders() -> tuple:
     B = 2 x 1 s step card vs CPU. Returns (launches, summary, the weighted
     tables' launches by shape)."""
     dev = torch.device("cuda")
-    counts = {k.name: 0 for k in kernels.ALL}
+    counts = {k.name: 0 for k in DSP_KERNELS}
     summary = {}
     by_shape = {}
     x, f0 = requests(BATCH, SECONDS)
@@ -3695,20 +3856,20 @@ def phase_variants_decoders() -> tuple:
             # variant_noise draws offsets in [0, 32768)
             check(task.decoder.noise_generator.bands.shape == (1024, 32768),
                   "the noise bands at fs 24000")
-        for k in kernels.ALL:
+        for k in DSP_KERNELS:
             k.by_shapes.clear()
         rec = train_steps({name: task}, VARIANT_STEPS, "variants")[name]
         check_exact(f"variants {name} steps", rec["counts"], FF_STEP,
                     VARIANT_STEPS)
         task.eval()
-        for k in kernels.ALL:
+        for k in DSP_KERNELS:
             k.launches = 0
         with torch.inference_mode():
             task.predict_step(xs, f0s,
                               generator=torch.Generator(dev).manual_seed(SEED))
             y, secs = timed(lambda: task.predict_step(
                 xs, f0s, generator=torch.Generator(dev).manual_seed(SEED))[0])
-        pc = {k.name: k.launches for k in kernels.ALL}
+        pc = {k.name: k.launches for k in DSP_KERNELS}
         check_exact(f"variants {name} predict", pc,
                     {"lookup": 1, "allpole_const": 1}, 2)
         check(torch.isfinite(y.data).all().item() and
@@ -3762,17 +3923,17 @@ def phase_variants_wrapped() -> tuple:
     h = torch.randn((BATCH, t // 240 + 1, 64), generator=gen)
     with torch.inference_mode():
         ctrl = card.ctrl(Sig(h.to(dev), 240))
-        for k in kernels.ALL:
+        for k in DSP_KERNELS:
             k.launches = 0
         y, secs = timed(lambda: card(Sig(wrapped.to(dev), 1), *ctrl))
-        counts = {k.name: k.launches for k in kernels.ALL}
+        counts = {k.name: k.launches for k in DSP_KERNELS}
         shapes = kernels.LOOKUP.last_shapes
         ref = cpu(Sig(wrapped, 1), *cpu.ctrl(Sig(h, 240))).data
     rel = ((y.data.cpu() - ref).abs().max() / ref.abs().max()).item()
     print(f"variants wrapped-phase table: out {tuple(y.shape)}, "
           f"{secs * 1e3:.2f} ms, launches {counts} at {shapes}; card vs CPU "
           f"{rel:.2e} of max|y| (tolerance 1e-5)")
-    check(counts == {**{k.name: 0 for k in kernels.ALL}, "lookup": 1} and
+    check(counts == {**{k.name: 0 for k in DSP_KERNELS}, "lookup": 1} and
           shapes == ((BATCH, 60, 2400), (BATCH, 61, 2048)),
           "wrapped-phase table launched B1 once at its shape")
     check(rel <= 1e-5 and torch.isfinite(y.data).all().item(),
@@ -3824,7 +3985,7 @@ def phase_variants() -> tuple:
     """The four backbones, the inverse mode, the decoder variants, the
     wrapped-phase table and the lookups at the weighted tables' shapes.
     Returns (launches, summary, {name: {kernel: row}})."""
-    counts = {k.name: 0 for k in kernels.ALL}
+    counts = {k.name: 0 for k in DSP_KERNELS}
     summary = {}
 
     def add(c):
@@ -3882,12 +4043,12 @@ def _script(name: str, folder: str = "scripts"):
 
 
 def zero_counts() -> None:
-    for k in kernels.ALL:
+    for k in DSP_KERNELS:
         k.launches = 0
 
 
 def read_counts() -> dict:
-    return {k.name: k.launches for k in kernels.ALL}
+    return {k.name: k.launches for k in DSP_KERNELS}
 
 
 def tools_build() -> dict:
@@ -3928,7 +4089,7 @@ def tools_rtf(decoder: str, shapes: dict) -> tuple:
           f"rtf {decoder}: launches per synthesis "
           f"{res['launches_per_synthesis']} == {per}")
     # one counted synthesis, one warm-up, TOOLS_NUM timed
-    for k in kernels.ALL:
+    for k in DSP_KERNELS:
         want = per.get(k.name, 0) * (TOOLS_NUM + 2)
         check(counts[k.name] == want,
               f"rtf {decoder}: {k.name} launched {counts[k.name]}, not "
@@ -4335,7 +4496,7 @@ CONVERT_ORDER = (4, 1, 0, 3, 2)
 
 
 def kernel(name: str) -> kernels.CudaKernel:
-    return next(k for k in kernels.ALL if k.name == name)
+    return next(k for k in DSP_KERNELS if k.name == name)
 
 
 def scan64(x: np.ndarray, a: np.ndarray) -> np.ndarray:
@@ -4441,7 +4602,7 @@ def tools_time_l2(run: Path, ckpt: Path, out: Path) -> tuple:
     import yaml
 
     tl2 = _script("time_l2_torch", "tools")
-    total = {k.name: 0 for k in kernels.ALL}
+    total = {k.name: 0 for k in DSP_KERNELS}
     summary = {}
     shapes = None
     for decoder, per in TIME_L2_PATH.items():
@@ -4600,7 +4761,7 @@ def phase_tools(tree: Path, out: Path, shapes: dict, run: Path) -> tuple:
     launches of each decoder's test_rtf run, B4's row at p = 26 and the
     kernel rows at time_l2's shapes)."""
     summary = {"build": tools_build()}
-    counts = {k.name: 0 for k in kernels.ALL}
+    counts = {k.name: 0 for k in DSP_KERNELS}
     rtf_counts = {}
     for decoder in RTF_PATH:
         c, summary[f"rtf_{decoder}"] = tools_rtf(decoder, shapes)
@@ -4802,7 +4963,7 @@ def par_rank(rank: int, world: int, store: str, work: str, result_q):
                                 world_size=world, rank=rank,
                                 timeout=__import__("datetime").timedelta(
                                     seconds=300))
-        kernels.build(kernels.ALL)          # binds the parent's libraries
+        kernels.build(DSP_KERNELS)          # binds the parent's libraries
         out = {}
         for case in PAR_CASES:
             kind, decoder, layout, batch = case
@@ -4850,7 +5011,7 @@ def par_rank(rank: int, world: int, store: str, work: str, result_q):
             torch.cuda.synchronize()
             held = torch.cuda.memory_allocated() / 2 ** 30
             torch.cuda.reset_peak_memory_stats()
-            for k in kernels.ALL:
+            for k in DSP_KERNELS:
                 k.launches = 0
                 k.by_shapes = {}
             (loss2, _), secs = timed(step)
@@ -4867,9 +5028,9 @@ def par_rank(rank: int, world: int, store: str, work: str, result_q):
                 "held_gib": held,
                 "second_loss": loss2, "step_ms": secs * 1e3,
                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                "counts": {k.name: k.launches for k in kernels.ALL},
+                "counts": {k.name: k.launches for k in DSP_KERNELS},
                 "shapes": {k.name: [list(map(list, s)) for s in k.by_shapes]
-                           for k in kernels.ALL if k.by_shapes}}
+                           for k in DSP_KERNELS if k.by_shapes}}
             del task, step
             torch.cuda.empty_cache()
         dist.destroy_process_group()
@@ -5268,7 +5429,7 @@ def phase_parallel() -> tuple:
     t_ranks = time.perf_counter() - t0
     check(all(p.exitcode == 0 for p in procs),
           f"parallel ranks' exit codes {[p.exitcode for p in procs]}")
-    counts = {k.name: 0 for k in kernels.ALL}
+    counts = {k.name: 0 for k in DSP_KERNELS}
     report = {}
     for case in PAR_CASES:
         kind, decoder, (d, t), batch = case
@@ -5392,7 +5553,7 @@ def main() -> int:
     serve_shapes = main_path_shapes(BATCH, int(SECONDS * SR))
     train_shapes = main_path_shapes(TRAIN_BATCH, int(TRAIN_SECONDS * SR))
     serve_rows = phase_kernels(serve_shapes)
-    rows = phase_kernels(train_shapes, [k.name for k in kernels.ALL],
+    rows = phase_kernels(train_shapes, [k.name for k in DSP_KERNELS],
                          label="train")
     push_rows = phase_kernels(stream_shapes(BATCH), ("lookup",),
                               label="push")
@@ -5403,10 +5564,11 @@ def main() -> int:
     print_lookup_summary({"push": push_rows["lookup"],
                           "serve": serve_rows["lookup"],
                           "train": rows["lookup"]})
+    pyr_rows = phase_pyramid()
     phase_backward(train_shapes)
     phase_resonance()
     t0 = done("kernels", t0)
-    counts = {k.name: 0 for k in kernels.ALL}
+    counts = {k.name: 0 for k in DSP_KERNELS}
 
     def add(c: dict) -> dict:
         for name, n in c.items():
@@ -5507,7 +5669,7 @@ def main() -> int:
                 # dispatch picks it)
                 "allpole_tv_rerun": "golf_tpu/parallel/seqpar.py:397"}
     table = []
-    for k in kernels.ALL:
+    for k in DSP_KERNELS:
         r = rows[k.name]
         entry = {
             "name": k.name, "route": "cuda",
@@ -5666,6 +5828,34 @@ def main() -> int:
                 if key in sr_:
                     entry["serve"][key] = sr_[key]
         table.append(entry)
+    # P1, its two entries over the recipe's four pyramid stages: times
+    # and bounds summed over the stages (one forward), each stage's row
+    for k, key in ((kernels.PYRAMID_CONV, "conv"),
+                   (kernels.PYRAMID_CONV_EVAL, "eval")):
+        def total(field):
+            return sum(r[key][field] for r in pyr_rows)
+        table.append({
+            "name": k.name, "route": "cuda",
+            "source": f"golf_tpu_torch/kernels/csrc/{k.source}",
+            "replaces": ("no Pallas site: golf_tpu/models/unet.py "
+                         "ConvPyramid's flax Conv under XLA"),
+            "launches": k.launches,
+            "max_abs_err": max(r[key]["err"] for r in pyr_rows),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": sum(r[key]["bound"][0] for r in pyr_rows),
+            "bound_by": "operations (stage 1: bytes)",
+            "library_ms": sum(r["library_ms"] for r in pyr_rows),
+            "library": "F.conv2d under cuDNN's heuristics, TF32 off",
+            "library_benchmark_ms": sum(r["library_benchmark_ms"]
+                                        for r in pyr_rows),
+            "shapes": [r["shapes"] for r in pyr_rows],
+            "stages": [{"shapes": r["shapes"], **r[key],
+                        "plan": r["plan" if key == "conv" else "plan_eval"],
+                        "library_ms": r["library_ms"],
+                        "library_benchmark_ms": r["library_benchmark_ms"]}
+                       for r in pyr_rows],
+            "note": ("the recipe's four stages at B = 64 x 2 s, summed; "
+                     "launches: the run's")})
     # B4's generic-order instantiation (every p but 22), on
     # tools/lpc_anchor_torch.py's one row at p = 26 (phase tools)
     table.append({

@@ -36,6 +36,7 @@ BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 def _nvcc() -> str:
@@ -187,5 +188,17 @@ ALLPOLE_TV_RERUN = CudaKernel(
     "allpole_tv_rerun", "allpole_tv.cu", "golf_allpole_tv_rerun",
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 
+# the encoder's conv pyramid stage: the convolution and bias, and the same
+# with the eval stage (batch norm, ReLU, max-pool) in its epilogue; both
+# take the tile planned by ops/pyramid.py::plan_conv (cog, rg, cg, chunk)
+PYRAMID_CONV = CudaKernel(
+    "pyramid_conv", "pyramid_conv.cu", "golf_pyramid_conv",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+PYRAMID_CONV_EVAL = CudaKernel(
+    "pyramid_conv_eval", "pyramid_conv.cu", "golf_pyramid_conv_eval",
+    [_P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+     _I, _I, _P])
+
 ALL = (LOOKUP, LOOKUP_RES, LOOKUP_DTAB, ALLPOLE_CONST, ALLPOLE_CONST_ADJ,
-       ALLPOLE_TV, ALLPOLE_TV_ADJ, ALLPOLE_TV_SUMMARY, ALLPOLE_TV_RERUN)
+       ALLPOLE_TV, ALLPOLE_TV_ADJ, ALLPOLE_TV_SUMMARY, ALLPOLE_TV_RERUN,
+       PYRAMID_CONV, PYRAMID_CONV_EVAL)

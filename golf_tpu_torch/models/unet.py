@@ -36,6 +36,8 @@ from torch import nn
 
 from ..core.sig import Sig, true_divide
 from ..ops import stft as stft_ops
+from ..ops.pyramid import pyramid_conv, pyramid_stage_eval
+from ..ops.pyramid import strided_max as _strided_max
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.mesh import train_batch_norm
@@ -43,16 +45,6 @@ from ..utils import profiling
 from .enc import BackboneModelInterface, _running_minmax, check_mode
 from .lru import LRU
 from .rnn import BiLSTM
-
-
-def _strided_max(x: torch.Tensor, s: int, axis: int) -> torch.Tensor:
-    """Max-pool with window == stride along ``axis`` (floor)."""
-    if s == 1:
-        return x
-    x = x.movedim(axis, -1)
-    frames = x.shape[-1] // s
-    x = x[..., :frames * s].reshape(*x.shape[:-1], frames, s).amax(dim=-1)
-    return x.movedim(-1, axis)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -111,7 +103,14 @@ def env_features(spec: torch.Tensor, f0_d: torch.Tensor, sample_rate: int,
 
 class ConvPyramid(nn.Module):
     """Conv2d((2s+1, 3)) + BN + ReLU + MaxPool((s, 1)) over frequency, in
-    fp32 or (``dtype`` bf16) as ``golf_tpu``'s under a bf16 dtype."""
+    fp32 or (``dtype`` bf16) as ``golf_tpu``'s under a bf16 dtype.
+
+    In fp32 each stage goes through ``ops.pyramid`` (on the card, the
+    hand-written P1 kernels): in eval mode with no gradient the whole stage
+    is ``pyramid_stage_eval``; otherwise the convolution is
+    ``pyramid_conv``, then the batch norm (the training one in train
+    mode), ReLU and the pool as torch ops. Other dtypes run the torch
+    convolution."""
 
     def __init__(self, in_channels: int = 1,
                  channels: Sequence[int] = (16, 32, 64, 128),
@@ -132,8 +131,15 @@ class ConvPyramid(nn.Module):
         dt = self.dtype
         if dt is not None:
             x = x.to(dt)
+        fp32 = dt is None and x.dtype == torch.float32
+        fused = fp32 and not self.training and not torch.is_grad_enabled()
         for conv, norm, s in zip(self.convs, self.norms, self.strides):
-            if dt is None:
+            if fused:
+                x = pyramid_stage_eval(x.contiguous(), conv, norm, s)
+                continue
+            if fp32:
+                x = norm(pyramid_conv(x.contiguous(), conv.weight, conv.bias))
+            elif dt is None:
                 x = norm(conv(x))
             else:
                 # flax rounds the convolution to bf16, then adds the bias

@@ -653,3 +653,156 @@ def test_cuda_allpole_summary_entry(cuda_device, b, t, p, scale):
     launches = tap.ALLPOLE_TV_SUMMARY.launches
     tap.allpole_summary_cuda(x, a)
     assert tap.ALLPOLE_TV_SUMMARY.launches == launches + 1
+
+
+# P1's shapes (B, Cin, Cout, F, T, s): the recipe's four stages at B = 4
+# (cfg/ae/vctk.yaml: 513 bins, 200 frames of 2 s), synthetic.yaml's two,
+# and a ragged case (channels not a multiple of the tile, odd F and T,
+# s = 2)
+PYRAMID_SHAPES = [(4, 1, 32, 513, 200, 4), (4, 32, 64, 128, 200, 4),
+                  (4, 64, 128, 32, 200, 4), (4, 128, 256, 8, 200, 4),
+                  (4, 1, 8, 513, 200, 4), (4, 8, 16, 128, 200, 4),
+                  (3, 5, 24, 37, 50, 2)]
+
+
+def _pyramid_stage(rng, cin, cout, s, device):
+    """A conv and an eval-mode batch norm with seeded parameters and
+    running statistics; some of the norm's scales negative, so that the
+    pool must follow the norm."""
+    from torch import nn
+    conv = nn.Conv2d(cin, cout, (2 * s + 1, 3), padding=(s, 1))
+    norm = nn.BatchNorm2d(cout, eps=1e-5)
+    scale = 1 / np.sqrt(cin * 3 * (2 * s + 1))
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(scale * rng.standard_normal(
+            conv.weight.shape).astype(np.float32)))
+        conv.bias.copy_(torch.from_numpy(0.1 * rng.standard_normal(
+            cout).astype(np.float32)))
+        norm.running_mean.copy_(torch.from_numpy(0.2 * rng.standard_normal(
+            cout).astype(np.float32)))
+        norm.running_var.copy_(torch.from_numpy(rng.uniform(
+            0.5, 2.0, cout).astype(np.float32)))
+        norm.weight.copy_(torch.from_numpy(rng.standard_normal(
+            cout).astype(np.float32)))
+        norm.bias.copy_(torch.from_numpy(0.1 * rng.standard_normal(
+            cout).astype(np.float32)))
+    return conv.to(device).eval(), norm.to(device).eval()
+
+
+def _stage_eval64(x, conv, norm, s):
+    from golf_tpu_torch.ops import pyramid as pyr
+    y = torch.nn.functional.conv2d(x.double(), conv.weight.double(),
+                                   conv.bias.double(), padding=(s, 1))
+    y = torch.nn.functional.batch_norm(
+        y, norm.running_mean.double(), norm.running_var.double(),
+        norm.weight.double(), norm.bias.double(), False, 0.0, norm.eps)
+    return pyr.strided_max(torch.relu(y), s, axis=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,cin,cout,f,t,s", PYRAMID_SHAPES)
+def test_cuda_pyramid_conv_within_cudnn_error(cuda_device, b, cin, cout, f,
+                                              t, s):
+    """Both P1 entries against their plain versions: the kernel's max-abs
+    error from a float64 ``F.conv2d`` (and the float64 stage) is at most
+    1.5x cuDNN's fp32 error on the same inputs, TF32 off. The kernel sums
+    the same products in fp32 in another order than cuDNN (one fixed
+    chain an output over input channel, kernel row, kernel column), so
+    neither is exact; 1.5x leaves room for the orders' differing luck.
+    A second run is bit for bit the first (no atomics, no split sum)."""
+    from golf_tpu_torch.ops import pyramid as pyr
+    rng = np.random.default_rng(cin * 1000 + cout + f + t)
+    conv, norm = _pyramid_stage(rng, cin, cout, s, cuda_device)
+    x = torch.from_numpy(rng.standard_normal((b, cin, f, t)).astype(
+        np.float32)).to(cuda_device)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        y = pyr.pyramid_conv_cuda(x, conv.weight, conv.bias)
+        lib = pyr.pyramid_conv_plain(x, conv.weight, conv.bias)
+        ref = torch.nn.functional.conv2d(x.double(), conv.weight.double(),
+                                         conv.bias.double(), padding=(s, 1))
+        ye = pyr.pyramid_stage_eval_cuda(x, conv, norm, s)
+        lib_e = pyr.pyramid_stage_eval_plain(x, conv, norm, s)
+        ref_e = _stage_eval64(x, conv, norm, s)
+        assert y.shape == ref.shape and ye.shape == ref_e.shape
+        for got, plain, r in ((y, lib, ref), (ye, lib_e, ref_e)):
+            err = (got.double() - r).abs().max().item()
+            lib_err = (plain.double() - r).abs().max().item()
+            assert err <= 1.5 * lib_err, (err, lib_err)
+        assert torch.equal(y, pyr.pyramid_conv_cuda(x, conv.weight,
+                                                    conv.bias))
+        assert torch.equal(ye, pyr.pyramid_stage_eval_cuda(x, conv, norm, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_grad", [True, False])
+def test_cuda_pyramid_conv_gradients_equal_conv2d(cuda_device, x_grad):
+    """``pyramid_conv``'s backward is ``F.conv2d``'s: the input, weight and
+    bias gradients bit for bit, under cuDNN's deterministic algorithms
+    (the forward differs by rounding, the backward is the same call)."""
+    from golf_tpu_torch.ops import pyramid as pyr
+    rng = np.random.default_rng(11)
+    conv, _ = _pyramid_stage(rng, 8, 16, 4, cuda_device)
+    x = torch.from_numpy(rng.standard_normal((3, 8, 64, 50)).astype(
+        np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.standard_normal((3, 16, 64, 50)).astype(
+        np.float32)).to(cuda_device)
+    grads = []
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                    benchmark=False, allow_tf32=False):
+        for fn in (pyr.pyramid_conv,
+                   lambda a, w, b: torch.nn.functional.conv2d(
+                       a, w, b, padding=(4, 1))):
+            xi = x.clone().requires_grad_(x_grad)
+            w = conv.weight.detach().clone().requires_grad_()
+            b = conv.bias.detach().clone().requires_grad_()
+            fn(xi, w, b).backward(g)
+            grads.append([xi.grad, w.grad, b.grad])
+    for got, ref in zip(*grads):
+        if ref is None:
+            assert got is None
+        else:
+            assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_conv_pyramid_launches_by_mode(cuda_device):
+    """``ConvPyramid`` in fp32 on the card: the eval entry once a stage in
+    eval mode under no_grad, the bias-only entry once a stage otherwise
+    (train mode; eval with gradients on); no F.conv2d forward."""
+    from golf_tpu_torch import kernels
+    from golf_tpu_torch.models.unet import ConvPyramid
+    pyr = ConvPyramid(1, (8, 16), (4, 4)).to(cuda_device)
+    x = torch.randn(2, 1, 513, 40, device=cuda_device)
+    conv, ev = kernels.PYRAMID_CONV, kernels.PYRAMID_CONV_EVAL
+
+    def launches(fn):
+        before = (conv.launches, ev.launches)
+        fn()
+        return conv.launches - before[0], ev.launches - before[1]
+
+    assert launches(lambda: pyr(x).sum().backward()) == (2, 0)
+    pyr.eval()
+    with torch.no_grad():
+        assert launches(lambda: pyr(x)) == (0, 2)
+        fused = pyr(x)
+    assert launches(lambda: pyr(x)) == (2, 0)
+    assert (pyr(x) - fused).abs().max().item() <= 1e-5 * \
+        fused.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_pyramid_wrappers_refuse_bad_inputs(cuda_device):
+    from golf_tpu_torch.ops import pyramid as pyr
+    w = torch.zeros(4, 2, 9, 3, device=cuda_device)
+    b = torch.zeros(4, device=cuda_device)
+    x = torch.zeros(1, 2, 16, 10, device=cuda_device)
+    with pytest.raises(ValueError):
+        pyr.pyramid_conv_cuda(x.cpu(), w, b)
+    with pytest.raises(TypeError):
+        pyr.pyramid_conv_cuda(x.double(), w.double(), b.double())
+    with pytest.raises(ValueError):
+        pyr.pyramid_conv_cuda(x.transpose(2, 3), w, b)
+    with pytest.raises(ValueError):
+        pyr.pyramid_conv_cuda(x, torch.zeros(4, 2, 11, 3,
+                                             device=cuda_device), b)

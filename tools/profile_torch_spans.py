@@ -22,7 +22,9 @@ steps (or batches) each:
    step in each (equal where no ``golf.`` range leaks into the
    operations, and none is in the first), and with the recorder on every
    device idle gap charged to the innermost ``golf.`` span the host was in
-   at the gap's middle.
+   at the gap's middle, and each device kernel's time charged to the
+   innermost ``golf.`` span whose host operations launched it (the top
+   kernels of each span).
 
 It prints a line a cell: the spans' device ms a step, their self time,
 ``host_syncs`` by span, the set-up spans' host seconds, the encoder's
@@ -177,6 +179,28 @@ def idle_by_span(prof, steps: int):
                                            key=lambda kv: -kv[1]))}
 
 
+def kernels_by_span(prof, steps: int, top: int = 8):
+    """The device kernels each innermost ``golf.`` host range launched
+    (through its operations' own kernels), ms a step by kernel name, the
+    ``top`` longest a span."""
+    by_span = {}
+
+    def walk(ev, span):
+        if ev.name.startswith(profiling.RANGE):
+            span = ev.name[len(profiling.RANGE):]
+        for k in ev.kernels:
+            d = by_span.setdefault(span, {})
+            d[k.name] = d.get(k.name, 0.0) + k.duration / 1e3 / steps
+        for child in ev.cpu_children:
+            walk(child, span)
+
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA and ev.cpu_parent is None:
+            walk(ev, "(no span)")
+    return {span: dict(sorted(d.items(), key=lambda kv: -kv[1])[:top])
+            for span, d in by_span.items()}
+
+
 def sync_sites(cell: Cell):
     """The source lines of the synchronizing calls of one step, as the
     sync debug mode reports them, with their counts."""
@@ -204,7 +228,10 @@ def profiled(cell: Cell, n: int, record: bool):
             for _ in range(n):
                 cell.step()
             _sync(cell.device)
-    return idle_by_span(prof, n)
+    out = idle_by_span(prof, n)
+    if record:
+        out["kernels_by_span_ms"] = kernels_by_span(prof, n)
+    return out
 
 
 def measure(name: str, seed: int, steps: int, device, batch=None,
@@ -298,10 +325,13 @@ def main(argv=None) -> int:
         for k in ("profile_off", "profile_on"):
             if k in out:
                 brief[k] = {kk: v for kk, v in out[k].items()
-                            if kk != "idle_by_span_ms"}
+                            if kk not in ("idle_by_span_ms",
+                                          "kernels_by_span_ms")}
         if "profile_on" in out:
             brief["idle_by_span_ms"] = dict(list(
                 out["profile_on"]["idle_by_span_ms"].items())[:12])
+            brief["pyramid_fwd_kernels_ms"] = out["profile_on"][
+                "kernels_by_span_ms"].get("encoder.pyramid.fwd")
         print(json.dumps(brief), flush=True)
     return 0
 
