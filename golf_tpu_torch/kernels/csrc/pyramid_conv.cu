@@ -46,16 +46,21 @@
 //  - The s rows of a pool window are one thread's own registers, so the
 //    eval epilogue normalises, pools and applies ReLU (relu(max) is
 //    max(relu)) without leaving registers.
-//  - Each output is summed in a fixed order, input channel, kernel row,
-//    kernel column, in one fp32 chain, then the bias is added: the result
-//    is deterministic (no atomics, no split of the sum) and the same for
-//    every tile. A second level (a partial sum an input channel, added to
-//    the total) cut stage 4's error from float64 about 4.5x at B = 64, but
-//    needs 64 more registers, one CTA an SM, and cost 10% (30% on stage 1).
+//  - Each output is summed in two levels in a fixed order: a partial sum
+//    an input channel over its kernel rows and columns (2 s + 1 times 3
+//    products), added to the total in input-channel order; then the bias
+//    is added. The result is deterministic (no atomics, no split of the
+//    sum over threads) and the same for every tile and batch. One fp32
+//    chain over all Cin (2 s + 1) 3 products, at stage 4's 3456, stood
+//    5.4x cuDNN's error from float64 at B = 64 (1.31e-5 against 2.42e-6 on
+//    an H100); the second level needs 64 more registers and so one CTA an
+//    SM (about 10% slower at stages 2-4). With one input channel (stage 1)
+//    the partial is the total, so that instantiation keeps one chain and
+//    two CTAs an SM.
 //  - The bias-only entry stores frame pairs as 8 bytes where T is even.
 //  - The kernel is templated on s (the kernel height 2 s + 1, the rows a
-//    thread owns and the unrolled taps), instantiated for s = 1 to 4; s = 4
-//    is the recipe's. A pool window has to lie in one thread's registers,
+//    thread owns and the unrolled taps) and the sum's levels, instantiated
+//    for s = 1 to 4 with both; s = 4 is the recipe's. A pool window has to lie in one thread's registers,
 //    which fixes the rows a thread owns to s at compile time.
 
 #include <cuda_runtime.h>
@@ -197,8 +202,9 @@ __device__ __forceinline__ void load_row(float (&row)[C + 2],
   }
 }
 
-template <int S, bool EVAL>
-__global__ void __launch_bounds__(kThreads, 2)
+// TWO: the two-level sum (Cin > 1); else one chain (Cin = 1)
+template <int S, bool EVAL, bool TWO>
+__global__ void __launch_bounds__(kThreads, TWO ? 1 : 2)
 pyramid_conv_kernel(const Args a) {
   using Sh = Shape<S>;
   constexpr int C = Sh::C;
@@ -225,13 +231,16 @@ pyramid_conv_kernel(const Args a) {
   const int b = blockIdx.z;
   const float* xb = a.x + (size_t)b * a.cin * a.f * a.t;
 
-  float acc[S][C][kCoThread];
+  using Tile = float[S][C][kCoThread];
+  Tile acc, part;
 #pragma unroll
   for (int i = 0; i < S; ++i)
 #pragma unroll
     for (int j = 0; j < C; ++j)
 #pragma unroll
       for (int c = 0; c < kCoThread; ++c) acc[i][j][c] = 0.0f;
+  // the sums an input channel's products go into
+  Tile& sum = TWO ? part : acc;
 
   const int n_chunks = (a.cin + a.chunk - 1) / a.chunk;
   load_stage<S>(a, smem, 0, xb, f0, t0, co0);
@@ -251,6 +260,14 @@ pyramid_conv_kernel(const Args a) {
     for (int ci = 0; ci < a.chunk; ++ci) {
       const float* wr = wbase + ci * Sh::TAPS * co_tile;
       const float* xr = xbase + ci * rows_in * w_cols;
+      if (TWO) {
+#pragma unroll
+        for (int i = 0; i < S; ++i)
+#pragma unroll
+          for (int j = 0; j < C; ++j)
+#pragma unroll
+            for (int c = 0; c < kCoThread; ++c) part[i][j][c] = 0.0f;
+      }
       // rolling window: input row r of the thread's rows lives in r % S
       float win[S][C + 2];
 #pragma unroll
@@ -272,9 +289,17 @@ pyramid_conv_kernel(const Args a) {
               const float v = win[(kh + i) % S][j + kw];
 #pragma unroll
               for (int c = 0; c < kCoThread; ++c)
-                acc[i][j][c] = fmaf(v, w[c], acc[i][j][c]);
+                sum[i][j][c] = fmaf(v, w[c], sum[i][j][c]);
             }
         }
+      }
+      if (TWO) {
+#pragma unroll
+        for (int i = 0; i < S; ++i)
+#pragma unroll
+          for (int j = 0; j < C; ++j)
+#pragma unroll
+            for (int c = 0; c < kCoThread; ++c) acc[i][j][c] += part[i][j][c];
       }
     }
     __syncthreads();
@@ -323,17 +348,21 @@ pyramid_conv_kernel(const Args a) {
       float* yc = a.y + (((size_t)b * a.cout + co) * a.fout + fo) * a.t;
 #pragma unroll
       for (int j = 0; j < C; ++j) {
+        // the max and ReLU keep a NaN, as torch's amax and relu do (fmaxf
+        // would drop it)
         float m = __int_as_float(0xff800000);  // -inf
 #pragma unroll
-        for (int i = 0; i < S; ++i)
-          m = fmaxf(m, fmaf((acc[i][j][c] + bv) - mu, alpha, beta));
-        if (tb + j < a.t) yc[tb + j] = fmaxf(m, 0.0f);
+        for (int i = 0; i < S; ++i) {
+          const float v = fmaf((acc[i][j][c] + bv) - mu, alpha, beta);
+          m = (v > m || v != v) ? v : m;
+        }
+        if (tb + j < a.t) yc[tb + j] = (m > 0.0f || m != m) ? m : 0.0f;
       }
     }
   }
 }
 
-template <int S, bool EVAL>
+template <int S, bool EVAL, bool TWO>
 int launch(const Args& a, int batch, cudaStream_t stream) {
   const int co_tiles = (a.cout + kCoThread * a.cog - 1) / (kCoThread * a.cog);
   const int tiles_f = (a.rows + a.rg * S - 1) / (a.rg * S);
@@ -341,13 +370,23 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
       2 * (size_t)stage_floats<S>(a.cog, a.rg, a.cg, a.chunk) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        pyramid_conv_kernel<S, EVAL>,
+        pyramid_conv_kernel<S, EVAL, TWO>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid(tiles_f * a.tiles_t, co_tiles, batch);
-  pyramid_conv_kernel<S, EVAL><<<grid, kThreads, smem, stream>>>(a);
+  pyramid_conv_kernel<S, EVAL, TWO><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <bool EVAL, bool TWO>
+int launch_s(const Args& a, int batch, int s, cudaStream_t stream) {
+  switch (s) {
+    case 1: return launch<1, EVAL, TWO>(a, batch, stream);
+    case 2: return launch<2, EVAL, TWO>(a, batch, stream);
+    case 3: return launch<3, EVAL, TWO>(a, batch, stream);
+    default: return launch<4, EVAL, TWO>(a, batch, stream);
+  }
 }
 
 template <bool EVAL>
@@ -359,12 +398,8 @@ int dispatch(Args& a, int batch, int s, int device, cudaStream_t stream) {
   const int cols[kMaxS + 1] = {0, Shape<1>::C, Shape<2>::C, Shape<3>::C,
                                Shape<4>::C};
   a.tiles_t = (a.t + a.cg * cols[s] - 1) / (a.cg * cols[s]);
-  switch (s) {
-    case 1: return launch<1, EVAL>(a, batch, stream);
-    case 2: return launch<2, EVAL>(a, batch, stream);
-    case 3: return launch<3, EVAL>(a, batch, stream);
-    default: return launch<4, EVAL>(a, batch, stream);
-  }
+  return a.cin > 1 ? launch_s<EVAL, true>(a, batch, s, stream)
+                   : launch_s<EVAL, false>(a, batch, s, stream);
 }
 
 }  // namespace

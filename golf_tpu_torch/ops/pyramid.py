@@ -22,7 +22,7 @@ and the card's SM count.
 from __future__ import annotations
 
 import functools
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -125,8 +125,7 @@ def plan_conv(batch: int, cin: int, cout: int, rows: int, t: int,
     copy little; among equal costs, the plan with more CTAs. The chunk is
     the largest power of two up to 8 input channels whose two stages fit
     ``STAGES_BYTES``. One algorithm for every shape: layer 1 (Cin = 1) and
-    the compute-bound layers differ only in the tile this picks.
-    ``tools/pyramid_conv_sweep.py`` times every candidate on the card."""
+    the compute-bound layers differ only in the tile this picks."""
     fma = 3 * (2 * s + 1) * CO_THREAD * s * cols(s)
     best, best_key = None, None
     for p in candidate_plans(cin, cout, s):
@@ -211,18 +210,17 @@ def _taps_last(weight: torch.Tensor) -> torch.Tensor:
 
 
 def pyramid_conv_cuda(x: torch.Tensor, weight: torch.Tensor,
-                      bias: torch.Tensor,
-                      plan: Optional[ConvPlan] = None) -> torch.Tensor:
+                      bias: torch.Tensor) -> torch.Tensor:
     """P1: conv2d(x, weight, pad (s, 1)) + bias on the card, with
-    ``plan_conv``'s tile (or ``plan``'s: every tile sums each output in
-    the same order, so gives the same bits)."""
+    ``plan_conv``'s tile (every tile sums each output in the same order,
+    so the bits do not depend on it or on the batch)."""
     check_kernel_inputs("pyramid_conv", x=x, weight=weight, bias=bias)
     s = check_conv_args("pyramid_conv", x, weight, bias)
     b, cin, f, t = x.shape
     cout = weight.shape[0]
     y = x.new_empty((b, cout, f, t))
     if y.numel():
-        p = plan or _plan(x, cout, f, s)
+        p = _plan(x, cout, f, s)
         wt = _taps_last(weight)
         PYRAMID_CONV.launch(x.data_ptr(), wt.data_ptr(), bias.data_ptr(),
                             y.data_ptr(), b, cin, cout, f, t, s, p.cog, p.rg,
@@ -243,8 +241,7 @@ def _check_norm(name: str, norm: nn.BatchNorm2d, cout: int) -> None:
 
 
 def pyramid_stage_eval_cuda(x: torch.Tensor, conv: nn.Conv2d,
-                            norm: nn.BatchNorm2d, s: int,
-                            plan: Optional[ConvPlan] = None) -> torch.Tensor:
+                            norm: nn.BatchNorm2d, s: int) -> torch.Tensor:
     """P1's eval entry: the stage in one kernel, (B, Cout, F // s, T)."""
     name = "pyramid_conv_eval"
     _check_norm(name, norm, conv.out_channels)
@@ -258,7 +255,7 @@ def pyramid_stage_eval_cuda(x: torch.Tensor, conv: nn.Conv2d,
     cout = conv.out_channels
     y = x.new_empty((b, cout, f // s, t))
     if y.numel():
-        p = plan or _plan(x, cout, (f // s) * s, s)
+        p = _plan(x, cout, (f // s) * s, s)
         wt = _taps_last(conv.weight)
         PYRAMID_CONV_EVAL.launch(
             x.data_ptr(), wt.data_ptr(), conv.bias.data_ptr(),

@@ -706,9 +706,10 @@ def test_cuda_pyramid_conv_within_cudnn_error(cuda_device, b, cin, cout, f,
     """Both P1 entries against their plain versions: the kernel's max-abs
     error from a float64 ``F.conv2d`` (and the float64 stage) is at most
     1.5x cuDNN's fp32 error on the same inputs, TF32 off. The kernel sums
-    the same products in fp32 in another order than cuDNN (one fixed
-    chain an output over input channel, kernel row, kernel column), so
-    neither is exact; 1.5x leaves room for the orders' differing luck.
+    the same products in fp32 in another order than cuDNN (a fixed chain
+    an input channel over kernel row and column, those partial sums
+    chained over input channels), so neither is exact; 1.5x leaves room
+    for the orders' differing luck.
     A second run is bit for bit the first (no atomics, no split sum)."""
     from golf_tpu_torch.ops import pyramid as pyr
     rng = np.random.default_rng(cin * 1000 + cout + f + t)
@@ -732,6 +733,36 @@ def test_cuda_pyramid_conv_within_cudnn_error(cuda_device, b, cin, cout, f,
         assert torch.equal(y, pyr.pyramid_conv_cuda(x, conv.weight,
                                                     conv.bias))
         assert torch.equal(ye, pyr.pyramid_stage_eval_cuda(x, conv, norm, s))
+
+
+@pytest.mark.cuda
+def test_cuda_pyramid_conv_keeps_nan(cuda_device):
+    """A NaN in the input reaches the same outputs as in the plain chain
+    (conv, batch norm, ReLU and max-pool all keep a NaN), for both
+    entries: the plain versions in float64 on the CPU, whose direct
+    convolution spreads a NaN only over its receptive field."""
+    import copy
+    from golf_tpu_torch.ops import pyramid as pyr
+    s = 4
+    rng = np.random.default_rng(5)
+    conv, norm = _pyramid_stage(rng, 8, 16, s, cuda_device)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 64, 30)).astype(
+        np.float32))
+    x[1, 3, 20, 7] = float("nan")
+    conv64, norm64 = (copy.deepcopy(m).cpu().double() for m in (conv, norm))
+    with torch.no_grad():
+        y = pyr.pyramid_conv_cuda(x.to(cuda_device), conv.weight,
+                                  conv.bias).cpu()
+        ye = pyr.pyramid_stage_eval_cuda(x.to(cuda_device), conv, norm,
+                                         s).cpu()
+        ref = pyr.pyramid_conv_plain(x.double(), conv64.weight, conv64.bias)
+        ref_e = pyr.pyramid_stage_eval_plain(x.double(), conv64, norm64, s)
+    for got, r in ((y, ref), (ye, ref_e)):
+        nan = torch.isnan(r)
+        assert nan.any() and not nan.all()
+        assert torch.equal(torch.isnan(got), nan)
+        assert (got.double()[~nan] - r[~nan]).abs().max().item() <= \
+            1e-5 * r[~nan].abs().max().item()
 
 
 @pytest.mark.cuda
