@@ -13,11 +13,12 @@ cell can have, planted in the reference put in the program's place:
 training, half of the batch left out (the mean over the rest); batch
 resynthesis, an answer altered where it is produced (one row of a batch
 given another row's audio). A state left unchanged by the step reads 1 in
-``change_gap`` by definition and needs no run. Training also plants faults
-of the backward in the program (``harness/faults.py``): an end filter's
-adjoint that drops its state between chunks, and B3b's table cotangent
-with half of the blocks left out. One JSON line a reading. Needs a CUDA
-card.
+``change_gap`` by definition and needs no run. Training also plants the
+configuration's faults in the program (``harness/faults.py::chosen``; the
+GOLF cells': an end filter's adjoint that drops its state between chunks,
+and B3b's table cotangent with half of the blocks left out). The
+reference, the inputs and the faults are the configuration's
+(``harness/spec.py::Parts``). One JSON line a reading. Needs a CUDA card.
 """
 
 import time
@@ -61,7 +62,7 @@ def program_fault_readings(cell, weights, batches, seed: int, want,
     from gpubench.harness import check, drivers, faults, program
 
     out = []
-    for plant in faults.BY_END_FILTER[faults.end_filter(cell.config)]:
+    for plant in faults.chosen(cell.config):
         with faults.planted(plant, cuda=True):
             prog = program.Training(cell.config, weights, batches[0],
                                     device)
@@ -82,12 +83,12 @@ def readings(cell, seed: int, control: bool, device) -> list:
 
     import torch
 
-    from gpubench.harness import check, drivers, inputs, program
-    from gpubench.reference import golf as ref
+    from gpubench.harness import check, drivers, inputs, program, spec
 
-    spec = ref.GOLF(cell.config, "cpu").param_spec()
-    weights = inputs.draw_weights(spec, seed, device)
-    batches = inputs.pool(cell.traffic, seed, device)
+    ref = spec.reference(cell.config)
+    weights = inputs.draw_weights(ref.param_spec(cell.config), seed, device)
+    batches = inputs.pool(cell.traffic, seed, device,
+                          spec.parts(cell.config).fields)
     out = []
     if cell.traffic["kind"] == "train":
         prog = program.Training(cell.config, weights, batches[0], device)
@@ -120,25 +121,25 @@ def readings(cell, seed: int, control: bool, device) -> list:
     picks = {}
     for k in range(1, len(batches)):
         y = prog.predict(batches[k])
-        picks[k] = (k, y, prog.head)
+        picks[k] = (k, y, *prog.kept)
     prog.close()
     del prog
     gc.collect()
     torch.cuda.empty_cache()
     want = check.reference_outputs(cell, weights, batches, picks, device)
-    out.append(("program", check.resynth_numbers(picks, want)))
+    out.append(("program", check.resynth_numbers(picks, want, ref.NUMBERS)))
     if control:
         tf32 = check.reference_outputs(cell, weights, batches, picks, device,
                                        tf32=True)
         out.append(("control_tf32", check.resynth_numbers(
-            {k: (k, *tf32[k]) for k in tf32}, want)))
+            {k: (k, *tf32[k]) for k in tf32}, want, ref.NUMBERS)))
         altered = {}
-        for k, (i, y, h) in picks.items():
+        for k, (i, y, *kept) in picks.items():
             y = y.clone()
             y[0] = y[1]
-            altered[k] = (i, y, h)
+            altered[k] = (i, y, *kept)
         out.append(("fault_altered_answer",
-                    check.resynth_numbers(altered, want)))
+                    check.resynth_numbers(altered, want, ref.NUMBERS)))
     return out
 
 

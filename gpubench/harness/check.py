@@ -13,10 +13,14 @@ bias in front of a train-mode batch norm: the reference's gradient is an
 exact zero, the program's rounding noise, which Adam's normalised steps
 turn into moves of full size).
 
-Resynthesis: every sampled batch's audio (``out_l2``) and the encoder's
-output on the same call (``head_gap``), row by row: the audio's glottal
-pulses carry the float32 phase's rounding times the wavetable's steep
-slope, which leaves TF32's error there under three times the program's.
+Resynthesis: every sampled batch's outputs row by row, each under the name
+the reference gives it (GOLF: the audio, ``out_l2``, and the encoder's
+output on the same call, ``head_gap``: the audio's glottal pulses carry
+the float32 phase's rounding times the wavetable's steep slope, which
+leaves TF32's error there under three times the program's).
+
+The reference is the configuration's module (``spec.reference``), the
+same interface for every task (``gpubench/README.md``).
 """
 
 from __future__ import annotations
@@ -26,8 +30,7 @@ from typing import Dict, List
 
 import torch
 
-from gpubench.reference import golf as ref
-from . import inputs
+from . import inputs, spec
 
 
 def _gap(prog: Dict[str, float], refs: Dict[str, float],
@@ -93,34 +96,37 @@ def dropout_seeds(seed: int, n: int) -> List[int]:
 
 def reference_train(cell, weights, batches, seed: int, device,
                     tf32: bool = False, rows=None) -> Dict:
-    model = ref.GOLF(cell.config, device)
-    return ref.train_readings(model, weights, batches,
-                              dropout_seeds(seed, cell.traffic["first"]),
-                              rows=rows, tf32=tf32)
+    return spec.reference(cell.config).train_readings(
+        cell.config, weights, batches,
+        dropout_seeds(seed, cell.traffic["first"]), device, rows=rows,
+        tf32=tf32)
 
 
 def reference_outputs(cell, weights, batches, picks: Dict, device,
                       tf32: bool = False) -> Dict:
-    """The reference's (audio, encoder output) for each kept batch
-    index."""
-    model = ref.GOLF(cell.config, device)
-    out = {}
-    for i in sorted({v[0] for v in picks.values()}):
-        out[i] = ref.predict(model, weights, batches[0], batches[i],
-                             tf32=tf32)
-    return out
+    """The reference's outputs (the audio, then what ``KEEP`` names) for
+    each kept batch index."""
+    wanted = {i: batches[i] for i in sorted({v[0] for v in picks.values()})}
+    return spec.reference(cell.config).outputs(
+        cell.config, weights, batches[0], wanted, device, tf32=tf32)
 
 
-def resynth_numbers(picks: Dict, refs: Dict) -> Dict[str, float]:
-    """``picks``: (batch index, audio, encoder output) of each kept batch;
-    ``refs``: the reference's (audio, encoder output) by batch index. The
-    worst ``row_gap`` of the audio (``out_l2``) and of the encoder's output
-    (``head_gap``) over the kept batches."""
-    out = {"out_l2": 0.0, "head_gap": 0.0}
-    for i, y, h in picks.values():
-        y_ref, h_ref = refs[i]
-        out["out_l2"] = max(out["out_l2"], row_gap(y, y_ref))
-        out["head_gap"] = max(out["head_gap"], row_gap(h, h_ref))
+def resynth_numbers(picks: Dict, refs: Dict, names) -> Dict[str, float]:
+    """``picks``: (batch index, audio, *kept) of each kept batch; ``refs``:
+    the reference's outputs by batch index; ``names``: the reference's
+    ``NUMBERS``, one an output. Each output's worst ``row_gap`` over the
+    kept batches. Raises where the names, the program's outputs and the
+    reference's differ in number: a name left without an output would
+    read 0 and pass any limit."""
+    out = dict.fromkeys(names, 0.0)
+    for i, *got in picks.values():
+        if not len(names) == len(got) == len(refs[i]):
+            raise RuntimeError(
+                f"{len(names)} numbers ({', '.join(names)}) for "
+                f"{len(got)} outputs of the program and {len(refs[i])} "
+                f"of the reference")
+        for name, g, want in zip(names, got, refs[i]):
+            out[name] = max(out[name], row_gap(g, want))
     return out
 
 

@@ -7,16 +7,22 @@ loop over the pool of seeded batches:
   reference will check, then ``warmup`` more steps; the window then steps
   back to back for ``--seconds``.
 * ``resynth``: one batched ``predict_step`` a batch, timed from the call to
-  ``synchronize``; ``warmup`` calls in set-up. The audio and the encoder's
-  output of the ``check`` batches drawn from the seed, and of the window's
-  last, are kept for the reference.
+  ``synchronize``; ``warmup`` calls in set-up. The audio and what the
+  reference checks beside it (GOLF: the encoder's output) of the ``check``
+  batches drawn from the seed, and of the window's last, are kept for the
+  reference.
 
-A traced run (``--trace 1``) runs ``trace`` steps with the layer spans
-before the window and ``trace`` more under the profiler with the kernel
-ranges after it, so that neither the hooks nor the profiler, whose cost
-outlasts it on the host, touch the window. Each driver returns the run's record:
+A traced run (``--trace 1``) runs ``trace`` more steps under the profiler
+with the kernel ranges after the window. Its layer spans come from where
+the configuration says (``spec.Parts.spans``): the benchmark's hooks on
+``trace`` steps before the window, or the program's own recorder on
+``trace`` steps after the window and before the profiled ones. So neither
+the hooks nor the recorder touch the window, and the profiler, whose cost
+outlasts it on the host, runs last. Each driver returns the run's record:
 what the metric readers read, the program's readings for the check, and
 the inputs the reference needs.
+``least`` (the tests') holds the window open for that many steps at
+least.
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ from typing import Dict, List
 
 import torch
 
-from . import inputs, trace
+from golf_tpu_torch.utils import profiling
+
+from . import inputs, spec, trace
 from .program import Resynthesis, Training
 
 
@@ -91,9 +99,21 @@ def profile_part(step, n: int, device) -> Dict:
     return dict(trace.read_profile(prof, window), launches=ranges.shapes)
 
 
+def program_part(step, n: int, device) -> Dict:
+    """``n`` steps inside the program's recorder: the program's spans
+    (``trace.program_spans``). Run before the profiler, whose cost on the
+    host outlasts it."""
+    with profiling.recording() as rec:
+        for _ in range(n):
+            step(None)
+        _sync(device)
+    return {"spans": trace.program_spans(rec), "trace_steps": n}
+
+
 def train(cell, seed: int, seconds: float, traced: bool, device,
-          t_start: float, weights, batches) -> Dict:
+          t_start: float, weights, batches, least: int = 0) -> Dict:
     tr = cell.traffic
+    hooks = spec.parts(cell.config).spans == "hooks"
     prog = Training(cell.config, weights, batches[0], device)
     readings = first_steps(prog, batches, seed, tr["first"], weights)
     i = tr["first"]
@@ -109,15 +129,17 @@ def train(cell, seed: int, seconds: float, traced: bool, device,
         i += 1
 
     traced_rec = span_part(prog.task, step, tr["trace"], True) \
-        if traced else {}
+        if traced and hooks else {}
     losses = []
     t0 = time.perf_counter()
-    while time.perf_counter() - t0 < seconds:
+    while time.perf_counter() - t0 < seconds or len(losses) < least:
         losses.append(prog.step(batches[i % len(batches)]))
         i += 1
     _sync(device)
     window = time.perf_counter() - t0
     if traced:
+        if not hooks:
+            traced_rec.update(program_part(step, tr["trace"], device))
         traced_rec.update(profile_part(step, tr["trace"], device))
     steps = len(losses)
     failed = sum(1 for v in torch.stack(losses).tolist()
@@ -131,8 +153,9 @@ def train(cell, seed: int, seconds: float, traced: bool, device,
 
 
 def resynth(cell, seed: int, seconds: float, traced: bool, device,
-            t_start: float, weights, batches) -> Dict:
+            t_start: float, weights, batches, least: int = 0) -> Dict:
     tr = cell.traffic
+    hooks = spec.parts(cell.config).spans == "hooks"
     prog = Resynthesis(cell.config, weights, batches[0], device)
     warm = []
     i = 0
@@ -163,8 +186,8 @@ def resynth(cell, seed: int, seconds: float, traced: bool, device,
         lat.append((time.perf_counter() - t) * 1e3)
         shapes.append(tuple(y.shape))
         if n in picks:
-            kept[n] = (batch_i, y, prog.head)
-        kept["last"] = (batch_i, y, prog.head)
+            kept[n] = (batch_i, y, *prog.kept)
+        kept["last"] = (batch_i, y, *prog.kept)
         i += 1
 
     def step(spans):
@@ -173,15 +196,17 @@ def resynth(cell, seed: int, seconds: float, traced: bool, device,
         _sync(device)
         i += 1
 
-    if traced:
+    if traced and hooks:
         traced_rec = span_part(prog.task, step, tr["trace"], False)
     t0 = time.perf_counter()
     n = 0
-    while time.perf_counter() - t0 < seconds:
+    while time.perf_counter() - t0 < seconds or n < least:
         one(n)
         n += 1
     window = time.perf_counter() - t0
     if traced:
+        if not hooks:
+            traced_rec.update(program_part(step, tr["trace"], device))
         traced_rec.update(profile_part(step, tr["trace"], device))
     peak = _peak(device)
     finite = torch.stack(flags).tolist()

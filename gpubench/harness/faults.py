@@ -1,19 +1,25 @@
 """Faults of the training step's backward, planted in the program by
 swapping the route table its autograd functions read (``CUDA_OPS`` on the
-card, ``PLAIN_OPS`` on the CPU). Each ``plant(cuda)`` returns (module,
-attribute, faulty route); ``planted`` sets it for the duration of a
-``with``. ``gpubench/control.py`` reads each at the cells' size on the
-card; the tests keep the ones the check catches.
+card, ``PLAIN_OPS`` on the CPU). Each ``plant(cuda)`` returns (an object,
+its attribute, the faulty value); ``planted`` sets it for the duration of
+a ``with``. ``gpubench/control.py`` reads each that a configuration's
+cells can have (``chosen``) at the cells' size on the card; the tests keep
+the ones the check catches. A configuration of another task names its own
+faults, plants of this form in a file of its own under
+``gpubench/faults/``.
 """
 
 from __future__ import annotations
 
 import contextlib
+from typing import Callable, Dict, List
 
 import torch
 
 from golf_tpu_torch.ops import allpole as ap
 from golf_tpu_torch.ops import lookup as lk
+
+from . import spec
 
 
 def _chunked(fn, chunk: int):
@@ -80,6 +86,17 @@ def end_filter(config) -> str:
         "class_path"]
     return "allpole" if path.endswith("LTVMinimumPhaseFilterPrecise") \
         else "allpole_const"
+
+
+def chosen(config: Dict) -> List[Callable]:
+    """The faults of the configuration's cells: those its ``faults`` names
+    (``<module>.<function>`` of ``gpubench/faults/<module>.py``), or
+    without the key those of its end filter."""
+    names = spec.parts(config).faults
+    if names is None:
+        return list(BY_END_FILTER[end_filter(config)])
+    return [getattr(spec.module("faults", mod), fn)
+            for mod, _, fn in (name.rpartition(".") for name in names)]
 
 
 @contextlib.contextmanager

@@ -6,18 +6,20 @@ reference's ``param_spec``, each leaf ``mean + std * z`` of its slice.
 
 Traffic: the traffic file's synthetic voices (a harmonic source on a
 smooth random f0 contour with unvoiced gaps, plus a little noise, peak
-normalised), the noise field of the decoder's noise source, and in
-training the f0 that unvoiced frames take, all drawn on the device in a
-few large calls from generators seeded by ``--seed``. Every seed makes the
-same shapes; only the values differ.
+normalised), the fields the configuration's task takes beyond them (the
+GOLF decoder's noise field), and in training the f0 that unvoiced frames
+take, all drawn on the device in a few large calls from generators seeded
+by ``--seed``. Every seed makes the same shapes; only the values differ.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
+
+from .spec import FIELDS
 
 # streams of one seed: the weights, the voices, the noise, the dropout
 _STREAMS = {"weights": 0, "voices": 1, "noise": 2, "dropout": 3}
@@ -76,9 +78,27 @@ def voices(n: int, t: int, sr: int, v: Dict, gen: torch.Generator,
     return x.float(), f0.float()
 
 
-def pool(traffic: Dict, seed: int, device) -> List[Dict[str, torch.Tensor]]:
-    """The traffic file's ``pool`` batches: each a dict of x, f0, noise
-    and (training) random_f0."""
+def field_shape(shape: List[str], t: int) -> tuple:
+    """A field's shape after the rows: ``clip`` is ``t``, ``clip-<k>``
+    ``t - k``."""
+    def dim(d):
+        name, _, less = d.partition("-")
+        if name != "clip":
+            raise ValueError(f"a field's dimension {d!r} is not clip or "
+                             f"clip-<k>")
+        return t - int(less or 0)
+    return tuple(dim(d) for d in shape)
+
+
+def pool(traffic: Dict, seed: int, device,
+         fields: Optional[Dict[str, Dict]] = None
+         ) -> List[Dict[str, torch.Tensor]]:
+    """The traffic file's ``pool`` batches: each a dict of x, f0, the
+    configuration's ``fields`` (``spec.Parts``; by default a noise field
+    (B, T)), each one N(0, 1) draw over the pool in the order given, and
+    (training) random_f0."""
+    if fields is None:
+        fields = FIELDS
     b = traffic["batch"]
     sr = traffic["sample_rate"]
     t = int(round(traffic["seconds"] * sr))
@@ -86,12 +106,15 @@ def pool(traffic: Dict, seed: int, device) -> List[Dict[str, torch.Tensor]]:
     x, f0 = voices(n * b, t, sr, traffic["voice"],
                    generator(seed, "voices", device), device)
     gen = generator(seed, "noise", device)
-    noise = torch.randn((n * b, t), generator=gen, device=device)
+    drawn = {name: torch.randn((n * b,) + field_shape(f["shape"], t),
+                               generator=gen, device=device)
+             for name, f in fields.items()}
     out = []
     for i in range(n):
         rows = slice(i * b, (i + 1) * b)
-        batch = {"x": x[rows].contiguous(), "f0": f0[rows].contiguous(),
-                 "noise": noise[rows].contiguous()}
+        batch = {"x": x[rows].contiguous(), "f0": f0[rows].contiguous()}
+        batch.update({name: v[rows].contiguous()
+                      for name, v in drawn.items()})
         if "random_f0" in traffic:
             lo, hi = traffic["random_f0"]
             batch["random_f0"] = lo + (hi - lo) * torch.rand(

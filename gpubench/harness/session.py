@@ -11,21 +11,22 @@ import gc
 import math
 from typing import Dict, Tuple
 
-from gpubench.reference import golf as ref
-from . import check, drivers, env, inputs, program
+from . import check, drivers, env, inputs, program, spec
 
 
 def run_cell(cell, seed: int, seconds: float, traced: bool, device,
-             t_start: float) -> Tuple[Dict, Dict]:
-    """(the record the readers read, the numbers compared by name)."""
+             t_start: float, least: int = 0) -> Tuple[Dict, Dict]:
+    """(the record the readers read, the numbers compared by name);
+    ``least``: the window's fewest steps (the tests')."""
     env.set_precision(cell.config)
     program.build_kernels(device)
-    spec = ref.GOLF(cell.config, "cpu").param_spec()
-    weights = inputs.draw_weights(spec, seed, device)
-    batches = inputs.pool(cell.traffic, seed, device)
+    ref = spec.reference(cell.config)
+    weights = inputs.draw_weights(ref.param_spec(cell.config), seed, device)
+    batches = inputs.pool(cell.traffic, seed, device,
+                          spec.parts(cell.config).fields)
     kind = cell.traffic["kind"]
     rec = drivers.DRIVERS[kind](cell, seed, seconds, traced, device,
-                                t_start, weights, batches)
+                                t_start, weights, batches, least)
     gc.collect()                 # the program's state, before the reference
     if kind == "train":
         refs = check.reference_train(cell, weights, batches, seed, device)
@@ -33,7 +34,7 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
     else:
         refs = check.reference_outputs(cell, weights, batches,
                                        rec["outputs"], device)
-        numbers = check.resynth_numbers(rec["outputs"], refs)
+        numbers = check.resynth_numbers(rec["outputs"], refs, ref.NUMBERS)
         want = tuple(next(iter(refs.values()))[0].shape)
         rec["failed"] = sum(1 for ok, shape in zip(rec["finite"],
                                                    rec["shapes"])

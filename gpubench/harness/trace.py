@@ -1,14 +1,18 @@
-"""Spans and the device trace of a traced run, taken from outside the
-program.
+"""Spans and the device trace of a traced run.
 
-* Layer spans: CUDA events recorded by hooks around the calls into each
-  layer of ``golf_tpu_torch``: forward pre/post hooks on the encoder and
-  the decoder (whose ``apply_ctrl``, called outside its ``forward``, is
-  wrapped too), a wrapper around the task's criterion, and around the
-  optimizer's step. A layer's backward runs from the moment the gradient
-  reaches the output of the layer after it (a tensor hook) to the moment
-  it reaches the layer's own output, the encoder's to the end of the
-  backward pass. Idle gaps inside a span count in it.
+* Layer spans from outside the program (``"spans": "hooks"``, the
+  default): CUDA events recorded by hooks around the calls into each
+  layer of ``golf_tpu_torch``'s voice autoencoder: forward pre/post hooks
+  on the encoder and the decoder (whose ``apply_ctrl``, called outside its
+  ``forward``, is wrapped too), a wrapper around the task's criterion, and
+  around the optimizer's step. A layer's backward runs from the moment the
+  gradient reaches the output of the layer after it (a tensor hook) to the
+  moment it reaches the layer's own output, the encoder's to the end of
+  the backward pass. Idle gaps inside a span count in it.
+* The program's own spans (``"spans": "program"``): the spans that
+  ``golf_tpu_torch.utils.profiling``'s recorder records at the program's
+  layer boundaries, read from the CUDA events it takes at each span's open
+  and close.
 * Kernel ranges: a ``record_function`` range named after the kernel
   around every ``CudaKernel.launch``, with the operand shapes of each
   launch; the kernel's device time is that of the device operations inside
@@ -247,6 +251,15 @@ def idle_gaps(events, merged: List[List[float]], top: int = 10,
         out[name] = out.get(name, 0.0) + length / 1e6
     return [[n, s] for n, s in sorted(out.items(), key=lambda kv: -kv[1])
             [:top]]
+
+
+def program_spans(rec) -> Dict[str, float]:
+    """ms of each of the program's spans over the steps recorded, summed by
+    name: the device time between the CUDA events its recorder takes on
+    the stream at the span's open and close (idle gaps inside count, as in
+    the hooks' spans); without CUDA (the CPU tests), the host time."""
+    return {name: t["host_s"] * 1e3 if t["device_ms"] is None
+            else t["device_ms"] for name, t in rec.totals().items()}
 
 
 def profiler():

@@ -21,6 +21,10 @@ native loop on the CPU), its dropout drawn from the default generators. The
 all-pole recursions run in float64 (``allpole.py``); everything else runs
 in the tensors' float32, with TF32 as ``precision`` sets it. Nothing here
 imports the program or JAX, and nothing is read from the program.
+
+The harness calls it through the interface every reference module has
+(``gpubench/README.md``): ``param_spec``, ``train_readings``, ``outputs``,
+``KEEP`` and ``NUMBERS``.
 """
 
 from __future__ import annotations
@@ -418,8 +422,22 @@ class Adam:
         return grads
 
 
-def train_readings(model: GOLF, weights: Dict[str, torch.Tensor],
-                   batches: List[Dict], seeds: List[int],
+# -- the interface ---------------------------------------------------------
+
+# the submodules of the program whose forward output a resynthesis call
+# keeps beside the audio (the encoder's: its head's rows), and the name of
+# the number that compares each output, the audio first
+KEEP = ("encoder.backbone",)
+NUMBERS = ("out_l2", "head_gap")
+
+
+def param_spec(cfg: Dict) -> Spec:
+    """The configuration's trained parameters: (name, shape, std, mean)."""
+    return GOLF(cfg, "cpu").param_spec()
+
+
+def train_readings(cfg: Dict, weights: Dict[str, torch.Tensor],
+                   batches: List[Dict], seeds: List[int], device,
                    rows: Optional[int] = None, tf32: bool = False) -> Dict:
     """The reference's first ``len(seeds)`` steps from ``weights``, the
     running min/max first set from batch 0, step k on batch k after
@@ -427,6 +445,8 @@ def train_readings(model: GOLF, weights: Dict[str, torch.Tensor],
     the per-leaf norm of the first gradient as Adam took it, and of each
     leaf's change over the steps. ``rows`` keeps the first rows of every
     batch only."""
+    model = GOLF(cfg, device)
+
     def sel(t):
         return t if rows is None else t[:rows]
 
@@ -455,6 +475,15 @@ def train_readings(model: GOLF, weights: Dict[str, torch.Tensor],
         change = {n: float(torch.linalg.vector_norm(
             (w[n].detach() - weights[n]).double())) for n in names}
     return {"loss": losses, "grad": grad, "change": change}
+
+
+def outputs(cfg: Dict, weights: Dict[str, torch.Tensor], first: Dict,
+            batches: Dict[int, Dict], device, tf32: bool = False) -> Dict:
+    """The reference's resynthesis of each of ``batches`` (by index): the
+    audio and the encoder's output."""
+    model = GOLF(cfg, device)
+    return {i: predict(model, weights, first, b, tf32=tf32)
+            for i, b in batches.items()}
 
 
 def predict(model: GOLF, weights: Dict[str, torch.Tensor], first: Dict,

@@ -49,7 +49,7 @@ def test_the_check_compares_top_level_names_whole(monkeypatch):
 
 def test_the_harness_and_the_program_load_no_jax():
     code = ("import gpubench.harness.session, gpubench.harness.trace, "
-            "gpubench.control; "
+            "gpubench.control, golf_tpu_torch.tasks.cli; "
             "from gpubench.harness import env; "
             "print(env.forbidden_modules())")
     out = subprocess.run([sys.executable, "-c", code], cwd=spec.ROOT,
